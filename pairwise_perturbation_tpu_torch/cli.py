@@ -5,9 +5,11 @@ the reference's ``./test_ALS`` (test_ALS.cxx).
     python -m pairwise_perturbation_tpu_torch.cli test_als -model CP \\
         -tensor r -pp 1 -dim 3 -size 200 -rank 10 -maxiter 40 -filename out.csv
 
-Runs on ``-device`` (default ``cuda``), in float32 or float64, on the
-synthetic zoo p/p2/c/r/r2, with -pp 0 (DT-ALS) or -pp 1 (PP with DT
-preconditioning, host-driven phases). The CSV has the reference's schema.
+Runs on ``-device`` (default ``cuda``), in float32, float64 or the
+mixed-precision ``bfloat16`` mode (V stored bf16; factors, Grams and
+solves float32), on the synthetic zoo p/p2/c/r/r2, with -pp 0 (DT-ALS) or
+-pp 1 (PP with DT preconditioning, host-driven phases). The CSV has the
+reference's schema.
 Unlike the JAX package, the port never reorders V's modes for the TPU's
 tiling (utils/layout.canonicalize), which is an identity for these cubic
 tensors anyway. What is not ported yet is refused with the ROADMAP step
@@ -20,9 +22,6 @@ import sys
 import time
 
 import numpy as np
-
-_DTYPES = ("float32", "float64")
-
 
 def _unsupported(args, cmd):
     """The first requested feature the port does not have yet, or None."""
@@ -40,8 +39,6 @@ def _unsupported(args, cmd):
         (args.device_loop >= 1,
          "-device_loop >= 1 is not ported yet (ROADMAP A14); "
          "use -device_loop 0"),
-        (args.dtype not in _DTYPES,
-         "-dtype bfloat16 (bf16-stored V) is not ported yet (ROADMAP A8)"),
         (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16)"),
         (args.tensor in ("o1", "o2"),
          f"-tensor {args.tensor}: the dataset loaders are not ported yet "
@@ -104,14 +101,17 @@ def cmd_test_als(args) -> int:
     device = _device(args.device)
     _print_banner(args)
     np_dtype = np.float64 if args.dtype == "float64" else np.float32
+    # factor dtype; -dtype bfloat16 stores only V in bf16 (JAX cli.py:24-38)
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     V = synth.make_tensor(args.tensor, args.dim, args.size, args.rank,
                           args.colmin, args.colmax, args.rationoise,
                           seed=args.seed, dtype=np_dtype)
-    Vnorm = float(np.linalg.norm(V.ravel()))
+    Vnorm = float(np.linalg.norm(V.ravel()))  # of the f32 values, unrounded
     if not args.quiet:
         print(f"Vnorm= {Vnorm}")
     V = torch.from_numpy(V).to(device)
+    if args.dtype == "bfloat16":
+        V = V.to(torch.bfloat16)
     t0 = time.perf_counter()
     Ws = cp.init_factors(V.shape, args.rank, seed=args.seed, dtype=dtype,
                          device=device)

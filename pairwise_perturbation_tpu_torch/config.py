@@ -27,6 +27,15 @@ class NumericConfig:
     # Route order-3 f32 MTTKRPs on CUDA tensors to the hand-written kernel
     # (ops/kernels/mttkrp3.py); the counterpart of ``use_pallas``.
     use_kernels: bool = True
+    # Route single-mode, non-minor first-level contractions
+    # (contract.first_contraction) to the mid_contract kernel
+    # (ops/kernels/mid_contract.py); the counterpart of
+    # ``use_pallas_first``, off by default as there.
+    use_kernels_first: bool = False
+    # Compute the PP cache build's three chain roots of an eligible order-4
+    # V in one read (ops/kernels/triple_roots.py); the counterpart of
+    # ``use_pallas_triple``, off by default as there.
+    use_kernels_triple: bool = False
 
 
 _cfg = NumericConfig()

@@ -172,7 +172,14 @@ def cp_diagnostics(V_norm_sq, V, Ws, lam=None):
     """(gradnorm, diffV), both EXACT at the current iterate: gradnorm from
     fresh per-mode MTTKRPs (contract.cp_gradnorm) and diffV via the norm
     identity with a fresh exact MTTKRP. Exact recomputation keeps the
-    logged gradnorm on one scale across the DT and PP phases."""
+    logged gradnorm on one scale across the DT and PP phases.
+
+    bf16-stored V is upcast to the factor dtype first (JAX cp.py:295-296):
+    the mixed-precision rule would otherwise round the factors to bf16 as
+    well, and the norm identity's cancellation then clamps diffV to 0.
+    Order 3 then reaches the f32 MTTKRP kernels."""
+    if V.dtype == torch.bfloat16:
+        V = V.to(Ws[0].dtype)
     gn = contract.cp_gradnorm(V, list(Ws), regul=lam)
     M_last = contract.mttkrp(V, Ws, len(Ws) - 1)
     diffV = contract.cp_residual_norm(V_norm_sq, M_last, Ws)

@@ -39,18 +39,22 @@ _RANK = "Z"
 
 
 def _einsum(spec, *ops):
-    """torch.einsum on float operands. bfloat16-stored V (the JAX
-    package's mixed-precision rule, contract.py:54-78) is not ported."""
+    """torch.einsum with the JAX package's mixed-precision rule
+    (contract.py:54-78): when any operand is bfloat16 (bf16-stored V),
+    every operand is rounded to bf16 and the contraction runs in float32,
+    which returns float32. bf16 x bf16 products are exact in float32, so
+    this is the TPU's bf16 contraction with f32 accumulation up to the
+    order of the sums."""
     if any(o.dtype == torch.bfloat16 for o in ops):
-        raise NotImplementedError(
-            "bfloat16 operands: the mixed-precision einsum rule is not "
-            "ported yet (ROADMAP A8)")
+        ops = [o.to(torch.bfloat16).float() for o in ops]
     return torch.einsum(spec, *ops)
 
 
 def norm_sq(V):
-    """||V||^2, accumulated in V's dtype."""
+    """||V||^2, accumulated in float32 for bf16 V, else in V's dtype."""
     v = V.reshape(-1)
+    if v.dtype == torch.bfloat16:
+        v = v.float()
     return torch.dot(v, v)
 
 
@@ -70,12 +74,17 @@ def mttkrp(V, factors: Sequence, mode: int):
     operands only and factors may arrive as views (a transpose, for
     example), so they are made contiguous first: no copy for a contiguous
     factor, at most an (n, R) one otherwise.
+
+    bf16 V: the JAX package writes one einsum, which rounds every factor
+    to bf16; the chain therefore rounds them all, not only the first.
     """
     order = V.ndim
     if config.get().use_kernels and order == 3 and V.dtype == torch.float32:
         from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
         return mttkrp3.mttkrp3_mode(V.contiguous(),
                                     [W.contiguous() for W in factors], mode)
+    if V.dtype == torch.bfloat16:
+        factors = [W.to(torch.bfloat16).float() for W in factors]
     others = (m for m in range(order) if m != mode)
     return partial_mttkrp(
         V, factors, order_by_priority(others, contraction_priority(V.shape)))
@@ -118,7 +127,9 @@ def fused_partial_mttkrp(V, factors: Sequence,
     """Partial MTTKRP of a single-consumer chain. Returns (tensor,
     remaining_modes). The JAX package writes this as one einsum so XLA can
     fuse it; eager PyTorch has nothing to fuse, so it is the chain of
-    :func:`partial_mttkrp` in the given order."""
+    :func:`partial_mttkrp` in the given order. For bf16 V only the first
+    step rounds its factor, as the JAX version splits that step out
+    (contract.py:161-182)."""
     cset = set(contract_modes)
     rem = tuple(m for m in range(V.ndim) if m not in cset)
     return partial_mttkrp(V, factors, contract_modes), rem
@@ -145,10 +156,23 @@ def order_by_priority(modes, priority: Sequence[int]) -> Tuple[int, ...]:
 
 def first_contraction(V, factor, mode: int):
     """V x_m W_m (Khatri-Rao first level). Output axes: remaining modes
-    ascending + rank (same convention as :func:`contract_mode_kr`). The
-    JAX package's mode-minor layouts and its ``mid_contract`` kernel
-    (ROADMAP B1) are not ported."""
-    return contract_mode_kr(V, tuple(range(V.ndim)), False, factor, mode)
+    ascending + rank (same convention as :func:`contract_mode_kr`).
+
+    Routes as the JAX package does (contract.py:266-278): with
+    ``config.get().use_kernels_first`` a non-minor mode that
+    ``mid_contract_eligible`` admits goes to the kernel module (rank-minor
+    output), which launches its CUDA kernel for a CUDA tensor and runs its
+    plain version for a CPU one; everything else is the einsum. The JAX
+    package's mode-minor layouts of V are not ported."""
+    order = V.ndim
+    if config.get().use_kernels_first and mode < order - 1:
+        from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+        if mid_contract.mid_contract_eligible(V.shape, mode, V.dtype,
+                                              factor.shape[1]):
+            rem = tuple(m for m in range(order) if m != mode)
+            return mid_contract.mid_contract(V.contiguous(),
+                                             factor.contiguous(), mode), rem
+    return contract_mode_kr(V, tuple(range(order)), False, factor, mode)
 
 
 def _first_contraction_rm(V, factor, mode: int):
@@ -184,10 +208,24 @@ def build_pp_caches(V, factors: Sequence):
     tuples; a chain sharing a prefix reuses the prefix intermediate.
     Chains follow :func:`contraction_priority` and run rank-major, as in
     the JAX package (contract.py:357-442).
+
+    With ``config.get().use_kernels_triple``, an order-4 V whose axis 0
+    is the smallest mode roots every chain at axis 1, 2 or 3; when
+    ``triple_roots_eligible`` admits it, the three roots come from one
+    pass over V (contract.py:392-405).
     """
     order = V.ndim
     priority = contraction_priority(V.shape)
     memo: Dict[Tuple[int, ...], Tuple] = {}
+    if config.get().use_kernels_triple and order == 4 and priority[-1] == 0:
+        from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots
+        if triple_roots.triple_roots_eligible(V.shape, V.dtype,
+                                              factors[0].shape[1]):
+            o1, o2, o3 = triple_roots.triple_roots(
+                V.contiguous(), *(W.contiguous() for W in factors[1:]))
+            memo[(1,)] = (o1, (0, 2, 3))
+            memo[(2,)] = (o2, (0, 1, 3))
+            memo[(3,)] = (o3, (0, 1, 2))
 
     def get(key: Tuple[int, ...]):
         if key not in memo:

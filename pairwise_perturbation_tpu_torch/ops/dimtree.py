@@ -75,9 +75,15 @@ class BinaryTreeSweep:
         to_contract = [m for m in range(plo, phi + 1) if not lo <= m <= hi]
         chain = contract.order_by_priority(
             to_contract, contract.contraction_priority(self.V.shape))
-        if (plo, phi) == (0, order - 1):
-            # top-level node: contract directly from V
+        if (plo, phi) == (0, order - 1) and len(chain) > 1:
+            # top-level node from V: one single-consumer chain
             T, _ = contract.fused_partial_mttkrp(self.V, self.factors, chain)
+        elif (plo, phi) == (0, order - 1):
+            # top-level node one mode away from V: the first-level
+            # contraction, where the mid_contract kernel may serve it
+            # (JAX dimtree.py:104-121)
+            T, _ = contract.first_contraction(self.V, self.factors[chain[0]],
+                                              chain[0])
         else:
             T, rem = self.node(plo, phi), tuple(range(plo, phi + 1))
             for m in chain:

@@ -45,7 +45,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):  # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libppkernels_{h.hexdigest()[:16]}.so"
@@ -94,6 +94,11 @@ def load() -> ctypes.CDLL:
     lib.pp_mttkrp3_mode2.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
                                      i64, i64, p]
     lib.pp_mttkrp3_mode2.restype = i32
+    lib.pp_mid_contract.argtypes = [p, i32, p, p, i64, i64, i64, i32, i32, p]
+    lib.pp_mid_contract.restype = i32
+    lib.pp_triple_roots.argtypes = [p, i32, p, p, p, p, p, p, p, i64, i64,
+                                    i64, i64, i32, i32, i32, i64, p]
+    lib.pp_triple_roots.restype = i32
     lib.pp_cuda_error_string.argtypes = [i32]
     lib.pp_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

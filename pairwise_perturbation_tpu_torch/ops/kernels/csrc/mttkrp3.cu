@@ -38,15 +38,15 @@
 // Every entry launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() (0 = launched).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using pp::min64;
+using pp::rank_chunk;
+
 constexpr int kMaxThreads = 256;  // threads per block (8 warps)
 constexpr int kFibers = 64;       // fibers whose weights are staged at once
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 template <int RC>
 __device__ __forceinline__ void fma_fiber(float v, const float* w, float (&s)[RC]) {
@@ -185,29 +185,10 @@ __global__ void mttkrp3_sum_slabs_kernel(const float* __restrict__ partial,
   out[e] = v;
 }
 
-int rank_chunk(int R) {
-  if (R <= 4) return 4;
-  if (R <= 8) return 8;
-  if (R <= 12) return 12;
-  if (R <= 16) return 16;
-  if (R <= 24) return 24;
-  return 32;
-}
-
 int block_threads(int64_t K) {
   const int64_t t = (K + 31) / 32 * 32;
   return (int)(t < kMaxThreads ? t : kMaxThreads);
 }
-
-#define PP_DISPATCH_RC(RC_VALUE, ...)                 \
-  switch (RC_VALUE) {                                 \
-    case 4: { constexpr int RC = 4; __VA_ARGS__; } break;   \
-    case 8: { constexpr int RC = 8; __VA_ARGS__; } break;   \
-    case 12: { constexpr int RC = 12; __VA_ARGS__; } break; \
-    case 16: { constexpr int RC = 16; __VA_ARGS__; } break; \
-    case 24: { constexpr int RC = 24; __VA_ARGS__; } break; \
-    default: { constexpr int RC = 32; __VA_ARGS__; } break; \
-  }
 
 int launch_rows(const float* V, const float* W, const float* C, float* out,
                 int64_t nx, int64_t ny, int64_t K, int R, int64_t sx, int64_t sy,

@@ -54,7 +54,8 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-maxiter", type=int, default=250)
     p.add_argument("-dtype", default="float32",
                    choices=["float32", "float64", "bfloat16"],
-                   help="float32 | float64 (bfloat16 not ported)")
+                   help="float32 | float64 | bfloat16 (V stored bf16; "
+                        "factors, Grams and solves float32)")
     p.add_argument("-mesh", default="", help="device mesh: not ported")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("-checkpoint", default="",

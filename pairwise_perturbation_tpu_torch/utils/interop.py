@@ -14,17 +14,21 @@ import numpy as np
 import torch
 
 
-def from_numpy(V, factors: Sequence, device="cpu", dtype=None
-               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+def from_numpy(V, factors: Sequence, device="cpu", dtype=None,
+               v_dtype=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(V, factors) as torch tensors on ``device``; ``dtype`` defaults to
-    V's own dtype. Arrays are copied, never shared with the caller."""
+    V's own dtype, ``v_dtype`` (V's torch dtype) to ``dtype``. With
+    ``v_dtype=torch.bfloat16`` the mixed-precision mode's V is rounded
+    from the same numpy values as ``jnp.asarray(V, jnp.bfloat16)``
+    rounds them: both round to nearest even, so the bits agree. Arrays
+    are copied, never shared with the caller."""
     V = np.asarray(V)
     dtype = dtype or torch.from_numpy(np.empty(0, V.dtype)).dtype
 
-    def conv(x):
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    def conv(x, dt=dtype):
+        return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
-    return conv(V), [conv(W) for W in factors]
+    return conv(V, v_dtype or dtype), [conv(W) for W in factors]
 
 
 def to_numpy(x):

@@ -209,9 +209,60 @@ def test_mttkrp_hands_the_kernel_contiguous_factors():
 
 
 def test_bf16_raises():
-    V = torch.ones((2, 3, 4), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tc._einsum("abc,aZ->bcZ", V, torch.ones((2, 3)))
+    """bf16 V is ported (the mixed-precision rule: every operand rounded to
+    bf16, f32 contraction and result); what still raises is a bf16 factor
+    handed to a kernel, whose wrappers take f32 factors only."""
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    V = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4) / 7
+    W = torch.ones((2, 3)) / 3
+    got = tc._einsum("abc,aZ->bcZ", V.bfloat16(), W)
+    assert got.dtype == torch.float32
+    want = torch.einsum("abc,aZ->bcZ", V.bfloat16().float(),
+                        W.bfloat16().float())
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="float32"):
+        mid_contract.mid_contract(torch.empty((2, 3, 4), device="meta"),
+                                  torch.empty((2, 3), device="meta",
+                                              dtype=torch.bfloat16), 0)
+
+
+def _bf16_problem(order, R=3, seed=0):
+    V, Ws = _problem(order, R, seed)
+    V = V.astype(np.float32)
+    Ws = [W.astype(np.float32) for W in Ws]
+    return (jnp.asarray(V, jnp.bfloat16), [jnp.asarray(W) for W in Ws],
+            torch.tensor(V, dtype=torch.bfloat16),
+            [torch.from_numpy(W) for W in Ws])
+
+
+@pytest.mark.parametrize("order", [3, 4])
+def test_bf16_contractions_match_jax(order):
+    """bf16-stored V through norm_sq, mttkrp (every factor rounded, as the
+    JAX package's single einsum does), fused_partial_mttkrp (only the
+    first factor), the PP caches and the tree: f32 results within 1e-6 of
+    the JAX package's (the same rounded products summed in another
+    order)."""
+    jV, jW, tV, tW = _bf16_problem(order)
+    # one f32 sum of up to 840 squares, reduced in another order: 1e-5
+    _close(tc.norm_sq(tV), jc.norm_sq(jV), tol=1e-5)
+    for mode in range(order):
+        got = tc.mttkrp(tV, tW, mode)
+        assert got.dtype == torch.float32
+        _close(got, jc.mttkrp(jV, jW, mode), tol=1e-6)
+    modes = tuple(range(order - 2, -1, -1))
+    tT, trem = tc.fused_partial_mttkrp(tV, tW, modes)
+    jT, jrem = jc.fused_partial_mttkrp(jV, jW, modes)
+    assert trem == jrem
+    _close(tT, jT, tol=1e-6)
+    ts_, tp = tc.build_pp_caches(tV, tW)
+    js_, jp = jc.build_pp_caches(jV, jW)
+    for k in jp:
+        _close(tp[k], jp[k], tol=1e-6)
+    for k in js_:
+        _close(ts_[k], js_[k], tol=1e-6)
+    jt, tt = jd.BinaryTreeSweep(jV, jW), td.BinaryTreeSweep(tV, tW)
+    for i in range(order):
+        _close(tt.mttkrp(i), jt.mttkrp(i), tol=1e-6)
 
 
 # ---------------------------------------------------------------------------
