@@ -15,6 +15,11 @@ traceback and exits nonzero:
 3b. The same for the chain-root kernels, float32 and bf16-stored V:
    mid_contract in both output layouts (K4 rank-minor, K4' rank-major)
    and triple_roots (K6).
+3c. The sparse COO MTTKRP kernel (K7) against its plain version, every
+   mode, on phase 6's own tensor and initial factors, at the
+   sparse200_4_nnz1.6M fixture, the Pallas tests' two shapes, R = 40, a
+   Zipf-skewed mode 0 (16M nonzeros) and NELL-2's shape with 76.9M
+   uniform nonzeros; two launches must agree bit for bit.
 4. The main path through the CLI: ``test_als -model CP -pp 1`` on a
    200^3 rank-10 tensor; checks the CSV and that every kernel ran.
 4b. The CLI at 512^3 rank 10, f32 and ``-dtype bfloat16``: short
@@ -26,6 +31,12 @@ traceback and exits nonzero:
 5b. The same shape, f32 and bf16 V, under
    ``config.override(use_kernels_triple=True)``: every PP cache build
    takes its three chain roots from one K6 launch.
+6. The sparse CLI: ``test_als -model CP -issparse 1 -pp 1`` on the folded
+   Poisson tensor (100^4); checks the CSV and that K7 launched exactly N
+   times per exact sweep and N + 1 times per diagnostics row.
+6b. Sparse PP on the sparse200_4_nnz1.6M fixture, rank 10, 20 sweeps,
+   kernels off and on in turns, phase medians side by side; then plain
+   sparse ALS (maxiter 3) at NELL-2's shape with K7.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
@@ -71,6 +82,26 @@ MAIN_SHAPE = (200, 200, 200, 10)
 REL_TOL = 1e-4
 CSV_HEADER = "[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]"
 COIL_SHAPE = (3, 128, 128, 7200)
+CP_PHASES = ("cp.dt_sweep", "cp.pp_cache_build", "cp.pp_sweep",
+             "cp.diagnostics")
+SPARSE_PHASES = ("sparse.sweep", "sparse.pp_cache_build", "sparse.pp_sweep",
+                 "sparse.diagnostics")
+COO_REPLACES = "pairwise_perturbation_tpu/ops/kernels/coo_pallas.py:145"
+# bench.py's sparse fixture (uniform indices and values) and FROSTT
+# NELL-2's shape and nonzero count (synthetic uniform nonzeros).
+SPARSE_SHAPE, SPARSE_NNZ = (200, 200, 200, 200), 1_600_000
+NELL2_SHAPE, NELL2_NNZ = (12092, 9184, 28818), 76_879_419
+# Phase 6's sparse CLI run; phase 3c also holds K7 on its tensor and
+# first factors.
+SPARSE_CLI = ["-model", "CP", "-issparse", "1", "-pp", "1", "-tensor", "p",
+              "-dim", "8", "-size", "10", "-rank", "10"]
+# (label, shape, nnz, R, Zipf-skewed mode 0) of the other K7 checks.
+COO_CHECKS = [("sparse200_4_nnz1.6M", SPARSE_SHAPE, SPARSE_NNZ, 10, False),
+              ("pallas-test order 4", (37, 50, 29, 61), 3000, 5, False),
+              ("pallas-test order 3", (20, 31, 17), 777, 4, False),
+              ("sparse200_4 R=40", SPARSE_SHAPE, SPARSE_NNZ, 40, False),
+              ("zipf(1.2) mode 0", SPARSE_SHAPE, 16_000_000, 10, True),
+              ("NELL-2 shape", NELL2_SHAPE, NELL2_NNZ, 10, False)]
 
 
 def phase(name):
@@ -225,6 +256,105 @@ def compare_chain_roots():
     return results
 
 
+def random_coo(shape, nnz, R, gen, seed, skewed=False):
+    """A COO tensor of ``nnz`` uniform nonzeros (duplicates kept, as
+    bench.py's fixture keeps them), uniform values and factors; with
+    ``skewed`` mode 0's indices follow a Zipf law (a = 1.2) clipped to
+    the mode's size."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    cols = [torch.randint(0, s, (nnz,), generator=gen, device="cuda",
+                          dtype=torch.int32) for s in shape]
+    if skewed:
+        z = np.random.default_rng(seed).zipf(1.2, nnz)
+        cols[0] = torch.from_numpy(
+            (np.minimum(z, shape[0]) - 1).astype(np.int32)).cuda()
+    st = sparse.SparseTensor(torch.stack(cols, 1),
+                             torch.rand(nnz, generator=gen, device="cuda"),
+                             tuple(shape))
+    Ws = [torch.rand((s, R), generator=gen, device="cuda") for s in shape]
+    return st, Ws
+
+
+def sparse_cli_input():
+    """The COO tensor and initial factors of phase 6's CLI run, built as
+    cli.cmd_test_als builds them (f32, on the card)."""
+    import numpy as np
+    from pairwise_perturbation_tpu_torch import cli
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.utils import flags, synth
+    args = flags.build_parser().parse_args(SPARSE_CLI + ["-quiet"])
+    flags.clamp(args)
+    V = synth.make_tensor(args.tensor, args.dim, args.size, args.rank,
+                          args.colmin, args.colmax, args.rationoise,
+                          seed=args.seed, dtype=np.float32)
+    st = cli._sparse_tensor(args, V, "cuda")
+    return st, cp.init_factors(st.shape, args.rank, seed=args.seed,
+                               device="cuda")
+
+
+def coo_cases(gen):
+    """(label, COO tensor, factors, whether its times are K7's reported
+    ones) of every K7 check, built one at a time: the sparse CLI's input,
+    then COO_CHECKS (times reported at the fixture)."""
+    import torch
+    yield ("sparse CLI input (Poisson 100^4)", *sparse_cli_input(), False)
+    for i, (label, shape, nnz, R, skewed) in enumerate(COO_CHECKS):
+        st, Ws = random_coo(shape, nnz, R, gen, seed=i, skewed=skewed)
+        if skewed:
+            top = int(torch.bincount(st.indices[:, 0]).max())
+            print(f"{label}: heaviest mode-0 row holds {top} of {nnz} "
+                  "nonzeros")
+        yield label, st, Ws, i == 0
+
+
+def compare_coo():
+    """K7 against its plain version on the card, every mode; returns its
+    result (times at the fixture's mode 0)."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config, phase_profile
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp as coo
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = dict(max_abs_err=0.0)
+    for label, st, Ws, timed in coo_cases(gen):
+        for mode in range(st.ndim):
+            name = (f"coo_mttkrp {label} {st.shape} nnz={st.nnz} "
+                    f"R={Ws[0].shape[1]} mode {mode}")
+            got = coo.coo_mttkrp(st, Ws, mode)   # builds the plan
+            again = coo.coo_mttkrp(st, Ws, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two launches differ")
+            abs_err, rel = held_to_plain(
+                name, got, coo.coo_mttkrp_plain(st, Ws, mode))
+            del got, again
+            ms = median_ms(lambda: coo.coo_mttkrp(st, Ws, mode))
+            plain_ms = median_ms(lambda: coo.coo_mttkrp_plain(st, Ws, mode))
+            print(f"{name}: rel_err {rel:.3e} abs_err {abs_err:.3e} "
+                  f"bitwise repeat ok, kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms")
+            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+            if timed and mode == 0:
+                res["ms"], res["plain_ms"] = ms, plain_ms
+                with config.override(use_kernels=False):
+                    off_ms = median_ms(lambda: sparse.mttkrp(st, Ws, 0))
+                print(f"  sparse.mttkrp under use_kernels=False (f32 "
+                      f"index_add_, the kernel-off route): {off_ms:.4f} ms")
+                for what, fn in (
+                        ("kernel", lambda: coo.coo_mttkrp(st, Ws, 0)),
+                        ("plain", lambda: coo.coo_mttkrp_plain(st, Ws, 0))):
+                    busy, per = phase_profile.profile(fn, "cuda", 25)
+                    print(f"  {what}: device busy {1e3 * busy:.1f} us per "
+                          "call (torch.profiler): " + ", ".join(
+                              f"{k[:48]} {1e3 * v:.1f} us"
+                              for k, v in per.items()))
+        del st, Ws
+        torch.cuda.empty_cache()
+    return res
+
+
 def check_csv(rows, label):
     """Body rows of a CP CSV: the reference header, finite values, PP rows
     present and a gradnorm that decreased; prints a summary line."""
@@ -325,11 +455,10 @@ def run_cli_512(dtype, first, beside=None):
     return stats, minor, major
 
 
-def print_phase_times(stats, beside=None):
-    for name in ("cp.dt_sweep", "cp.pp_cache_build", "cp.pp_sweep",
-                 "cp.diagnostics"):
+def print_phase_times(stats, beside=None, names=CP_PHASES):
+    for name in names:
         calls, secs, med = stats.get(name, (0, 0.0, float("nan")))
-        line = (f"  {name:20s} calls {calls:4d} total {secs:.4f} s "
+        line = (f"  {name:22s} calls {calls:4d} total {secs:.4f} s "
                 f"median {1e3 * med:.3f} ms")
         if beside is not None:
             line += (f"  (kernel off: median "
@@ -386,6 +515,117 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
     return stats, launches
 
 
+def expected_coo_launches(stats, order):
+    """K7 launches the sparse phase machine implies: ``order`` per exact
+    sweep and order + 1 per diagnostics row (the gradnorm's MTTKRPs and
+    the residual's); PP sweeps and cache builds launch none."""
+    return (order * stats.get("sparse.sweep", (0,))[0]
+            + (order + 1) * stats.get("sparse.diagnostics", (0,))[0])
+
+
+def run_sparse_cli():
+    """test_als -model CP -issparse 1 -pp 1 on the folded Poisson tensor
+    (100^4) at rank 10; returns the K7 launches of the run."""
+    from pairwise_perturbation_tpu_torch import cli
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sparse_p.csv")
+        tracing.reset()
+        coo_mttkrp.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["test_als", *SPARSE_CLI, "-maxiter", "40",
+                       "-resprint", "1", "-pp_res_tol", "0.1",
+                       "-profile", "1", "-quiet", "-filename", out])
+        wall = time.perf_counter() - t0
+        launches = coo_mttkrp.LAUNCHES["coo_mttkrp"]
+        with open(out) as fh:
+            rows = list(csv.reader(fh))
+    tracing.enable(False)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    print(f"sparse CLI run (tensor build included): {wall:.3f} s")
+    check_csv(rows, "sparse CLI -tensor p -dim 8 -size 10")
+    stats = tracing.stats()
+    want = expected_coo_launches(stats, 4)
+    print(f"K7 launches {launches}, expected {want} (4 per exact sweep, "
+          "5 per diagnostics row)")
+    if not launches == want > 0:
+        raise AssertionError("K7 launches differ from the phase machine's")
+    print_phase_times(stats, names=SPARSE_PHASES)
+    return launches
+
+
+def run_sparse(st, shape, engine, maxiter, resprint, use_kernels,
+               beside=None):
+    """One sparse solve of ``engine`` (models/sparse_cp) from seeded
+    factors, rank 10, with ``config.use_kernels`` set as given; checks
+    finite output, a falling gradnorm and the K7 launch count, prints the
+    phase medians and peak memory, returns the phase stats."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    Ws = cp.init_factors(shape, 10, seed=0, device="cuda")
+    cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=maxiter,
+                      resprint=resprint)
+    tracing.reset()
+    coo_mttkrp.reset_launch_counts()
+    tracing.enable()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with config.override(use_kernels=use_kernels):
+        res = getattr(sparse_cp, engine)(st, Ws, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracing.enable(False)
+    stats = tracing.stats()
+    launches = coo_mttkrp.LAUNCHES["coo_mttkrp"]
+    gns = [h["gradnorm"] for h in res.history]
+    n_pp = sum(1 for h in res.history if h["pp"] == 1)
+    print(f"{engine} {shape} nnz={st.nnz} R=10 use_kernels={use_kernels}: "
+          f"{res.iters} sweeps in {wall:.3f} s, {len(gns)} logged rows, "
+          f"{n_pp} PP rows, gradnorm {gns[0]:.6e} -> {gns[-1]:.6e}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB,"
+          f" K7 launches {launches}")
+    if not all(math.isfinite(g) for g in gns + [res.diffV]):
+        raise AssertionError("non-finite gradnorm or diffV")
+    if not gns[-1] < gns[0]:
+        raise AssertionError("gradnorm did not decrease")
+    want = expected_coo_launches(stats, len(shape)) if use_kernels else 0
+    if launches != want:
+        raise AssertionError(f"K7 launches {launches}, expected {want}")
+    print_phase_times(stats, beside, names=SPARSE_PHASES)
+    return stats
+
+
+def run_sparse_full():
+    """Phase 6b: sparse PP at the fixture, 20 sweeps, kernels off and on
+    in turns (off, on, on, off; each "on" printed beside the last "off");
+    plain sparse ALS to maxiter 3 at NELL-2's shape with K7. Each
+    tensor's K7 setup is built before its runs."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st, _ = random_coo(SPARSE_SHAPE, SPARSE_NNZ, 1, gen, seed=0)
+    for mode in range(len(SPARSE_SHAPE)):
+        coo_mttkrp.plan(st, mode)
+    off = None
+    for on in (False, True, True, False):    # in turns: off, on, on, off
+        stats = run_sparse(st, SPARSE_SHAPE, "als_cp_pp_sparse", 20, 5, on,
+                           beside=off if on else None)
+        off = off if on else stats
+    del st
+    torch.cuda.empty_cache()
+    st, _ = random_coo(NELL2_SHAPE, NELL2_NNZ, 1, gen, seed=0)
+    for mode in range(len(NELL2_SHAPE)):
+        coo_mttkrp.plan(st, mode)
+    run_sparse(st, NELL2_SHAPE, "als_cp_sparse", 3, 3, True)
+    del st
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     phase("1. device")
     smi = check_device()
@@ -397,6 +637,8 @@ def main() -> int:
     results = compare_kernels()
     phase("3b. chain-root kernels vs plain, f32 and bf16 V (median of 25)")
     root_results = compare_chain_roots()
+    phase("3c. sparse COO MTTKRP kernel (K7) vs plain (median of 25)")
+    coo_result = compare_coo()
     phase("4. CLI test_als -model CP -pp 1, 200^3 rank 10")
     launches = run_cli_main_path()
     phase("4b. CLI at 512^3 rank 10, f32 and bf16, use_kernels_first off "
@@ -426,6 +668,12 @@ def main() -> int:
     root_launches["triple_roots"] = sum(
         run_coil_order4(d, triple=True, beside=off[d])[1]
         for d in ("float32", "bfloat16"))
+    phase("6. sparse CLI test_als -model CP -issparse 1 -pp 1, "
+          "Poisson 100^4 rank 10")
+    coo_launches = run_sparse_cli()
+    phase("6b. sparse PP at sparse200_4_nnz1.6M rank 10, kernels off and "
+          "on in turns; plain sparse ALS at NELL-2's shape")
+    run_sparse_full()
     kernels = [dict(name=f"mttkrp3_mode{m}", route="cuda",
                     source=KERNEL_SOURCE, replaces=REPLACES[m],
                     launches=launches[m], **results[m]) for m in range(3)]
@@ -436,6 +684,9 @@ def main() -> int:
                      on_main_path=name != "mid_contract_rank_major",
                      **root_results[name])
                 for name, (src, line) in ROOT_KERNELS.items()]
+    kernels.append(dict(name="coo_mttkrp", route="cuda",
+                        source=CSRC + "coo_mttkrp.cu", replaces=COO_REPLACES,
+                        launches=coo_launches, **coo_result))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Command-line driver of the port — ``test_als`` for dense CP, the
-counterpart of ``pairwise_perturbation_tpu/cli.py`` (lines 140-295) and of
-the reference's ``./test_ALS`` (test_ALS.cxx).
+"""Command-line driver of the port — ``test_als`` for CP, dense or sparse,
+the counterpart of ``pairwise_perturbation_tpu/cli.py`` (lines 140-348)
+and of the reference's ``./test_ALS`` (test_ALS.cxx).
 
     python -m pairwise_perturbation_tpu_torch.cli test_als -model CP \\
         -tensor r -pp 1 -dim 3 -size 200 -rank 10 -maxiter 40 -filename out.csv
@@ -8,8 +8,10 @@ the reference's ``./test_ALS`` (test_ALS.cxx).
 Runs on ``-device`` (default ``cuda``), in float32, float64 or the
 mixed-precision ``bfloat16`` mode (V stored bf16; factors, Grams and
 solves float32), on the synthetic zoo p/p2/c/r/r2, with -pp 0 (DT-ALS) or
--pp 1 (PP with DT preconditioning, host-driven phases). The CSV has the
-reference's schema.
+-pp 1 (PP with DT preconditioning, host-driven phases). ``-issparse 1``
+runs the COO engine (models/sparse_cp.py) on V's nonzeros instead: plain
+ALS sweeps with -pp 0, PP with plain-ALS preconditioning with -pp 1. The
+CSV has the reference's schema.
 Unlike the JAX package, the port never reorders V's modes for the TPU's
 tiling (utils/layout.canonicalize), which is an identity for these cubic
 tensors anyway. What is not ported yet is refused with the ROADMAP step
@@ -30,11 +32,15 @@ def _unsupported(args, cmd):
         return (f"'{cmd}' is not ported yet (ROADMAP {step}); "
                 "the port has test_als")
     checks = [
+        (bool(args.issparse) and args.model != "CP",
+         "-model Tucker -issparse 1 (sparse Tucker) is not ported yet: it "
+         "waits for Tucker (ROADMAP A10) and then the Tucker half of A13"),
         (args.model != "CP", "-model Tucker is not ported yet (ROADMAP A10)"),
+        (bool(args.issparse) and args.pp not in (0, 1),
+         "-issparse 1 takes -pp 0 or 1: -pp 2 (PP-partupdate, ROADMAP A9) "
+         "has no sparse engine, in the JAX package either"),
         (args.pp not in (0, 1),
          "-pp 2 (PP-partupdate) is not ported yet (ROADMAP A9)"),
-        (bool(args.issparse),
-         "-issparse (COO engine) is not ported yet (ROADMAP A13)"),
         (bool(args.mesh), "-mesh is not ported yet (ROADMAP A15)"),
         (args.device_loop >= 1,
          "-device_loop >= 1 is not ported yet (ROADMAP A14); "
@@ -94,7 +100,7 @@ def _device(name: str):
 
 def cmd_test_als(args) -> int:
     import torch
-    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
     from pairwise_perturbation_tpu_torch.utils import synth
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
@@ -109,29 +115,53 @@ def cmd_test_als(args) -> int:
     Vnorm = float(np.linalg.norm(V.ravel()))  # of the f32 values, unrounded
     if not args.quiet:
         print(f"Vnorm= {Vnorm}")
-    V = torch.from_numpy(V).to(device)
-    if args.dtype == "bfloat16":
-        V = V.to(torch.bfloat16)
+    if args.issparse:
+        X = _sparse_tensor(args, V, device)
+        solve = (sparse_cp.als_cp_sparse, sparse_cp.als_cp_pp_sparse)[args.pp]
+        split = None
+    else:
+        X = torch.from_numpy(V).to(device)
+        if args.dtype == "bfloat16":
+            X = X.to(torch.bfloat16)
+        solve = (cp.als_cp_dt, cp.als_cp_pp)[args.pp]
+        split = _planned_split(args, X.shape)
     t0 = time.perf_counter()
-    Ws = cp.init_factors(V.shape, args.rank, seed=args.seed, dtype=dtype,
+    Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
                          device=device)
     cfg = cp.CPConfig(tol=args.tol * Vnorm, pp_res_tol=args.pp_res_tol,
                       lam=args.lam, ratio_step=args.magni,
                       maxiter=args.maxiter, timelimit=args.timelimit,
-                      resprint=args.resprint,
-                      tree_split=_planned_split(args, V.shape))
+                      resprint=args.resprint, tree_split=split)
     plot = PlotFile(args.filename, PlotFile.CP_HEADER, echo=not args.quiet)
     try:
-        if args.pp == 0:
-            res = cp.als_cp_dt(V, Ws, cfg, plot)
-        else:
-            res = cp.als_cp_pp(V, Ws, cfg, plot)
+        res = solve(X, Ws, cfg, plot)
     finally:
         plot.close()
     if not args.quiet:
         print(f"\nIter = {res.iters} Final grad norm {res.gradnorm:E}")
         print(f"experiment took {time.perf_counter() - t0:.6f} seconds")
     return 0
+
+
+def _sparse_tensor(args, V, device):
+    """-issparse 1: the COO of V's nonzeros for the sparse engine
+    (models/sparse_cp.py), as the JAX package's _cmd_test_als_sparse
+    (cli.py:297-348) builds it. With -dtype bfloat16 the COO values are
+    V's bf16-rounded values stored in float32, as the JAX package stores
+    them."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import sparse
+
+    if args.dtype == "bfloat16":
+        V = torch.from_numpy(V).to(torch.bfloat16).float().numpy()
+    st = sparse.from_dense(V, device=device)
+    density = st.nnz / float(np.prod(st.shape))
+    if not args.quiet:
+        print(f"  sparse COO: nnz= {st.nnz}  density= {density:.4f}")
+        if density > 0.25:
+            print("  WARNING: tensor is dense-ish; the dense engine "
+                  "(-issparse 0) will be faster")
+    return st
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, which is loaded with ctypes: no PyTorch
-headers, so a build takes seconds. The library lands in ``build/kernels/``
-at the root of the checkout (listed in .gitignore), named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-reused. A missing ``nvcc`` or a failed build raises: there is no fallback.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object file,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, which is loaded with ctypes:
+no PyTorch headers, so a build takes seconds. The library lands in
+``build/kernels/`` at the root of the checkout (listed in .gitignore),
+named by a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is reused. A missing ``nvcc`` or a failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Optional
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""        # nvcc's output (ptxas register/shared-memory report)
@@ -64,18 +66,29 @@ def build() -> Path:
             "kernels are built from ops/kernels/csrc at first use and need "
             "the CUDA toolkit")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{build_log}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    work = tempfile.mkdtemp(dir=_BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        objs = [os.path.join(work, src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)]
+        logs = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+        tmp = os.path.join(work, out.name)
+        if all(rc == 0 for _, _, rc in logs):
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(log for _, log, _ in logs)
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}"
+                                   f"\n{log}")
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -99,6 +112,10 @@ def load() -> ctypes.CDLL:
     lib.pp_triple_roots.argtypes = [p, i32, p, p, p, p, p, p, p, i64, i64,
                                     i64, i64, i32, i32, i32, i64, p]
     lib.pp_triple_roots.restype = i32
+    lib.pp_coo_mttkrp.argtypes = [p, p, ctypes.POINTER(p),
+                                  ctypes.POINTER(i64), i32, i32, i64, i32, p,
+                                  i64, p, p, p, i64, p]
+    lib.pp_coo_mttkrp.restype = i32
     lib.pp_cuda_error_string.argtypes = [i32]
     lib.pp_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -37,7 +37,7 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-updaterank", type=int, default=1)
     p.add_argument("-randomsvd", type=int, default=0)
     p.add_argument("-issparse", type=int, default=0,
-                   help="COO sparse engine: not ported")
+                   help="1: COO sparse engine (test_als -model CP)")
     p.add_argument("-resprint", type=int, default=10)
     p.add_argument("-tol", type=float, default=1e-10,
                    help="relative tolerance; multiplied by ||V||")

@@ -2,8 +2,8 @@
 
 The JAX package draws its initial factors with ``jax.random``, whose bits
 torch cannot reproduce. The parity tests therefore make the tensor (and
-take the JAX package's factors) as numpy arrays and hand the same arrays
-to both packages through these two functions.
+take the JAX package's factors and COO arrays) as numpy arrays and hand
+the same arrays to both packages through these functions.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from pairwise_perturbation_tpu_torch.ops.sparse import SparseTensor
 
 
 def from_numpy(V, factors: Sequence, device="cpu", dtype=None,
@@ -29,6 +31,16 @@ def from_numpy(V, factors: Sequence, device="cpu", dtype=None,
         return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
     return conv(V, v_dtype or dtype), [conv(W) for W in factors]
+
+
+def sparse_from_numpy(indices, values, shape, device="cpu"):
+    """The JAX package's COO arrays (``indices[nnz, N]``, ``values[nnz]``,
+    e.g. of its ``ops.sparse.from_dense``) as the port's
+    :class:`~pairwise_perturbation_tpu_torch.ops.sparse.SparseTensor` on
+    ``device``; both arrays are copied with their dtypes as given."""
+    return SparseTensor(torch.tensor(np.asarray(indices), device=device),
+                        torch.tensor(np.asarray(values), device=device),
+                        tuple(int(s) for s in shape))
 
 
 def to_numpy(x):

@@ -72,7 +72,7 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
 @pytest.mark.parametrize("argv,step", [
     (["run"], "A11"), (["pp_bench"], "A12"),
     (["-model", "Tucker"], "A10"), (["-pp", "2"], "A9"),
-    (["-issparse", "1"], "A13"), (["-mesh", "4"], "A15"),
+    (["-issparse", "1", "-model", "Tucker"], "A13"), (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "A14"), (["-device_loop", "2"], "A14"),
     (["-layouts", "1"], "A16"),
     (["-tensor", "o1"], "A16"), (["-tensor", "o2"], "A16"),
