@@ -13,13 +13,24 @@ traceback and exits nonzero:
 3. Hold each fused order-3 MTTKRP kernel (modes 0/1/2) against its plain
    PyTorch version on the card, and time both with CUDA events.
 3b. The same for the chain-root kernels, float32 and bf16-stored V:
-   mid_contract in both output layouts (K4 rank-minor, K4' rank-major)
+   mid_contract in its package layouts (K4 rank-minor, K4' rank-major)
    and triple_roots (K6).
 3c. The sparse COO MTTKRP kernel (K7) against its plain version, every
    mode, on phase 6's own tensor and initial factors, at the
    sparse200_4_nnz1.6M fixture, the Pallas tests' two shapes, R = 40, a
    Zipf-skewed mode 0 (16M nonzeros) and NELL-2's shape with 76.9M
    uniform nonzeros; two launches must agree bit for bit.
+3d. The last kernels, each against its plain version with two launches
+   bit for bit equal: last_contract (K5), mid_contract's rank-outer
+   layout (S2), column_sum (S4) and mid_contract rank-major at every
+   block width (S5), at the coil-100 shapes of the scripts, ragged
+   shapes and R = 40; K4' at the coil shape in f32 (S1) and bf16 (S3).
+   Every kernel row of phases 3-3d is timed beside its plain version, the
+   one PyTorch call that computes the same function (or "none"), and its
+   bound: the larger of its bytes (each input read once, each output
+   written once) over 3.35 TB/s and its operations over the peak rate of
+   its type (67 TFLOP/s FP32, 989 TFLOP/s bf16). Inputs that fit the
+   50 MB L2 are also timed with the L2 flushed before each launch.
 4. The main path through the CLI: ``test_als -model CP -pp 1`` on a
    200^3 rank-10 tensor; checks the CSV and that every kernel ran.
 4b. The CLI at 512^3 rank 10, f32 and ``-dtype bfloat16``: short
@@ -37,8 +48,14 @@ traceback and exits nonzero:
 6b. Sparse PP on the sparse200_4_nnz1.6M fixture, rank 10, 20 sweeps,
    kernels off and on in turns, phase medians side by side; then plain
    sparse ALS (maxiter 3) at NELL-2's shape with K7.
+7. The three ported benchmark scripts (pairwise_perturbation_tpu_torch.
+   scripts: bench_firstpair, bench_rankpos, bench_midvariants) at the
+   coil-100 shape, rank 10, in this process: each must return 0 (every
+   error row under its tolerance), and its rows' launches give the launch
+   counts of K5 and S1-S5 (K4' = S1 + S3 + S5).
 
-The last two lines are a JSON summary of the kernels and
+The last three lines are a JSON line of every TPU kernel's row (K1-K7,
+S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -55,14 +72,44 @@ import tempfile
 import time
 
 CSRC = "pairwise_perturbation_tpu_torch/ops/kernels/csrc/"
-KERNEL_SOURCE = CSRC + "mttkrp3.cu"
 PALLAS = "pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py:"
-# The pl.pallas_call of each Pallas kernel the CUDA kernels replace.
-REPLACES = {0: PALLAS + "145", 1: PALLAS + "240", 2: PALLAS + "288"}
-# Chain-root kernels: JSON name -> (source, pl.pallas_call replaced).
-ROOT_KERNELS = {"mid_contract_rank_minor": ("mid_contract.cu", "468"),
-                "mid_contract_rank_major": ("mid_contract.cu", "482"),
-                "triple_roots": ("triple_roots.cu", "712")}
+COO_REPLACES = "pairwise_perturbation_tpu/ops/kernels/coo_pallas.py:145"
+# Every function of the repo that reaches pl.pallas_call: table id ->
+# (JSON name, CUDA source, the pl.pallas_call it replaces).
+TABLE = {
+    "K1": ("mttkrp3_mode0", "mttkrp3.cu", PALLAS + "145"),
+    "K2": ("mttkrp3_mode1", "mttkrp3.cu", PALLAS + "240"),
+    "K3": ("mttkrp3_mode2", "mttkrp3.cu", PALLAS + "288"),
+    "K4": ("mid_contract_rank_minor", "mid_contract.cu", PALLAS + "468"),
+    "K4'": ("mid_contract_rank_major", "mid_contract.cu", PALLAS + "482"),
+    "K5": ("last_contract", "last_contract.cu", PALLAS + "550"),
+    "K6": ("triple_roots", "triple_roots.cu", PALLAS + "712"),
+    "K7": ("coo_mttkrp", "coo_mttkrp.cu", COO_REPLACES),
+    "S1": ("mid_contract_rank_major_f32_rankpos", "mid_contract.cu",
+           "scripts/bench_rankpos.py:64"),
+    "S2": ("mid_contract_rank_outer", "mid_contract.cu",
+           "scripts/bench_rankpos.py:112"),
+    "S3": ("mid_contract_rank_major_bf16_rankpos", "mid_contract.cu",
+           "scripts/bench_rankpos.py:167"),
+    "S4": ("column_sum", "column_sum.cu", "scripts/bench_midvariants.py:56"),
+    "S5": ("mid_contract_rank_major_block_widths", "mid_contract.cu",
+           "scripts/bench_midvariants.py:90"),
+}
+# Per table id: max_abs_err, and at the row's reported shape ms,
+# plain_ms, library_ms, bound_ms, bound_by (filled by phases 3-3d).
+RESULTS = {k: dict(max_abs_err=0.0) for k in TABLE}
+# The launch counter each script kernel's rows read (phase 7).
+SCRIPT_COUNTERS = {"K5": "last_contract.last_contract",
+                   "S1": "mid_contract.rank_major",
+                   "S2": "mid_contract.rank_outer",
+                   "S3": "mid_contract.rank_major",
+                   "S4": "column_sum.column_sum",
+                   "S5": "mid_contract.rank_major"}
+SCRIPTS = ("bench_firstpair", "bench_rankpos", "bench_midvariants")
+# The card's published rates (H100 SXM data sheet, at a 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+L2_BYTES = 50 * 2**20
 # (shape, mode, R) of mid_contract: DT node (1, 2) at 512^3, the coil
 # shape's mode 1, a ragged shape, and R above one rank chunk (32).
 MID_CHECKS = [((512, 512, 512), 0, 10), ((3, 128, 128, 7200), 1, 10),
@@ -86,7 +133,6 @@ CP_PHASES = ("cp.dt_sweep", "cp.pp_cache_build", "cp.pp_sweep",
              "cp.diagnostics")
 SPARSE_PHASES = ("sparse.sweep", "sparse.pp_cache_build", "sparse.pp_sweep",
                  "sparse.diagnostics")
-COO_REPLACES = "pairwise_perturbation_tpu/ops/kernels/coo_pallas.py:145"
 # bench.py's sparse fixture (uniform indices and values) and FROSTT
 # NELL-2's shape and nonzero count (synthetic uniform nonzeros).
 SPARSE_SHAPE, SPARSE_NNZ = (200, 200, 200, 200), 1_600_000
@@ -108,14 +154,29 @@ def phase(name):
     print(f"\n=== {name}", flush=True)
 
 
-def median_ms(fn, n=25, warmup=3):
+_FLUSH = []
+
+
+def flush_l2():
+    """Overwrite the 50 MB L2 cache with a 256 MB store, so that the next
+    launch reads its inputs from device memory."""
+    import torch
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 * 2**20, device="cuda"))
+    _FLUSH[0].zero_()
+
+
+def median_ms(fn, n=25, warmup=3, flush=False):
     """Median device time of ``fn`` over ``n`` calls, each bracketed by
-    CUDA events, after ``warmup`` untimed calls."""
+    CUDA events, after ``warmup`` untimed calls; with ``flush`` the L2 is
+    flushed before each call, outside the events."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
+        if flush:
+            flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -124,6 +185,54 @@ def median_ms(fn, n=25, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(nbytes, ops, dtype="float32"):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``ops`` operations of ``dtype``."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS[dtype]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def timed_row(key, label, abs_err, rel, kernel, plain, library, nbytes, ops,
+              dtype="float32", library_name="", reference=None,
+              report=False):
+    """Time ``kernel``, ``plain`` and ``library`` (the one PyTorch call
+    that computes the same function, or None) and print them beside the
+    bound; ``reference`` = (name, fn) is the non-kernel route timed where
+    no single call exists. Inputs that fit the L2 are timed again with
+    it flushed. Adds the error to ``RESULTS[key]``, and with ``report``
+    the times too; returns the times."""
+    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    lib_ms = median_ms(library) if library is not None else None
+    b_ms, b_by = bound_ms(nbytes, ops, dtype)
+    fields = dict(ms=ms, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=b_ms, bound_by=b_by)
+    line = (f"{label}: rel_err {rel:.3e} abs_err {abs_err:.3e} kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
+            + (f"{lib_ms:.4f} ms ({library_name})" if lib_ms is not None
+               else "none")
+            + f" bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / ms:.1f}% of it "
+            "reached)")
+    if nbytes < L2_BYTES:
+        fields["ms_l2_flushed"] = median_ms(kernel, flush=True)
+        line += f", L2 flushed {fields['ms_l2_flushed']:.4f} ms"
+    if reference is not None:
+        fields["reference"] = reference[0]
+        fields["reference_ms"] = median_ms(reference[1])
+        line += f"; {reference[0]}: {fields['reference_ms']:.4f} ms"
+    print(line)
+    res = RESULTS[key]
+    res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+    if report:
+        res.update(fields)
+    return fields
 
 
 def check_device():
@@ -172,12 +281,24 @@ def held_to_plain(label, got, want):
     return abs_err, rel
 
 
+def held_twice(label, fn, plain):
+    """held_to_plain for two launches of ``fn`` that must agree bit for
+    bit."""
+    import torch
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches differ")
+    return held_to_plain(label, got, plain())
+
+
 def compare_kernels():
-    """Kernel vs plain on the card; returns per-mode results."""
+    """K1-K3 against their plain versions on the card; times reported at
+    MAIN_SHAPE. The library call is the whole MTTKRP as one einsum."""
     import torch
     from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {m: dict(max_abs_err=0.0) for m in range(3)}
+    specs = ("ijk,jr,kr->ir", "ijk,ir,kr->jr", "ijk,ir,jr->kr")
     for (I, J, K, R) in CHECK_SHAPES:
         V = torch.rand((I, J, K), generator=gen, device="cuda")
         Ws = [torch.rand((s, R), generator=gen, device="cuda")
@@ -187,56 +308,66 @@ def compare_kernels():
             abs_err, rel = held_to_plain(
                 label, mttkrp3.mttkrp3_mode(V, Ws, mode),
                 mttkrp3.mttkrp3_mode_plain(V, Ws, mode))
-            ms = median_ms(lambda: mttkrp3.mttkrp3_mode(V, Ws, mode))
-            plain_ms = median_ms(
-                lambda: mttkrp3.mttkrp3_mode_plain(V, Ws, mode))
-            print(f"{label}: rel_err {rel:.3e} abs_err {abs_err:.3e} "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            res = results[mode]
-            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-            if (I, J, K, R) == MAIN_SHAPE:
-                res["ms"], res["plain_ms"] = ms, plain_ms
+            others = [W for j, W in enumerate(Ws) if j != mode]
+            timed_row(f"K{mode + 1}", label, abs_err, rel,
+                      lambda: mttkrp3.mttkrp3_mode(V, Ws, mode),
+                      lambda: mttkrp3.mttkrp3_mode_plain(V, Ws, mode),
+                      lambda: torch.einsum(specs[mode], V, *others),
+                      tensor_bytes(V, *others) + 4 * V.shape[mode] * R,
+                      2 * V.numel() * R, library_name="torch.einsum",
+                      report=(I, J, K, R) == MAIN_SHAPE)
         del V, Ws
-    return results
+
+
+MID_SPECS = {"rank_minor": "pbm,br->pmr", "rank_major": "pbm,br->prm",
+             "rank_outer": "pbm,br->rpm"}
+
+
+def mid_library(V, W, mode, layout):
+    """The one einsum that computes mid_contract's function (for bf16 V
+    its output is bf16, not float32)."""
+    import torch
+    P = math.prod(V.shape[:mode])
+    V3 = V.reshape(P, V.shape[mode], -1)
+    Wd = W.to(V.dtype)
+    spec = MID_SPECS[layout]
+    return lambda: torch.einsum(spec, V3, Wd)
+
+
+def mid_bytes(V, W):
+    """mid_contract's bytes: V and W read, the float32 output written."""
+    return tensor_bytes(V, W) + 4 * (V.numel() // W.shape[0]) * W.shape[1]
 
 
 def compare_chain_roots():
     """K4, K4' and K6 against their plain versions on the card, f32 and
-    bf16 V; returns per-kernel results (times at the first shape, f32)."""
+    bf16 V; times reported at the first shape, f32."""
     import torch
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract as mc
     from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots as tr
     gen = torch.Generator(device="cuda").manual_seed(1)
-    results = {k: dict(max_abs_err=0.0) for k in ROOT_KERNELS}
-
-    def record(key, label, abs_err, rel, kernel_fn, plain_fn, main):
-        ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
-        print(f"{label}: rel_err {rel:.3e} abs_err {abs_err:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        res = results[key]
-        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-        if main:
-            res["ms"], res["plain_ms"] = ms, plain_ms
-
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
+        lib_name = "torch.einsum" + (", bf16 out" if dname == "bfloat16"
+                                     else "")
         for i, (shape, mode, R) in enumerate(MID_CHECKS):
             V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
             W = torch.rand((shape[mode], R), generator=gen, device="cuda")
-            for rank_minor in (True, False):
-                key = ("mid_contract_rank_minor" if rank_minor
-                       else "mid_contract_rank_major")
-                label = f"{key} {shape} mode {mode} R={R} {dname}"
+            for key, layout in (("K4", "rank_minor"), ("K4'", "rank_major")):
+                label = f"mid_contract {layout} {shape} mode {mode} R={R} " \
+                        f"{dname}"
 
-                def kernel(rm=rank_minor):
-                    return mc.mid_contract(V, W, mode, rank_minor=rm)
+                def kernel(lo=layout):
+                    return mc.mid_contract(V, W, mode, layout=lo)
 
-                def plain(rm=rank_minor):
-                    return mc.mid_contract_plain(V, W, mode, rank_minor=rm)
+                def plain(lo=layout):
+                    return mc.mid_contract_plain(V, W, mode, layout=lo)
 
                 abs_err, rel = held_to_plain(label, kernel(), plain())
-                record(key, label, abs_err, rel, kernel, plain,
-                       i == 0 and dtype == torch.float32)
+                timed_row(key, label, abs_err, rel, kernel, plain,
+                          mid_library(V, W, mode, layout), mid_bytes(V, W),
+                          2 * V.numel() * R, dname, lib_name,
+                          report=i == 0 and dtype == torch.float32)
             del V, W
         for i, (shape, R) in enumerate(TRIPLE_CHECKS):
             V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
@@ -246,14 +377,17 @@ def compare_chain_roots():
             label = f"triple_roots {shape} R={R} {dname}"
             errs = [held_to_plain(f"{label} O{k + 1}", g, w)
                     for k, (g, w) in enumerate(zip(got, want))]
+            out_bytes = tensor_bytes(*got)
             del got, want
-            record("triple_roots", label, max(e[0] for e in errs),
-                   max(e[1] for e in errs), lambda: tr.triple_roots(V, *Ws),
-                   lambda: tr.triple_roots_plain(V, *Ws),
-                   i == 0 and dtype == torch.float32)
+            timed_row("K6", label, max(e[0] for e in errs),
+                      max(e[1] for e in errs), lambda: tr.triple_roots(V, *Ws),
+                      lambda: tr.triple_roots_plain(V, *Ws), None,
+                      tensor_bytes(V, *Ws) + out_bytes, 6 * V.numel() * R,
+                      dname, reference=("the einsum route, three einsums",
+                                        lambda: tr.triple_roots_plain(V, *Ws)),
+                      report=i == 0 and dtype == torch.float32)
             del V, Ws
             torch.cuda.empty_cache()
-    return results
 
 
 def random_coo(shape, nnz, R, gen, seed, skewed=False):
@@ -310,38 +444,42 @@ def coo_cases(gen):
 
 
 def compare_coo():
-    """K7 against its plain version on the card, every mode; returns its
-    result (times at the fixture's mode 0)."""
+    """K7 against its plain version on the card, every mode; times
+    reported at the fixture's mode 0. No single PyTorch call computes it:
+    the reference is the kernel-off route (gather + f32 index_add_)."""
     import torch
     from pairwise_perturbation_tpu_torch import config, phase_profile
     from pairwise_perturbation_tpu_torch.ops import sparse
     from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp as coo
     gen = torch.Generator(device="cuda").manual_seed(2)
-    res = dict(max_abs_err=0.0)
+
+    def kernel_off(st, Ws, mode):
+        with config.override(use_kernels=False):
+            return sparse.mttkrp(st, Ws, mode)
+
     for label, st, Ws, timed in coo_cases(gen):
+        R = Ws[0].shape[1]
         for mode in range(st.ndim):
             name = (f"coo_mttkrp {label} {st.shape} nnz={st.nnz} "
-                    f"R={Ws[0].shape[1]} mode {mode}")
-            got = coo.coo_mttkrp(st, Ws, mode)   # builds the plan
-            again = coo.coo_mttkrp(st, Ws, mode)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name}: two launches differ")
-            abs_err, rel = held_to_plain(
-                name, got, coo.coo_mttkrp_plain(st, Ws, mode))
-            del got, again
-            ms = median_ms(lambda: coo.coo_mttkrp(st, Ws, mode))
-            plain_ms = median_ms(lambda: coo.coo_mttkrp_plain(st, Ws, mode))
-            print(f"{name}: rel_err {rel:.3e} abs_err {abs_err:.3e} "
-                  f"bitwise repeat ok, kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms")
-            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-            if timed and mode == 0:
-                res["ms"], res["plain_ms"] = ms, plain_ms
-                with config.override(use_kernels=False):
-                    off_ms = median_ms(lambda: sparse.mttkrp(st, Ws, 0))
-                print(f"  sparse.mttkrp under use_kernels=False (f32 "
-                      f"index_add_, the kernel-off route): {off_ms:.4f} ms")
+                    f"R={R} mode {mode}")
+            abs_err, rel = held_twice(       # the first call builds the plan
+                name, lambda: coo.coo_mttkrp(st, Ws, mode),
+                lambda: coo.coo_mttkrp_plain(st, Ws, mode))
+            report = timed and mode == 0
+            # the sorted indices of the other modes and the values are
+            # read, the factors of the other modes, the (s, R) output
+            nbytes = (4 * st.nnz * st.ndim + 4 * R * st.shape[mode]
+                      + tensor_bytes(*(W for j, W in enumerate(Ws)
+                                       if j != mode)))
+            timed_row("K7", name + " (bitwise repeat ok)", abs_err, rel,
+                      lambda: coo.coo_mttkrp(st, Ws, mode),
+                      lambda: coo.coo_mttkrp_plain(st, Ws, mode), None,
+                      nbytes, st.nnz * R * st.ndim,
+                      reference=("the kernel-off route, gather + f32 "
+                                 "index_add_",
+                                 lambda: kernel_off(st, Ws, mode))
+                      if report else None, report=report)
+            if report:
                 for what, fn in (
                         ("kernel", lambda: coo.coo_mttkrp(st, Ws, 0)),
                         ("plain", lambda: coo.coo_mttkrp_plain(st, Ws, 0))):
@@ -352,7 +490,141 @@ def compare_coo():
                               for k, v in per.items()))
         del st, Ws
         torch.cuda.empty_cache()
-    return res
+
+
+# (V shape, R) of last_contract (K5): the coil-100 shape of
+# bench_firstpair, a ragged (N, B), and R above one rank chunk (32).
+K5_CHECKS = [(COIL_SHAPE, 10), ((37, 1001), 7), ((64, 64, 1000), 40)]
+# (P, B, M) views and R of S2/S5: the two coil-100 views of
+# bench_midvariants (the first is also bench_rankpos's mode-1 view), a
+# ragged shape, and R = 40.
+VIEW_CHECKS = [((3, 128, 921600), 10), ((384, 128, 7200), 10),
+               ((5, 37, 1001), 7), ((200, 200, 200), 40)]
+# (P, B, M) of column_sum (S4): the two coil views and a ragged shape.
+S4_CHECKS = [(3, 128, 921600), (384, 128, 7200), (5, 37, 1001)]
+
+
+def compare_firstlevel():
+    """Phase 3d: K5, S2, S4 and S5 (every block width) against their
+    plain versions, two launches bit for bit equal; S1 and S3 are K4' at
+    the coil view in f32 and bf16. Times reported at the coil shapes."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import column_sum as cs
+    from pairwise_perturbation_tpu_torch.ops.kernels import last_contract as lc
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract as mc
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for i, (shape, R) in enumerate(K5_CHECKS):
+        V = torch.rand(shape, generator=gen, device="cuda")
+        W = torch.rand((shape[-1], R), generator=gen, device="cuda")
+        V2 = V.reshape(-1, shape[-1])
+        label = f"last_contract {shape} R={R}"
+        abs_err, rel = held_twice(label, lambda: lc.last_contract(V, W),
+                                  lambda: lc.last_contract_plain(V, W))
+        timed_row("K5", label + " (bitwise repeat ok)", abs_err, rel,
+                  lambda: lc.last_contract(V, W),
+                  lambda: lc.last_contract_plain(V, W), lambda: V2 @ W,
+                  tensor_bytes(V, W) + 4 * V2.shape[0] * R,
+                  2 * V.numel() * R, library_name="torch.matmul",
+                  report=i == 0)
+        del V, W, V2
+    for i, (shape, R) in enumerate(VIEW_CHECKS):
+        V3 = torch.rand(shape, generator=gen, device="cuda")
+        W = torch.rand((shape[1], R), generator=gen, device="cuda")
+        dtypes = (torch.float32, torch.bfloat16) if i == 0 else \
+            (torch.float32,)
+        for dtype in dtypes:
+            Vd = V3.to(dtype)
+            dname = str(dtype).replace("torch.", "")
+            bf16 = dtype == torch.bfloat16
+            for layout in ("rank_major", "rank_outer"):
+                for cols in mc.BLOCK_COLS:
+                    label = (f"mid_contract {layout} cols={cols} {shape} "
+                             f"R={R} {dname}")
+
+                    def kernel(lo=layout, c=cols):
+                        return mc.mid_contract(Vd, W, 1, layout=lo,
+                                               block_cols=c)
+
+                    def plain(lo=layout):
+                        return mc.mid_contract_plain(Vd, W, 1, layout=lo)
+
+                    abs_err, rel = held_twice(label, kernel, plain)
+                    # S1/S3: K4' at 256 columns; S2: rank-outer at 256;
+                    # S5: rank-major at every width, f32
+                    keys = ["S5"] if layout == "rank_major" and not bf16 \
+                        else []
+                    if cols == 256:
+                        keys.append({"rank_outer": "S2"}.get(
+                            layout, "S3" if bf16 else "S1"))
+                    for key in keys:
+                        fields = timed_row(
+                            key, f"[{key}] {label} (bitwise repeat ok)",
+                            abs_err, rel, kernel, plain,
+                            mid_library(Vd, W, 1, layout), mid_bytes(Vd, W),
+                            2 * Vd.numel() * R, dname,
+                            "torch.einsum" + (", bf16 out" if bf16 else ""),
+                            report=i == 0 and key != "S5"
+                            and (key == "S3") == bf16)
+                        if key == "S5" and i < 2:
+                            res = RESULTS["S5"].setdefault(
+                                "ms_by_view_and_block_cols", {})
+                            res[f"m{i + 1} cols={cols}"] = fields["ms"]
+                            if i == 0 and fields["ms"] < RESULTS["S5"].get(
+                                    "ms", math.inf):
+                                RESULTS["S5"].update(fields, block_cols=cols)
+            del Vd
+        del V3, W
+        torch.cuda.empty_cache()
+    for i, shape in enumerate(S4_CHECKS):
+        V3 = torch.rand(shape, generator=gen, device="cuda")
+        label = f"column_sum {shape}"
+        abs_err, rel = held_twice(label, lambda: cs.column_sum(V3),
+                                  lambda: cs.column_sum_plain(V3))
+        fields = timed_row(
+            "S4", label + " (bitwise repeat ok)", abs_err, rel,
+            lambda: cs.column_sum(V3), lambda: cs.column_sum_plain(V3),
+            lambda: V3.sum(1, keepdim=True),
+            tensor_bytes(V3) + 4 * shape[0] * shape[2], V3.numel(),
+            library_name="torch.sum", report=i == 0)
+        print(f"  column_sum reads {tensor_bytes(V3) / fields['ms'] / 1e6:.0f}"
+              " GB/s")
+        if i == 1:
+            RESULTS["S4"]["ms_m2_view"] = fields["ms"]
+        del V3
+        torch.cuda.empty_cache()
+
+
+def run_scripts():
+    """Phase 7: the ported benchmark scripts at the coil-100 shape, rank
+    10, in this process. Each must return 0, and every launch of its run
+    must belong to one of its rows; returns the launches of the rows of
+    each script kernel (K5, S1-S5)."""
+    import importlib
+    from collections import Counter
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    launches = Counter()
+    for name in SCRIPTS:
+        mod = importlib.import_module(
+            f"pairwise_perturbation_tpu_torch.scripts.{name}")
+        print(f"--- {name}", flush=True)
+        _bench.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, rows = mod.run([])
+        totals = {k: n for k, n in _bench.launch_counts().items() if n}
+        print(f"{name}: rc {rc} in {time.perf_counter() - t0:.3f} s, "
+              f"launches {totals}")
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+        summed = Counter()
+        for row in rows:
+            summed.update(row["launches"])
+            if row.get("kernel") in SCRIPT_COUNTERS:
+                launches[row["kernel"]] += row["launches"].get(
+                    SCRIPT_COUNTERS[row["kernel"]], 0)
+        if dict(summed) != totals:
+            raise AssertionError(f"{name}: launches outside its rows "
+                                 f"({dict(summed)} vs {totals})")
+    return launches
 
 
 def check_csv(rows, label):
@@ -626,6 +898,12 @@ def run_sparse_full():
     torch.cuda.empty_cache()
 
 
+# Rows of the table on the port's paths that this slice drives (the CLI
+# main path, its 512^3 run with use_kernels_first, and the benchmark
+# scripts); K6 serves the coil PP path and K7 the sparse path.
+OFF_SLICE_PATH = ("K6", "K7")
+
+
 def main() -> int:
     phase("1. device")
     smi = check_device()
@@ -633,14 +911,20 @@ def main() -> int:
     print(smi)
     phase("2. build")
     build_kernels()
-    phase("3. kernels vs plain (CUDA events, median of 25)")
-    results = compare_kernels()
-    phase("3b. chain-root kernels vs plain, f32 and bf16 V (median of 25)")
-    root_results = compare_chain_roots()
-    phase("3c. sparse COO MTTKRP kernel (K7) vs plain (median of 25)")
-    coo_result = compare_coo()
+    phase("3. kernels vs plain vs library, bound (CUDA events, median of "
+          "25)")
+    compare_kernels()
+    phase("3b. chain-root kernels vs plain vs library, f32 and bf16 V")
+    compare_chain_roots()
+    phase("3c. sparse COO MTTKRP kernel (K7) vs plain")
+    compare_coo()
+    phase("3d. last_contract (K5), rank-outer (S2), column_sum (S4), block "
+          "widths (S5), K4' at coil in f32 (S1) and bf16 (S3)")
+    compare_firstlevel()
+    launches = {}
     phase("4. CLI test_als -model CP -pp 1, 200^3 rank 10")
-    launches = run_cli_main_path()
+    for m, n in run_cli_main_path().items():
+        launches[f"K{m + 1}"] = n
     phase("4b. CLI at 512^3 rank 10, f32 and bf16, use_kernels_first off "
           "then on")
     # warm-up: the first calls at this shape and dtype, untimed, so that
@@ -652,41 +936,41 @@ def main() -> int:
                 if cli_512(d, first, 3, os.path.join(tmp, "warm.csv")) != 0:
                     raise AssertionError("512^3 warm-up run failed")
     print(f"warm-up runs (4 x 3 sweeps): {time.perf_counter() - t0:.3f} s")
-    root_launches = {"mid_contract_rank_major": 0,
-                     "mid_contract_rank_minor": 0}
+    launches["K4"] = major_512 = 0
     for d in ("float32", "bfloat16"):
         off = run_cli_512(d, first=False)[0]
         _, minor, major = run_cli_512(d, first=True, beside=off)
-        root_launches["mid_contract_rank_minor"] += minor
-        root_launches["mid_contract_rank_major"] += major
-    if root_launches["mid_contract_rank_major"] != 0:
+        launches["K4"] += minor
+        major_512 += major
+    if major_512 != 0:
         raise AssertionError("K4' (rank-major) launched on the 512^3 path, "
                              "which has no caller of it")
     phase("5. order-4 CP-PP at the coil-100 shape")
     off = {d: run_coil_order4(d)[0] for d in ("float32", "bfloat16")}
     phase("5b. coil-100 shape under use_kernels_triple, f32 and bf16")
-    root_launches["triple_roots"] = sum(
-        run_coil_order4(d, triple=True, beside=off[d])[1]
-        for d in ("float32", "bfloat16"))
+    launches["K6"] = sum(run_coil_order4(d, triple=True, beside=off[d])[1]
+                         for d in ("float32", "bfloat16"))
     phase("6. sparse CLI test_als -model CP -issparse 1 -pp 1, "
           "Poisson 100^4 rank 10")
-    coo_launches = run_sparse_cli()
+    launches["K7"] = run_sparse_cli()
     phase("6b. sparse PP at sparse200_4_nnz1.6M rank 10, kernels off and "
           "on in turns; plain sparse ALS at NELL-2's shape")
     run_sparse_full()
-    kernels = [dict(name=f"mttkrp3_mode{m}", route="cuda",
-                    source=KERNEL_SOURCE, replaces=REPLACES[m],
-                    launches=launches[m], **results[m]) for m in range(3)]
-    # K4' (rank-major) has no caller on any path of the package: its count
-    # from the 512^3 runs is 0, and phase 3b holds it to its plain version.
-    kernels += [dict(name=name, route="cuda", source=CSRC + src,
-                     replaces=PALLAS + line, launches=root_launches[name],
-                     on_main_path=name != "mid_contract_rank_major",
-                     **root_results[name])
-                for name, (src, line) in ROOT_KERNELS.items()]
-    kernels.append(dict(name="coo_mttkrp", route="cuda",
-                        source=CSRC + "coo_mttkrp.cu", replaces=COO_REPLACES,
-                        launches=coo_launches, **coo_result))
+    phase("7. the ported benchmark scripts at the coil-100 shape, rank 10")
+    launches.update(run_scripts())
+    # K4' has no caller in the package; the scripts launch it as S1, S3
+    # and S5.
+    launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]
+    kernels = []
+    for kid, (name, src, replaces) in TABLE.items():
+        if launches.get(kid, 0) <= 0 or "ms" not in RESULTS[kid]:
+            raise AssertionError(f"{kid} ({name}) was not launched on its "
+                                 "path or not timed")
+        kernels.append(dict(id=kid, name=name, route="cuda",
+                            source=CSRC + src, replaces=replaces,
+                            launches=launches[kid],
+                            on_main_path=kid not in OFF_SLICE_PATH,
+                            **RESULTS[kid]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

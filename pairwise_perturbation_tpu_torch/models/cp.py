@@ -192,7 +192,7 @@ def cp_diagnostics(V_norm_sq, V, Ws, lam=None):
 
 
 def init_factors(shape: Sequence[int], R: int, seed: int = 0, dtype=None,
-                 device="cpu"):
+                 device="cuda"):
     """Deterministic uniform(0,1) factor init from a seeded CPU
     ``torch.Generator`` (the same numbers on every device). It does not
     reproduce the JAX package's ``jax.random`` factors; parity tests pass

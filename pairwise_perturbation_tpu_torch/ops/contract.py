@@ -154,18 +154,22 @@ def order_by_priority(modes, priority: Sequence[int]) -> Tuple[int, ...]:
     return tuple(sorted(modes, key=lambda m: rank_of[m]))
 
 
-def first_contraction(V, factor, mode: int):
+def first_contraction(V, factor, mode: int, use_kernels: bool = None):
     """V x_m W_m (Khatri-Rao first level). Output axes: remaining modes
     ascending + rank (same convention as :func:`contract_mode_kr`).
 
     Routes as the JAX package does (contract.py:266-278): with
-    ``config.get().use_kernels_first`` a non-minor mode that
-    ``mid_contract_eligible`` admits goes to the kernel module (rank-minor
-    output), which launches its CUDA kernel for a CUDA tensor and runs its
-    plain version for a CPU one; everything else is the einsum. The JAX
-    package's mode-minor layouts of V are not ported."""
+    ``use_kernels`` (``None`` reads ``config.get().use_kernels_first``, as
+    the JAX package's ``use_pallas=None`` reads ``use_pallas_first``) a
+    non-minor mode that ``mid_contract_eligible`` admits goes to the
+    kernel module (rank-minor output), which launches its CUDA kernel for
+    a CUDA tensor and runs its plain version for a CPU one; everything
+    else, the minor mode included, is the einsum. The JAX package's
+    mode-minor layouts of V are not ported."""
     order = V.ndim
-    if config.get().use_kernels_first and mode < order - 1:
+    if use_kernels is None:
+        use_kernels = config.get().use_kernels_first
+    if use_kernels and mode < order - 1:
         from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
         if mid_contract.mid_contract_eligible(V.shape, mode, V.dtype,
                                               factor.shape[1]):
@@ -198,7 +202,7 @@ def _contract_mode_kr_rm(T, rem_modes: Tuple[int, ...], factor, mode: int):
     return out, rem_modes[:pos] + rem_modes[pos + 1:]
 
 
-def build_pp_caches(V, factors: Sequence):
+def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False):
     """Build all PP caches: pair tensors T_{ij}[R, s_i, s_j] (rank-major)
     for i<j and single matrices M_i[s_i, R].
 
@@ -213,6 +217,13 @@ def build_pp_caches(V, factors: Sequence):
     is the smallest mode roots every chain at axis 1, 2 or 3; when
     ``triple_roots_eligible`` admits it, the three roots come from one
     pass over V (contract.py:392-405).
+
+    ``use_kernels_first`` is the JAX package's experimental
+    ``use_pallas`` branch (contract.py:411-415), off unless given: each
+    chain root not seeded above goes through :func:`first_contraction`
+    with the kernels on (rank-last) and is moved to rank-major.
+    ``config.use_kernels_first`` does not reach here, as
+    ``use_pallas_first`` does not there.
     """
     order = V.ndim
     priority = contraction_priority(V.shape)
@@ -229,7 +240,11 @@ def build_pp_caches(V, factors: Sequence):
 
     def get(key: Tuple[int, ...]):
         if key not in memo:
-            if len(key) == 1:
+            if len(key) == 1 and use_kernels_first:
+                T, rem = first_contraction(V, factors[key[0]], key[0],
+                                           use_kernels=True)
+                memo[key] = (T.movedim(-1, 0), rem)
+            elif len(key) == 1:
                 memo[key] = _first_contraction_rm(V, factors[key[0]], key[0])
             else:
                 T, rem = get(key[:-1])

@@ -7,11 +7,30 @@ Replaces ``pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py``:
 ``mid_contract`` with its Pallas kernels ``_mid_kernel_t`` (rank-minor
 output, K4) and ``_mid_kernel`` (rank-major output, K4'), and
 ``mid_contract_eligible``, copied verbatim so that the port routes exactly
-the calls the JAX package routes. The kernel (``csrc/mid_contract.cu``) is
-bound by memory bandwidth on the H100: it reads V once, coalesced, with
-the sums in registers; the source's header says how. It takes any shape
-the wrapper's checks admit: the TPU tiling conditions of the eligibility
-test only decide routing.
+the calls the JAX package routes; also the benchmark-only Pallas kernels
+that compute the same sum: ``_mid_kernel_zp`` (rank-outer output, launched
+by ``scripts/bench_rankpos.py``, S2) and ``_mm_kernel`` of
+``scripts/bench_midvariants.py`` (K4' swept over its lane tile, S5).
+
+The kernel (``csrc/mid_contract.cu``) is bound by memory bandwidth on the
+H100: it reads V once, coalesced, with the sums in registers; the
+source's header says how. It takes any shape the wrapper's checks admit:
+the TPU tiling conditions of the eligibility test only decide routing.
+
+With V viewed as (P, B, M) around the contracted mode, ``layout`` picks
+the physical output:
+
+- ``"rank_minor"``: (P, M, R), the package's route (K4);
+- ``"rank_major"``: (P, R, M), the PP chains' convention (K4');
+- ``"rank_outer"``: (R, P, M), rank major-most (S2).
+
+Each comes back as the rank-last tensor of the remaining modes; the two
+rank-leading layouts as views (``movedim``, no copy), so a caller that
+wants the physical tensor takes ``.movedim(-1, mode)`` (rank-major) or
+``.movedim(-1, 0)`` (rank-outer). ``block_cols`` is the kernel's block
+width in columns of M (threads): 256 on every package path; 128 and 512
+are S5's sweep and are taken by the rank-major and rank-outer layouts
+only.
 
 bf16-stored V follows the JAX package's mixed-precision rule: W is
 rounded to bf16, products and sums are float32, the output is float32.
@@ -30,8 +49,14 @@ import torch
 
 from pairwise_perturbation_tpu_torch.ops.kernels import _build
 
+LAYOUTS = ("rank_minor", "rank_major", "rank_outer")
+BLOCK_COLS = (128, 256, 512)
+
 # Kernel launches per output layout, counted where the kernel is launched.
-LAUNCHES: Dict[str, int] = {"rank_minor": 0, "rank_major": 0}
+LAUNCHES: Dict[str, int] = {k: 0 for k in LAYOUTS}
+
+_SPECS = {"rank_minor": "pbm,br->pmr", "rank_major": "pbm,br->prm",
+          "rank_outer": "pbm,br->rpm"}
 
 
 def reset_launch_counts() -> None:
@@ -66,28 +91,40 @@ def mid_contract_eligible(shape, mode: int, dtype, r: int) -> bool:
     return M >= 128 and _mid_tile(B, M) > 0
 
 
-def _out(flat, shape, mode: int, rank_minor: bool):
-    """The (P, M, R) or (P, R, M) result as the rank-last tensor of the
-    remaining modes; rank-major comes back as a view."""
-    R = flat.shape[-1] if rank_minor else flat.shape[1]
-    rest = tuple(shape[:mode]) + tuple(shape[mode + 1:])
-    if rank_minor:
-        return flat.reshape(rest + (R,))
-    return torch.movedim(
-        flat.reshape(tuple(shape[:mode]) + (R,) + tuple(shape[mode + 1:])),
-        mode, -1)
+def _out(flat, shape, mode: int, layout: str):
+    """The physical result of ``layout`` as the rank-last tensor of the
+    remaining modes; the rank-leading layouts come back as views."""
+    pre, post = tuple(shape[:mode]), tuple(shape[mode + 1:])
+    if layout == "rank_minor":
+        return flat.reshape(pre + post + (flat.shape[-1],))
+    if layout == "rank_major":
+        return torch.movedim(flat.reshape(pre + (flat.shape[1],) + post),
+                             mode, -1)
+    return torch.movedim(flat.reshape((flat.shape[0],) + pre + post), 0, -1)
 
 
-def mid_contract_plain(V, W, mode: int, rank_minor: bool = True):
-    """Plain PyTorch version (one einsum); what the kernel is held to.
-    bf16 V: V and W rounded to bf16, contracted in float32."""
+def _check_layout(layout: str, block_cols: int):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout {layout!r}; expected one of {LAYOUTS}")
+    if block_cols not in BLOCK_COLS:
+        raise ValueError(f"block_cols {block_cols}; expected one of "
+                         f"{BLOCK_COLS}")
+    if layout == "rank_minor" and block_cols != 256:
+        raise ValueError("the rank-minor layout runs at block_cols 256 only")
+
+
+def mid_contract_plain(V, W, mode: int, layout: str = "rank_minor"):
+    """Plain PyTorch version (one einsum, its result laid out as
+    ``layout``); what the kernel is held to. bf16 V: V and W rounded to
+    bf16, contracted in float32."""
+    _check_layout(layout, 256)
     shape = tuple(V.shape)
     P, B = math.prod(shape[:mode]), shape[mode]
     acc = torch.float32 if V.dtype == torch.bfloat16 else V.dtype
     V3 = V.reshape(P, B, -1).to(acc)
     Wc = W.to(V.dtype).to(acc)
-    spec = "pbm,br->pmr" if rank_minor else "pbm,br->prm"
-    return _out(torch.einsum(spec, V3, Wc), shape, mode, rank_minor)
+    flat = torch.einsum(_SPECS[layout], V3, Wc).contiguous()
+    return _out(flat, shape, mode, layout)
 
 
 def _check(V, W, mode: int):
@@ -111,27 +148,31 @@ def _check(V, W, mode: int):
             raise ValueError(f"{name} is not contiguous")
 
 
-def mid_contract(V, W, mode: int, rank_minor: bool = True):
+def mid_contract(V, W, mode: int, layout: str = "rank_minor",
+                 block_cols: int = 256):
     """V x_mode W in one pass over V; axes: the other modes ascending, then
-    rank (the ``contract.contract_mode_kr`` convention). ``rank_minor``
-    picks the physical layout: (P, M, R), or (P, R, M) returned as a view.
+    rank (the ``contract.contract_mode_kr`` convention), whatever the
+    physical ``layout`` (see the module docstring).
 
-    CPU tensors go to the plain version; CUDA tensors launch the kernel
-    on the current stream (contiguous f32 or bf16 V, f32 W) or raise."""
+    CPU tensors go to the plain version (``block_cols`` is then only
+    checked); CUDA tensors launch the kernel on the current stream
+    (contiguous f32 or bf16 V, f32 W) or raise."""
+    _check_layout(layout, block_cols)
     if V.device.type == "cpu":
-        return mid_contract_plain(V, W, mode, rank_minor)
+        return mid_contract_plain(V, W, mode, layout)
     _check(V, W, mode)
     shape = tuple(V.shape)
     P, B = math.prod(shape[:mode]), shape[mode]
     M, R = V.numel() // (P * B), W.shape[1]
     Wr = W.to(V.dtype).float() if V.dtype == torch.bfloat16 else W
-    out = torch.empty((P, M, R) if rank_minor else (P, R, M),
-                      dtype=torch.float32, device=V.device)
+    phys = {"rank_minor": (P, M, R), "rank_major": (P, R, M),
+            "rank_outer": (R, P, M)}[layout]
+    out = torch.empty(phys, dtype=torch.float32, device=V.device)
     lib = _build.load()
     code = lib.pp_mid_contract(
         V.data_ptr(), int(V.dtype == torch.bfloat16), Wr.data_ptr(),
-        out.data_ptr(), P, B, M, R, int(rank_minor),
+        out.data_ptr(), P, B, M, R, LAYOUTS.index(layout), block_cols,
         torch.cuda.current_stream(V.device).cuda_stream)
     _build.check(lib, code, "mid_contract launch")
-    LAUNCHES["rank_minor" if rank_minor else "rank_major"] += 1
-    return _out(out, shape, mode, rank_minor)
+    LAUNCHES[layout] += 1
+    return _out(out, shape, mode, layout)

@@ -61,7 +61,7 @@ class SparseTensor:
         return self.values.dtype
 
 
-def from_dense(V, tol: float = 0.0, device="cpu") -> SparseTensor:
+def from_dense(V, tol: float = 0.0, device="cuda") -> SparseTensor:
     """COO of the entries with |v| > tol of a dense host array, in
     ``np.argwhere``'s C order, as the JAX package builds it, so that sums
     over the nonzeros run in the same order."""

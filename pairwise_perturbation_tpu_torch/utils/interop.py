@@ -16,7 +16,7 @@ import torch
 from pairwise_perturbation_tpu_torch.ops.sparse import SparseTensor
 
 
-def from_numpy(V, factors: Sequence, device="cpu", dtype=None,
+def from_numpy(V, factors: Sequence, device="cuda", dtype=None,
                v_dtype=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(V, factors) as torch tensors on ``device``; ``dtype`` defaults to
     V's own dtype, ``v_dtype`` (V's torch dtype) to ``dtype``. With
@@ -33,7 +33,7 @@ def from_numpy(V, factors: Sequence, device="cpu", dtype=None,
     return conv(V, v_dtype or dtype), [conv(W) for W in factors]
 
 
-def sparse_from_numpy(indices, values, shape, device="cpu"):
+def sparse_from_numpy(indices, values, shape, device="cuda"):
     """The JAX package's COO arrays (``indices[nnz, N]``, ``values[nnz]``,
     e.g. of its ``ops.sparse.from_dense``) as the port's
     :class:`~pairwise_perturbation_tpu_torch.ops.sparse.SparseTensor` on

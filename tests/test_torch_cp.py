@@ -77,7 +77,7 @@ def test_als_cp_pp_matches_jax(fixture, gn_guard):
     kw = dict(tol=0.0, pp_res_tol=0.1, maxiter=30, resprint=1,
               tree_split=_split(V, R), gn_guard=gn_guard)
     rj = jcp.als_cp_pp(V, Ws, jcp.CPConfig(**kw))
-    tV, tW = interop.from_numpy(V, Ws)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu")
     rt = tcp.als_cp_pp(tV, tW, tcp.CPConfig(**kw))
     assert any(h["pp"] for h in rt.history) and not all(
         h["pp"] for h in rt.history)
@@ -90,7 +90,7 @@ def test_als_cp_dt_matches_jax(fixture):
     Ws = _init(V, R)
     kw = dict(tol=0.0, maxiter=20, resprint=3, tree_split=_split(V, R))
     rj = jcp.als_cp_dt(V, Ws, jcp.CPConfig(**kw))
-    tV, tW = interop.from_numpy(V, Ws)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu")
     rt = tcp.als_cp_dt(tV, tW, tcp.CPConfig(**kw))
     _assert_same_run(rj, rt)
 
@@ -100,7 +100,7 @@ def test_als_cp_plain_matches_jax():
     Ws = _init(V, R)
     kw = dict(tol=0.0, maxiter=10, resprint=5, solver="chol")
     rj = jcp.als_cp(V, Ws, jcp.CPConfig(**kw))
-    tV, tW = interop.from_numpy(V, Ws)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu")
     rt = tcp.als_cp(tV, tW, tcp.CPConfig(**kw))
     _assert_same_run(rj, rt)
 
@@ -113,7 +113,7 @@ def test_als_cp_dt_f32_matches_jax():
     Ws = _init(V, R, dtype=jnp.float32)
     kw = dict(tol=0.0, maxiter=10, resprint=1, tree_split=_split(V, R))
     rj = jcp.als_cp_dt(V, [jnp.asarray(W) for W in Ws], jcp.CPConfig(**kw))
-    tV, tW = interop.from_numpy(V, Ws)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu")
     rt = tcp.als_cp_dt(tV, tW, tcp.CPConfig(**kw))
     assert rt.factors[0].dtype == torch.float32
     _assert_same_run(rj, rt, tol=1e-3)
@@ -125,7 +125,7 @@ def test_sweeps_match_jax():
     V, R = _order4()
     Ws = _init(V, R)
     jV, jW = jnp.asarray(V), [jnp.asarray(W) for W in Ws]
-    tV, tW = interop.from_numpy(V, Ws)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu")
 
     def close(t, j, tol=1e-10):
         j = np.asarray(j)
@@ -158,25 +158,52 @@ def test_sweeps_match_jax():
 
 def test_partial_update_not_ported():
     V, R = _order3()
-    tV, tW = interop.from_numpy(V, _init(V, R))
+    tV, tW = interop.from_numpy(V, _init(V, R), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         tcp.als_cp_pp(tV, tW, tcp.CPConfig(maxiter=2), partial_update=True)
 
 
 def test_init_factors_seeded():
-    a = tcp.init_factors((3, 4, 5), 2, seed=7, dtype=torch.float64)
-    b = tcp.init_factors((3, 4, 5), 2, seed=7, dtype=torch.float64)
-    c = tcp.init_factors((3, 4, 5), 2, seed=8, dtype=torch.float64)
+    a = tcp.init_factors((3, 4, 5), 2, seed=7, dtype=torch.float64,
+                          device="cpu")
+    b = tcp.init_factors((3, 4, 5), 2, seed=7, dtype=torch.float64,
+                          device="cpu")
+    c = tcp.init_factors((3, 4, 5), 2, seed=8, dtype=torch.float64,
+                          device="cpu")
     assert [tuple(W.shape) for W in a] == [(3, 2), (4, 2), (5, 2)]
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0])
     assert all(((W >= 0) & (W < 1)).all() for W in a)
 
 
+@pytest.mark.parametrize("ctor", ["init_factors", "from_dense", "from_numpy",
+                                  "sparse_from_numpy"])
+def test_constructors_default_to_cuda(ctor):
+    """Called without ``device=``, the public constructors build on the
+    card: where torch has no CUDA they fail asking for it instead of
+    quietly building on the CPU."""
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    V = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    call = {
+        "init_factors": lambda: tcp.init_factors((2, 3), 2),
+        "from_dense": lambda: sparse.from_dense(V),
+        "from_numpy": lambda: interop.from_numpy(V, [V[0]]),
+        "sparse_from_numpy": lambda: interop.sparse_from_numpy(
+            np.zeros((2, 3), np.int32), np.ones(2, np.float32), (2, 3, 4)),
+    }[ctor]
+    if torch.cuda.is_available():
+        out = call()
+        first = out[0] if isinstance(out, (list, tuple)) else out.values
+        assert first.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            call()
+
+
 def test_interop_round_trip():
     V, R = _order3()
     Ws = _init(V, R)
-    tV, tW = interop.from_numpy(V, Ws, dtype=torch.float32)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu", dtype=torch.float32)
     assert tV.dtype == torch.float32 and tW[0].dtype == torch.float32
     back = interop.to_numpy([tV] + tW)
     np.testing.assert_allclose(back[0], V.astype(np.float32))

@@ -43,6 +43,11 @@ def _jdt(dtype):
     return {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
 
 
+def _layout(rank_minor):
+    """The JAX kernel's ``rank_minor`` flag as the port's layout."""
+    return "rank_minor" if rank_minor else "rank_major"
+
+
 def _spy(monkeypatch, module, name):
     calls = []
     orig = getattr(module, name)
@@ -67,7 +72,7 @@ def test_mid_contract_plain_matches_pallas_f32(shape, mode, rank_minor):
     want = mttkrp_pallas.mid_contract(jnp.asarray(V), jnp.asarray(W), mode,
                                       interpret=True, rank_minor=rank_minor)
     got = mc.mid_contract(torch.from_numpy(V), torch.from_numpy(W), mode,
-                          rank_minor=rank_minor)
+                          layout=_layout(rank_minor))
     assert got.dtype == torch.float32
     assert _rel(got, want) <= 2e-5
 
@@ -86,7 +91,8 @@ def test_mid_contract_plain_bf16(shape, mode, rank_minor):
                                   tuple(range(len(shape))), False,
                                   jnp.asarray(W), mode)
     got = mc.mid_contract(torch.tensor(V, dtype=torch.bfloat16),
-                          torch.from_numpy(W), mode, rank_minor=rank_minor)
+                          torch.from_numpy(W), mode,
+                          layout=_layout(rank_minor))
     assert got.dtype == torch.float32
     assert _rel(got, want) <= 1e-6
 
@@ -321,7 +327,8 @@ def test_whole_slice_f32_with_kernel_toggles(monkeypatch, case):
     builds = _spy(monkeypatch, tcp, "pp_build_caches")
     sweeps = _spy(monkeypatch, tcp, "dt_sweep")
     with config.override(**{toggle: True}):
-        rt = tcp.als_cp_pp(*interop.from_numpy(V, Ws), tcp.CPConfig(**kw))
+        rt = tcp.als_cp_pp(*interop.from_numpy(V, Ws, device="cpu"),
+                           tcp.CPConfig(**kw))
     _assert_same_history(rj, rt, 1e-3)
     expected = len(sweeps) if toggle == "use_kernels_first" else len(builds)
     assert len(calls) == expected > 0
@@ -342,7 +349,8 @@ def test_als_cp_pp_bf16_matches_jax():
     kw = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
     rj = jcp.als_cp_pp(jnp.asarray(V, jnp.bfloat16),
                        [jnp.asarray(W) for W in Ws], jcp.CPConfig(**kw))
-    tV, tW = interop.from_numpy(V, Ws, v_dtype=torch.bfloat16)
+    tV, tW = interop.from_numpy(V, Ws, device="cpu",
+                                v_dtype=torch.bfloat16)
     assert tV.dtype == torch.bfloat16 and tW[0].dtype == torch.float32
     rt = tcp.als_cp_pp(tV, tW, tcp.CPConfig(**kw))
     assert rt.factors[0].dtype == torch.float32
@@ -354,7 +362,7 @@ def test_interop_bf16_bits_match_jax():
     from pairwise_perturbation_tpu_torch.utils import interop
     rng = np.random.default_rng(8)
     V = rng.standard_normal((6, 7, 8)).astype(np.float32) * 1e3
-    tV, _ = interop.from_numpy(V, [], v_dtype=torch.bfloat16)
+    tV, _ = interop.from_numpy(V, [], device="cpu", v_dtype=torch.bfloat16)
     jbits = np.asarray(jnp.asarray(V, jnp.bfloat16)).view(np.uint16)
     np.testing.assert_array_equal(tV.view(torch.int16).numpy().view(np.uint16),
                                   jbits)
@@ -378,10 +386,9 @@ def test_cuda_mid_contract_matches_plain(dtype):
         V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
         W = torch.rand((shape[mode], R), generator=gen, device="cuda")
         want = mc.mid_contract_plain(V, W, mode)
-        for rank_minor in (True, False):
-            key = "rank_minor" if rank_minor else "rank_major"
+        for key in ("rank_minor", "rank_major"):
             n0 = mc.LAUNCHES[key]
-            got = mc.mid_contract(V, W, mode, rank_minor=rank_minor)
+            got = mc.mid_contract(V, W, mode, layout=key)
             torch.cuda.synchronize()
             assert mc.LAUNCHES[key] == n0 + 1
             assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

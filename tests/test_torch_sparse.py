@@ -46,7 +46,8 @@ def _problem(shape=(7, 6, 8, 5), density=0.15, R=3, seed=0):
 
 def _port(jst):
     return interop.sparse_from_numpy(np.asarray(jst.indices),
-                                     np.asarray(jst.values), jst.shape)
+                                     np.asarray(jst.values), jst.shape,
+                                     device="cpu")
 
 
 def _t(Ws):
@@ -64,7 +65,7 @@ def test_from_dense_order_and_round_trip():
     """The same nonzeros in the same (C) order as the JAX package, int32
     indices, and to_dense gives V back (duplicates would add)."""
     V, jst, _, _ = _problem()
-    st = tsp.from_dense(V)
+    st = tsp.from_dense(V, device="cpu")
     assert st.indices.dtype == torch.int32 and st.shape == V.shape
     np.testing.assert_array_equal(st.indices.numpy(), np.asarray(jst.indices))
     np.testing.assert_array_equal(st.values.numpy(), np.asarray(jst.values))
@@ -79,7 +80,7 @@ def test_from_dense_order_and_round_trip():
 def test_sparse_from_numpy_copies_as_given():
     idx = np.array([[0, 1], [2, 0]], dtype=np.int32)
     vals = np.array([1.0, 2.0], dtype=np.float32)
-    st = interop.sparse_from_numpy(idx, vals, (3, 2))
+    st = interop.sparse_from_numpy(idx, vals, (3, 2), device="cpu")
     idx[0, 0], vals[0] = 9, 9.0
     assert st.indices.dtype == torch.int32 and st.dtype == torch.float32
     assert st.indices.tolist() == [[0, 1], [2, 0]]
@@ -115,7 +116,7 @@ def test_mttkrp_sums_duplicates_and_zeroes_empty_rows():
     Ws = [np.arange(s * 2, dtype=np.float64).reshape(s, 2) + 1
           for s in shape]
     jst = jsp.SparseTensor(jnp.asarray(idx), jnp.asarray(vals), shape)
-    st = interop.sparse_from_numpy(idx, vals, shape)
+    st = interop.sparse_from_numpy(idx, vals, shape, device="cpu")
     for mode in range(3):
         got = tsp.mttkrp(st, _t(Ws), mode)
         want = np.asarray(jsp.mttkrp(jst, [jnp.asarray(W) for W in Ws],
@@ -201,7 +202,7 @@ def test_als_cp_pp_sparse_on_poisson():
     are the JAX sparse engine's."""
     V = synth.make_tensor("p", dim=8, s=5, R=3, seed=3, dtype=np.float64)
     assert np.count_nonzero(V) / V.size < 0.3
-    st = tsp.from_dense(V)
+    st = tsp.from_dense(V, device="cpu")
     Vn = float(np.linalg.norm(V))
     W0 = _jax_init(V.shape, 3)
     kw = dict(tol=0.0, pp_res_tol=0.3, maxiter=40, resprint=10)
