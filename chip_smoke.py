@@ -24,7 +24,9 @@ traceback and exits nonzero:
    bit for bit equal: last_contract (K5), mid_contract's rank-outer
    layout (S2), column_sum (S4) and mid_contract rank-major at every
    block width (S5), at the coil-100 shapes of the scripts, ragged
-   shapes and R = 40; K4' at the coil shape in f32 (S1) and bf16 (S3).
+   shapes and R = 40 (K5 also with V 4 bytes off 16-byte alignment, and
+   its device time and torch.matmul's from torch.profiler); K4' at the
+   coil shape in f32 (S1) and bf16 (S3).
    Every kernel row of phases 3-3d is timed beside its plain version, the
    one PyTorch call that computes the same function (or "none"), and its
    bound: the larger of its bytes (each input read once, each output
@@ -44,10 +46,18 @@ traceback and exits nonzero:
    takes its three chain roots from one K6 launch.
 6. The sparse CLI: ``test_als -model CP -issparse 1 -pp 1`` on the folded
    Poisson tensor (100^4); checks the CSV and that K7 launched exactly N
-   times per exact sweep and N + 1 times per diagnostics row.
+   times per exact sweep, N + 1 times per diagnostics row and N +
+   N(N-1)/2 times per PP cache build (singles, then pairs on their fused
+   views).
 6b. Sparse PP on the sparse200_4_nnz1.6M fixture, rank 10, 20 sweeps,
    kernels off and on in turns, phase medians side by side; then plain
    sparse ALS (maxiter 3) at NELL-2's shape with K7.
+6c. Repeatability of sparse PP with the kernels: the fixture's PP caches
+   through K7 against the kernel-off route and bit for bit across two
+   builds; then sparse PP at the fixture twice from one seed (every
+   logged row's gradnorm, diffV and PP flag identical, PP rows in both),
+   and the Poisson CLI twice (CSVs identical but for [dtime]); each
+   run's PP rows and cache-build median beside 6b's kernel-off one.
 7. The three ported benchmark scripts (pairwise_perturbation_tpu_torch.
    scripts: bench_firstpair, bench_rankpos, bench_midvariants) at the
    coil-100 shape, rank 10, in this process: each must return 0 (every
@@ -492,9 +502,12 @@ def compare_coo():
         torch.cuda.empty_cache()
 
 
-# (V shape, R) of last_contract (K5): the coil-100 shape of
-# bench_firstpair, a ragged (N, B), and R above one rank chunk (32).
-K5_CHECKS = [(COIL_SHAPE, 10), ((37, 1001), 7), ((64, 64, 1000), 40)]
+# (V shape, R, offset) of last_contract (K5): the coil-100 shape of
+# bench_firstpair, a ragged (N, B), R above one rank chunk (32), and the
+# coil shape again with V's data 4 bytes past a 16-byte boundary (offset
+# 1 float: scalar loads).
+K5_CHECKS = [(COIL_SHAPE, 10, 0), ((37, 1001), 7, 0), ((64, 64, 1000), 40, 0),
+             (COIL_SHAPE, 10, 1)]
 # (P, B, M) views and R of S2/S5: the two coil-100 views of
 # bench_midvariants (the first is also bench_rankpos's mode-1 view), a
 # ragged shape, and R = 40.
@@ -509,15 +522,23 @@ def compare_firstlevel():
     plain versions, two launches bit for bit equal; S1 and S3 are K4' at
     the coil view in f32 and bf16. Times reported at the coil shapes."""
     import torch
+    from pairwise_perturbation_tpu_torch import phase_profile
     from pairwise_perturbation_tpu_torch.ops.kernels import column_sum as cs
     from pairwise_perturbation_tpu_torch.ops.kernels import last_contract as lc
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract as mc
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for i, (shape, R) in enumerate(K5_CHECKS):
-        V = torch.rand(shape, generator=gen, device="cuda")
+    for i, (shape, R, offset) in enumerate(K5_CHECKS):
+        buf = torch.rand(math.prod(shape) + offset, generator=gen,
+                         device="cuda")
+        V = buf[offset:].view(shape)
         W = torch.rand((shape[-1], R), generator=gen, device="cuda")
         V2 = V.reshape(-1, shape[-1])
-        label = f"last_contract {shape} R={R}"
+        p = lc.plan(V2.shape[0], shape[-1], R,
+                    torch.cuda.get_device_properties(0).multi_processor_count,
+                    shape[-1] % 4 == 0 and V.data_ptr() % 16 == 0)
+        label = (f"last_contract {shape} R={R} data_ptr % 16 = "
+                 f"{V.data_ptr() % 16} ({p.n_slices} slices of "
+                 f"{p.slice_cols}, {p.blocks} blocks each, vec {p.vec})")
         abs_err, rel = held_twice(label, lambda: lc.last_contract(V, W),
                                   lambda: lc.last_contract_plain(V, W))
         timed_row("K5", label + " (bitwise repeat ok)", abs_err, rel,
@@ -526,7 +547,18 @@ def compare_firstlevel():
                   tensor_bytes(V, W) + 4 * V2.shape[0] * R,
                   2 * V.numel() * R, library_name="torch.matmul",
                   report=i == 0)
-        del V, W, V2
+        if i == 0:
+            # device time alone: the events above also hold the host's
+            # enqueue of each call
+            for key, what, fn in (
+                    ("device_ms", "kernel", lambda: lc.last_contract(V, W)),
+                    ("library_device_ms", "torch.matmul", lambda: V2 @ W)):
+                busy, per = phase_profile.profile(fn, "cuda", 25)
+                RESULTS["K5"][key] = busy
+                print(f"  {what}: device busy {1e3 * busy:.1f} us per call "
+                      "(torch.profiler): " + ", ".join(
+                          f"{k[:48]} {1e3 * v:.1f} us" for k, v in per.items()))
+        del V, W, V2, buf
     for i, (shape, R) in enumerate(VIEW_CHECKS):
         V3 = torch.rand(shape, generator=gen, device="cuda")
         W = torch.rand((shape[1], R), generator=gen, device="cuda")
@@ -789,15 +821,19 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
 
 def expected_coo_launches(stats, order):
     """K7 launches the sparse phase machine implies: ``order`` per exact
-    sweep and order + 1 per diagnostics row (the gradnorm's MTTKRPs and
-    the residual's); PP sweeps and cache builds launch none."""
+    sweep, order + 1 per diagnostics row (the gradnorm's MTTKRPs and the
+    residual's) and order + C(order, 2) per PP cache build (the singles,
+    then one per pair on its fused view); PP sweeps launch none."""
     return (order * stats.get("sparse.sweep", (0,))[0]
-            + (order + 1) * stats.get("sparse.diagnostics", (0,))[0])
+            + (order + 1) * stats.get("sparse.diagnostics", (0,))[0]
+            + (order + math.comb(order, 2))
+            * stats.get("sparse.pp_cache_build", (0,))[0])
 
 
 def run_sparse_cli():
     """test_als -model CP -issparse 1 -pp 1 on the folded Poisson tensor
-    (100^4) at rank 10; returns the K7 launches of the run."""
+    (100^4) at rank 10; returns the K7 launches of the run, its CSV rows
+    and its phase stats."""
     from pairwise_perturbation_tpu_torch import cli
     from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
     from pairwise_perturbation_tpu_torch.utils import tracing
@@ -821,11 +857,11 @@ def run_sparse_cli():
     stats = tracing.stats()
     want = expected_coo_launches(stats, 4)
     print(f"K7 launches {launches}, expected {want} (4 per exact sweep, "
-          "5 per diagnostics row)")
+          "5 per diagnostics row, 10 per cache build)")
     if not launches == want > 0:
         raise AssertionError("K7 launches differ from the phase machine's")
     print_phase_times(stats, names=SPARSE_PHASES)
-    return launches
+    return launches, rows, stats
 
 
 def run_sparse(st, shape, engine, maxiter, resprint, use_kernels,
@@ -833,7 +869,8 @@ def run_sparse(st, shape, engine, maxiter, resprint, use_kernels,
     """One sparse solve of ``engine`` (models/sparse_cp) from seeded
     factors, rank 10, with ``config.use_kernels`` set as given; checks
     finite output, a falling gradnorm and the K7 launch count, prints the
-    phase medians and peak memory, returns the phase stats."""
+    phase medians and peak memory, returns the phase stats and the
+    result."""
     import torch
     from pairwise_perturbation_tpu_torch import config
     from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
@@ -869,24 +906,38 @@ def run_sparse(st, shape, engine, maxiter, resprint, use_kernels,
     if launches != want:
         raise AssertionError(f"K7 launches {launches}, expected {want}")
     print_phase_times(stats, beside, names=SPARSE_PHASES)
-    return stats
+    return stats, res
+
+
+def sparse_fixture():
+    """The sparse200_4_nnz1.6M tensor (seeded), with K7's setup built for
+    every mode and every fused pair, so that no run below times a sort."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st, _ = random_coo(SPARSE_SHAPE, SPARSE_NNZ, 1, gen, seed=0)
+    for mode in range(st.ndim):
+        coo_mttkrp.plan(st, mode)
+        for j in range(mode + 1, st.ndim):
+            coo_mttkrp.plan(sparse.pair_view(st, mode, j), mode)
+    return st
 
 
 def run_sparse_full():
     """Phase 6b: sparse PP at the fixture, 20 sweeps, kernels off and on
     in turns (off, on, on, off; each "on" printed beside the last "off");
     plain sparse ALS to maxiter 3 at NELL-2's shape with K7. Each
-    tensor's K7 setup is built before its runs."""
+    tensor's K7 setup is built before its runs. Returns the last
+    kernel-off run's phase stats."""
     import torch
     from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    st, _ = random_coo(SPARSE_SHAPE, SPARSE_NNZ, 1, gen, seed=0)
-    for mode in range(len(SPARSE_SHAPE)):
-        coo_mttkrp.plan(st, mode)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    st = sparse_fixture()
     off = None
     for on in (False, True, True, False):    # in turns: off, on, on, off
-        stats = run_sparse(st, SPARSE_SHAPE, "als_cp_pp_sparse", 20, 5, on,
-                           beside=off if on else None)
+        stats, _ = run_sparse(st, SPARSE_SHAPE, "als_cp_pp_sparse", 20, 5,
+                              on, beside=off if on else None)
         off = off if on else stats
     del st
     torch.cuda.empty_cache()
@@ -896,6 +947,72 @@ def run_sparse_full():
     run_sparse(st, NELL2_SHAPE, "als_cp_sparse", 3, 3, True)
     del st
     torch.cuda.empty_cache()
+    return off
+
+
+def median_cache_build_ms(stats):
+    return 1e3 * stats.get("sparse.pp_cache_build",
+                           (0, 0.0, float("nan")))[2]
+
+
+def check_same_rows(label, a, b, columns):
+    """Raise unless rows ``a`` and ``b`` hold the same values in
+    ``columns`` (indices or keys), row for row."""
+    if len(a) != len(b) or any(x[c] != y[c] for x, y in zip(a, b)
+                               for c in columns):
+        raise AssertionError(f"{label}: the two runs differ")
+    print(f"{label}: {len(a)} rows identical in {list(columns)}")
+
+
+def run_sparse_repeat(off_stats):
+    """Phase 6c: sparse PP with the kernels repeats bit for bit. The
+    fixture's caches through K7 against the kernel-off route (rel
+    REL_TOL) and across two builds; two fixture runs of sparse PP, 20
+    sweeps, every sweep logged, from one seed; two Poisson CLI runs."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    st = sparse_fixture()
+    Ws = cp.init_factors(SPARSE_SHAPE, 10, seed=0, device="cuda")
+    with config.override(use_kernels=False):
+        want = sparse.build_pp_caches(st, Ws)
+    got, again = sparse.build_pp_caches(st, Ws), sparse.build_pp_caches(st, Ws)
+    for g, a, w in zip(got, again, want):
+        for k in w:
+            if not torch.equal(g[k], a[k]):
+                raise AssertionError(f"cache {k}: two K7 builds differ")
+            held_to_plain(f"cache {k}", g[k], w[k])
+    print(f"PP caches at the fixture: {len(want[0])} singles and "
+          f"{len(want[1])} pairs within {REL_TOL} of the kernel-off route, "
+          "two K7 builds bit for bit equal")
+    del got, again, want
+    off_ms = median_cache_build_ms(off_stats)
+    runs = []
+    for k in range(2):
+        stats, res = run_sparse(st, SPARSE_SHAPE, "als_cp_pp_sparse", 20, 1,
+                                True, beside=off_stats)
+        n_pp = sum(1 for h in res.history if h["pp"] == 1)
+        print(f"fixture run {k + 1}: {n_pp} PP rows, cache build median "
+              f"{median_cache_build_ms(stats):.3f} ms (6b kernel off: "
+              f"{off_ms:.3f} ms)")
+        if n_pp == 0:
+            raise AssertionError(f"fixture run {k + 1} has no PP rows")
+        runs.append(res.history)
+    check_same_rows("sparse PP at the fixture", *runs,
+                    ("iter", "gradnorm", "diffV", "pp"))
+    del st
+    torch.cuda.empty_cache()
+    csvs = []
+    for k in range(2):
+        _, rows, stats = run_sparse_cli()
+        n_pp = sum(1 for r in rows[1:] if float(r[4]) == 1)
+        print(f"Poisson CLI run {k + 1}: {n_pp} PP rows, cache build median "
+              f"{median_cache_build_ms(stats):.3f} ms")
+        csvs.append(rows)
+    dtime = csvs[0][0].index("[dtime]")
+    check_same_rows("Poisson CLI CSV", *csvs,
+                    [c for c in range(len(csvs[0][0])) if c != dtime])
 
 
 # Rows of the table on the port's paths that this slice drives (the CLI
@@ -952,10 +1069,13 @@ def main() -> int:
                          for d in ("float32", "bfloat16"))
     phase("6. sparse CLI test_als -model CP -issparse 1 -pp 1, "
           "Poisson 100^4 rank 10")
-    launches["K7"] = run_sparse_cli()
+    launches["K7"] = run_sparse_cli()[0]
     phase("6b. sparse PP at sparse200_4_nnz1.6M rank 10, kernels off and "
           "on in turns; plain sparse ALS at NELL-2's shape")
-    run_sparse_full()
+    off = run_sparse_full()
+    phase("6c. sparse PP repeats with the kernels: fixture caches, two "
+          "fixture runs, two Poisson CLI runs")
+    run_sparse_repeat(off)
     phase("7. the ported benchmark scripts at the coil-100 shape, rank 10")
     launches.update(run_scripts())
     # K4' has no caller in the package; the scripts launch it as S1, S3

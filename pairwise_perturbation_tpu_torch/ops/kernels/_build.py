@@ -110,7 +110,8 @@ def load() -> ctypes.CDLL:
     lib.pp_mid_contract.argtypes = [p, i32, p, p, i64, i64, i64, i32, i32,
                                     i32, p]
     lib.pp_mid_contract.restype = i32
-    lib.pp_last_contract.argtypes = [p, p, p, i64, i64, i32, p]
+    lib.pp_last_contract.argtypes = [p, p, p, p, i64, i64, i32, i64, i32,
+                                     i32, i32, i64, p]
     lib.pp_last_contract.restype = i32
     lib.pp_column_sum.argtypes = [p, p, i64, i64, i64, p]
     lib.pp_column_sum.restype = i32

@@ -137,20 +137,25 @@ def _check(st, Ws: Sequence, mode: int):
                          f"expected ({st.nnz}, {order})")
     if st.nnz == 0:
         raise ValueError("the kernel needs at least one nonzero")
-    R = Ws[0].shape[1] if Ws[0].ndim == 2 else -1
-    for m, W in enumerate(Ws):
+    # the mode's own factor is never read: it may be None (a fused pair
+    # mode, sparse.pair_factors); any other is checked
+    given = [(m, W) for m, W in enumerate(Ws)
+             if not (m == mode and W is None)]
+    W1 = Ws[1 if mode == 0 else 0]
+    R = W1.shape[1] if W1.ndim == 2 else -1
+    for m, W in given:
         if W.ndim != 2 or tuple(W.shape) != (st.shape[m], R) or R <= 0:
             raise ValueError(f"factor {m} has shape {tuple(W.shape)}, "
                              f"expected ({st.shape[m]}, R)")
     dev = st.values.device
     for name, t in [("values", st.values), ("indices", st.indices)] + [
-            (f"factor {m}", W) for m, W in enumerate(Ws)]:
+            (f"factor {m}", W) for m, W in given]:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs "
                              "every operand on the values' CUDA device")
     if st.dtype != torch.float32:
         raise TypeError(f"values are {st.dtype}; the kernel takes float32")
-    for m, W in enumerate(Ws):
+    for m, W in given:
         if W.dtype != torch.float32:
             raise TypeError(f"factor {m} is {W.dtype}; the kernel takes "
                             "float32")
@@ -167,7 +172,8 @@ def smem_bytes(shape: Sequence[int], R: int, mode: int) -> int:
 
 
 def coo_mttkrp(st, Ws: Sequence, mode: int):
-    """Sparse MTTKRP of ``mode``: (st.shape[mode], R).
+    """Sparse MTTKRP of ``mode``: (st.shape[mode], R). ``Ws[mode]`` is
+    never read and may be None.
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel on
     the current stream (float32 values and contiguous float32 factors) or
@@ -180,7 +186,8 @@ def coo_mttkrp(st, Ws: Sequence, mode: int):
     n_chunks = p.chunk_ptr.numel() - 1
     partial = torch.empty((n_chunks, R), dtype=torch.float32, device=dev)
     out = torch.empty((st.shape[mode], R), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * order)(*(W.data_ptr() for W in Ws))
+    ptrs = (ctypes.c_void_p * order)(*(0 if W is None else W.data_ptr()
+                                       for W in Ws))
     sizes = (ctypes.c_int64 * order)(*st.shape)
     lib = _build.load()
     code = lib.pp_coo_mttkrp(

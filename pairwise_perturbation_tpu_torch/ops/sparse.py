@@ -19,10 +19,18 @@ scatter on the TPU. That routing is not ported: the plain route here is
 tensor goes to the COO kernel module (``ops/kernels/coo_mttkrp.py``, K7)
 when ``config.get().use_kernels`` is set.
 
+The PP caches of a float32 tensor under ``use_kernels`` are K7's too: a
+single M_i is the exact MTTKRP of mode i, and a pair T_ij is the MTTKRP
+of the fused view (:func:`pair_view`), in which modes i and j are one
+mode of size s_i * s_j indexed ``i * s_j + j``. K7 sums in an order fixed
+by its plan, with no atomics, so a cache build repeats bit for bit. Its
+products per nonzero run in mode order (v * W_0 * W_1 ...), where the
+JAX build multiplies prefix * mid * suffix; the two round differently,
+within the tests' float32 tolerance.
+
 Determinism: ``index_add_`` on CUDA adds with float atomics, so the plain
-route's sums vary from run to run in the last bits (ROADMAP C6); on the
-CPU it is deterministic. The PP pair and single caches are built by this
-plain route on every device: no TPU kernel exists for them.
+route (kernels off, or a dtype other than float32) varies from run to run
+in the last bits on the card; on the CPU it is deterministic.
 """
 
 from __future__ import annotations
@@ -40,13 +48,14 @@ from pairwise_perturbation_tpu_torch.ops import contract
 @dataclass
 class SparseTensor:
     """COO tensor: ``indices[nnz, order]``, ``values[nnz]``. ``plans``
-    caches the COO kernel's per-mode sort (ops/kernels/coo_mttkrp.plan),
-    built on first use."""
+    caches, built on first use, the COO kernel's per-mode sort (key: the
+    mode; ops/kernels/coo_mttkrp.plan) and each fused pair view with its
+    own sort (key: ``("pair", i, j)``; :func:`pair_view`)."""
     indices: torch.Tensor
     values: torch.Tensor
     shape: Tuple[int, ...]
-    plans: Dict[int, object] = field(default_factory=dict, repr=False,
-                                     compare=False)
+    plans: Dict[object, object] = field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @property
     def ndim(self):
@@ -92,10 +101,11 @@ def _gather_rows(W, idx):
 
 
 def _gathered_kr(st: SparseTensor, Ws: Sequence, skip: Tuple[int, ...]):
-    """values * prod_{j not in skip} W_j[idx_j, :]  -> (nnz, R)."""
-    R = Ws[0].shape[1]
-    prod = st.values[:, None] * torch.ones((1, R), dtype=Ws[0].dtype,
-                                           device=Ws[0].device)
+    """values * prod_{j not in skip} W_j[idx_j, :]  -> (nnz, R); the
+    skipped factors are not read (they may be None)."""
+    W0 = next(W for j, W in enumerate(Ws) if j not in skip)
+    prod = st.values[:, None] * torch.ones((1, W0.shape[1]), dtype=W0.dtype,
+                                           device=W0.device)
     for j in range(st.ndim):
         if j in skip:
             continue
@@ -111,6 +121,11 @@ def _scatter_rows(prod, idx, n_segments: int):
     return out.index_add_(0, idx, prod)
 
 
+def _kernel_route(st: SparseTensor) -> bool:
+    """Whether the MTTKRP and the PP caches of ``st`` go to K7."""
+    return config.get().use_kernels and st.dtype == torch.float32
+
+
 def mttkrp(st: SparseTensor, Ws: Sequence, mode: int):
     """Exact sparse MTTKRP: M[i, r] = sum_nnz v * prod_{j != mode} W_j.
 
@@ -119,7 +134,7 @@ def mttkrp(st: SparseTensor, Ws: Sequence, mode: int):
     (or raises) and runs its plain version for a CPU one; everything else
     takes the plain gather + ``index_add_`` (the JAX package's 'segment'
     route; its 'onehot' route is not ported, ROADMAP A13)."""
-    if config.get().use_kernels and st.dtype == torch.float32:
+    if _kernel_route(st):
         from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
         return coo_mttkrp.coo_mttkrp(st, [W.contiguous() for W in Ws], mode)
     prod = _gathered_kr(st, Ws, (mode,))
@@ -135,10 +150,65 @@ def _scatter_pair(st: SparseTensor, prod, i: int, j: int):
         .contiguous()
 
 
+# Fused pair sizes from here on do not fit K7's int32 indices.
+FUSED_LIMIT = 2 ** 31
+
+
+def pair_view(st: SparseTensor, i: int, j: int) -> SparseTensor:
+    """The tensor with modes i < j fused: mode i becomes one mode of size
+    s_i * s_j with index ``i * s_j + j`` (formed in int64, stored in
+    int32) and mode j is dropped, so the order is N - 1 (an order-2
+    tensor gets a mode of size 1 in its place, since K7 takes order 2 and
+    up). It shares ``st``'s values. Its MTTKRP of mode i with
+    :func:`pair_factors` is the pair cache T_ij, rows in fused order.
+    Built once and cached in ``st.plans[("pair", i, j)]``, where its own
+    ``plans`` keep its K7 sort; a fused size of 2^31 or more raises."""
+    key = ("pair", i, j)
+    if key in st.plans:
+        return st.plans[key]
+    size = st.shape[i] * st.shape[j]
+    if size >= FUSED_LIMIT:
+        raise ValueError(
+            f"fused pair ({i}, {j}) of shape {st.shape} has {size} rows, "
+            f"2^31 or more: K7's int32 indices cannot hold it")
+    idx = st.indices
+    fused = idx[:, i].long() * st.shape[j] + idx[:, j].long()
+    cols = [fused if m == i else idx[:, m] for m in range(st.ndim) if m != j]
+    shape = [size if m == i else st.shape[m] for m in range(st.ndim)
+             if m != j]
+    if st.ndim == 2:
+        cols.append(torch.zeros_like(fused))
+        shape.append(1)
+    view = SparseTensor(torch.stack([c.to(torch.int32) for c in cols], 1),
+                        st.values, tuple(shape))
+    st.plans[key] = view
+    return view
+
+
+def pair_factors(Ws: Sequence, i: int, j: int):
+    """The factors of :func:`pair_view`'s modes: every mode's but i's and
+    j's, with None for the fused mode i, which its MTTKRP never reads (and
+    a row of ones for an order-2 tensor's added mode)."""
+    fs = [None if m == i else W for m, W in enumerate(Ws) if m != j]
+    if len(Ws) == 2:
+        fs.append(torch.ones((1, Ws[0].shape[1]), dtype=Ws[0].dtype,
+                             device=Ws[0].device))
+    return fs
+
+
 def pair_cache(st: SparseTensor, Ws: Sequence, i: int, j: int):
     """PP pair cache T_{ij} (rank-major, (R, s_i, s_j)) from the nonzeros
-    (Build_mttkrp_map semantics, als_CP.cxx:352-409, with V sparse)."""
-    return _scatter_pair(st, _gathered_kr(st, Ws, (i, j)), i, j)
+    (Build_mttkrp_map semantics, als_CP.cxx:352-409, with V sparse): K7 on
+    the fused view where :func:`mttkrp` would take K7, else the plain
+    gather + fused-index scatter."""
+    if not _kernel_route(st):
+        return _scatter_pair(st, _gathered_kr(st, Ws, (i, j)), i, j)
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    flat = coo_mttkrp.coo_mttkrp(
+        pair_view(st, i, j), pair_factors([W.contiguous() for W in Ws], i, j),
+        i)
+    return flat.reshape(st.shape[i], st.shape[j], -1).permute(2, 0, 1) \
+        .contiguous()
 
 
 def build_pp_caches(st: SparseTensor, Ws: Sequence):
@@ -146,12 +216,19 @@ def build_pp_caches(st: SparseTensor, Ws: Sequence):
     rank-major pairs T_{ij} (R, s_i, s_j), the layout of
     contract.build_pp_caches.
 
-    Prefix/suffix reuse as in the JAX package (sparse.py:185-230):
-    prefix_k = v * prod_{j<k} W_j[idx_j] and suffix_k = prod_{j>=k}
-    W_j[idx_j] are formed once, and each pair (i, j) product is
-    prefix_i * mid(i..j) * suffix_{j+1} with mid accumulated along j —
-    O(N^2) elementwise (nnz, R) products instead of O(N^3)."""
+    A float32 tensor under ``use_kernels`` takes K7: one launch per
+    single (:func:`mttkrp`) and one per pair (:func:`pair_cache`), N +
+    N(N-1)/2 in all. Otherwise, prefix/suffix reuse as in the JAX package
+    (sparse.py:185-230): prefix_k = v * prod_{j<k} W_j[idx_j] and
+    suffix_k = prod_{j>=k} W_j[idx_j] are formed once, and each pair
+    (i, j) product is prefix_i * mid(i..j) * suffix_{j+1} with mid
+    accumulated along j — O(N^2) elementwise (nnz, R) products instead of
+    O(N^3)."""
     order = st.ndim
+    if _kernel_route(st):
+        return ({i: mttkrp(st, Ws, i) for i in range(order)},
+                {(i, j): pair_cache(st, Ws, i, j) for i in range(order)
+                 for j in range(i + 1, order)})
     R = Ws[0].shape[1]
     rows = [_gather_rows(Ws[j], st.indices[:, j]) for j in range(order)]
     ones = torch.ones((st.nnz, R), dtype=Ws[0].dtype, device=Ws[0].device)

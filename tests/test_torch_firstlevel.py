@@ -16,6 +16,7 @@ card:
 """
 
 import importlib.util
+import math
 import pathlib
 
 import numpy as np
@@ -135,6 +136,48 @@ def test_last_contract_plain_f64_matches_numpy():
     got = lc.last_contract(torch.from_numpy(V), torch.from_numpy(W))
     assert got.dtype == torch.float64 and got.shape == (3, 5, 7, 12)
     assert _rel(got, np.einsum("abcd,dr->abcr", V, W)) <= 1e-10
+
+
+# (N, B, R, vec) for K5's planner: the coil-100 shape at R 10 and 40,
+# the same with an unaligned V (scalar loads), a B below one slice, and
+# ragged B.
+PLAN_CASES = [(49152, 7200, 10, True), (49152, 7200, 40, True),
+              (49152, 7200, 10, False), (8192, 1000, 10, True),
+              (37, 1001, 7, False)]
+
+
+@pytest.mark.parametrize("N,B,R,vec", PLAN_CASES)
+def test_last_contract_plan(N, B, R, vec):
+    """Equal slices that cover B, whose staged W leaves room for two
+    blocks on an SM; 16-byte loads start each slice on a multiple of 4
+    columns; the blocks of all slices and rank chunks fit the card at
+    once, and each block's run of row tiles covers them all."""
+    n_sm = 132
+    p = lc.plan(N, B, R, n_sm, vec)
+    vw = 4 if vec else 1
+    assert p.vec == vw and p.rank_chunk == lc.rank_chunk(R)
+    assert p.rows == lc.rows_per_warp(p.rank_chunk)
+    n_rc = -(-R // p.rank_chunk)
+    assert (p.n_slices - 1) * p.slice_cols < B <= p.n_slices * p.slice_cols
+    assert p.slice_cols % vw == 0
+    assert p.smem == p.slice_cols // vw * lc.group_stride(p.rank_chunk, vw) * 4
+    assert 2 * (p.smem + lc.SMEM_RESERVED) <= lc.SMEM_PER_SM
+    assert lc.group_stride(p.rank_chunk, vw) % 8 == 4
+    tiles = -(-N // (lc.WARPS * p.rows))
+    per_block = -(-tiles // p.blocks)
+    assert (p.blocks - 1) * per_block < tiles <= p.blocks * per_block
+    assert p.blocks * p.n_slices * n_rc <= 2 * n_sm or p.blocks == 1
+    if p.n_slices > 1:          # one slice fewer would not fit
+        groups = math.ceil(-(-B // vw) / (p.n_slices - 1))
+        assert groups * lc.group_stride(p.rank_chunk, vw) * 4 > \
+            lc.SMEM_BUDGET
+    if (N, B, R, vec) == (49152, 7200, 10, True):
+        # the coil-100 shape: 4 slices of 1800 rows of W, 93.6 KB each
+        assert (p.n_slices, p.slice_cols, p.smem, p.rank_chunk) == \
+            (4, 1800, 93600, 12)
+        assert p.blocks * p.n_slices <= 2 * n_sm
+    if B == 1000:
+        assert p.n_slices == 1
 
 
 def test_last_contract_eligible_matches_jax():
@@ -338,7 +381,8 @@ def test_cuda_last_contract_matches_plain():
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(7)
     for shape, R in [((3, 128, 720), 10), ((37, 1001), 7), ((5, 9, 300), 40),
-                     ((1, 64), 1)]:
+                     ((1, 64), 1), ((96, 7200), 10), ((50, 7199), 12),
+                     ((40, 9000), 40)]:
         V = torch.rand(shape, generator=gen, device="cuda")
         W = torch.rand((shape[-1], R), generator=gen, device="cuda")
         n0 = lc.LAUNCHES["last_contract"]
@@ -346,6 +390,26 @@ def test_cuda_last_contract_matches_plain():
         assert lc.LAUNCHES["last_contract"] == n0 + 2
         assert _held(got, lc.last_contract_plain(V, W)) <= 1e-4
         assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_last_contract_unaligned_v():
+    """On a card: V 4 bytes past a 16-byte boundary (a contiguous view of
+    buf[1:]) takes the scalar loads, a V with B % 4 != 0 too; both agree
+    with the plain version to rel 1e-4 and with the aligned launch on the
+    same values to rel 1e-6, and repeat bit for bit."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for shape, R in [((64, 7200), 10), ((3, 40, 1001), 7), ((16, 4000), 40)]:
+        n = math.prod(shape)
+        buf = torch.rand(n + 1, generator=gen, device="cuda")
+        V = buf[1:].view(shape)
+        assert V.is_contiguous() and V.data_ptr() % 16 == 4
+        W = torch.rand((shape[-1], R), generator=gen, device="cuda")
+        got, again = lc.last_contract(V, W), lc.last_contract(V, W)
+        assert _held(got, lc.last_contract_plain(V, W)) <= 1e-4
+        assert torch.equal(got, again)
+        assert _held(got, lc.last_contract(V.clone(), W)) <= 1e-6
 
 
 @pytest.mark.cuda
