@@ -11,7 +11,12 @@ traceback and exits nonzero:
    name and power limit.
 2. Build the CUDA kernels from ops/kernels/csrc with nvcc (sm_90a).
 3. Hold each fused order-3 MTTKRP kernel (modes 0/1/2) against its plain
-   PyTorch version on the card, and time both with CUDA events.
+   PyTorch version on the card, two launches bit for bit equal, at 200^3
+   and 512^3 (R 10), a small and a ragged-K shape, R = 40 and a V 4 bytes
+   off 16-byte alignment; time both with CUDA events. At 200^3 also
+   torch.profiler device times, warm and with the L2 flushed (by a store,
+   and by a store and a read, which leaves no dirty lines), and the host
+   time of a call; at 512^3 device times (the _512 fields).
 3b. The same for the chain-root kernels, float32 and bf16-stored V:
    mid_contract in its package layouts (K4 rank-minor, K4' rank-major)
    and triple_roots (K6).
@@ -73,10 +78,11 @@ The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --phases 3c,3d`` runs phases 1, 2 and the named
-kernel phases alone and ends with their rows as one JSON line and the
-card's name and power limit, without the ok line: run from the root of
-two checkouts in turns, it times two trees' kernels on one card.
+``python3 chip_smoke.py --phases 3c,3d`` (or ``--phases 3`` for K1-K3)
+runs phases 1, 2 and the named kernel phases alone and ends with their
+rows as one JSON line and the card's name and power limit, without the
+ok line: run from the root of two checkouts in turns, it times two
+trees' kernels on one card.
 """
 
 from __future__ import annotations
@@ -138,11 +144,15 @@ MID_CHECKS = [((512, 512, 512), 0, 10), ((3, 128, 128, 7200), 1, 10),
 # and R above one rank pass (16).
 TRIPLE_CHECKS = [((3, 128, 128, 7200), 10), ((3, 16, 24, 1200), 5),
                  ((3, 64, 64, 2048), 40)]
-# (I, J, K, R): the main path's two shapes, a ragged one, and R above one
-# rank chunk (32).
-CHECK_SHAPES = [(200, 200, 200, 10), (512, 512, 512, 10), (13, 37, 200, 7),
-                (96, 96, 96, 40)]
+# (I, J, K, R, offset) of K1-K3: the main path's two shapes, a small one,
+# a ragged K (K % 4 != 0: scalar loads), R above one rank chunk (32), and
+# the main shape with V's data 4 bytes past a 16-byte boundary (offset 1
+# float: scalar loads).
+CHECK_SHAPES = [(200, 200, 200, 10, 0), (512, 512, 512, 10, 0),
+                (13, 37, 200, 7, 0), (13, 37, 203, 7, 0), (96, 96, 96, 40, 0),
+                (200, 200, 200, 10, 1)]
 MAIN_SHAPE = (200, 200, 200, 10)
+BIG_SHAPE = (512, 512, 512, 10)
 # f32 on both sides (bf16 V: the same bf16-rounded operands, whose
 # products are exact in f32), summed in different orders over up to
 # 512*512 terms.
@@ -178,13 +188,17 @@ def phase(name):
 _FLUSH = []
 
 
-def flush_l2():
+def flush_l2(clean=False):
     """Overwrite the 50 MB L2 cache with a 256 MB store, so that the next
-    launch reads its inputs from device memory."""
+    launch reads its inputs from device memory. The store leaves the L2
+    full of dirty lines, which the next launch's reads write back; with
+    ``clean`` a 256 MB read follows it, which leaves clean lines."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 * 2**20, device="cuda"))
     _FLUSH[0].zero_()
+    if clean:
+        _FLUSH[0].sum()
 
 
 def median_ms(fn, n=25, warmup=3, flush=False):
@@ -341,31 +355,96 @@ def held_twice(label, fn, plain):
     return held_to_plain(label, got, plain())
 
 
+def device_ms_l2_flushed(what, fn, reps=25, clean=False):
+    """Device ms per call of ``fn`` with the L2 flushed (``flush_l2``)
+    before each call: torch.profiler's device time of the calls' own
+    kernels, without the flush's."""
+    from pairwise_perturbation_tpu_torch import phase_profile
+    _, flush = phase_profile.profile(lambda: flush_l2(clean), "cuda", 3)
+
+    def flushed():
+        flush_l2(clean)
+        fn()
+
+    _, per = phase_profile.profile(flushed, "cuda", reps)
+    own = {k: v for k, v in per.items() if k not in flush}
+    ms = sum(own.values())
+    print(f"  {what}, L2 flushed{' clean' if clean else ''}: device "
+          f"{1e3 * ms:.1f} us per call "
+          "(torch.profiler): " + ", ".join(
+              f"{k[:48]} {1e3 * v:.1f} us" for k, v in own.items()))
+    return ms
+
+
+def mttkrp3_plan_label(mttkrp3, V, R, mode):
+    """The launch plan of ``mode`` at V's shape, for a row's label (empty
+    for a tree whose module has no plan)."""
+    import torch
+    if not hasattr(mttkrp3, "plan"):
+        return ""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return f" {mttkrp3.plan(tuple(V.shape), R, mode, n_sm, mttkrp3.can_vec(V))}"
+
+
 def compare_kernels():
-    """K1-K3 against their plain versions on the card; times reported at
-    MAIN_SHAPE. The library call is the whole MTTKRP as one einsum."""
+    """K1-K3 against their plain versions on the card, every mode at every
+    CHECK_SHAPES entry, two launches bit for bit equal; times reported at
+    MAIN_SHAPE (with device times warm and with the L2 flushed, and the
+    host time of a call) and at 512^3 (fields suffixed _512). The library
+    call is the whole MTTKRP as one einsum."""
     import torch
     from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
     gen = torch.Generator(device="cuda").manual_seed(0)
     specs = ("ijk,jr,kr->ir", "ijk,ir,kr->jr", "ijk,ir,jr->kr")
-    for (I, J, K, R) in CHECK_SHAPES:
-        V = torch.rand((I, J, K), generator=gen, device="cuda")
+    for (I, J, K, R, offset) in CHECK_SHAPES:
+        buf = torch.rand(I * J * K + offset, generator=gen, device="cuda")
+        V = buf[offset:].view(I, J, K)
         Ws = [torch.rand((s, R), generator=gen, device="cuda")
               for s in (I, J, K)]
+        main = (I, J, K, R) == MAIN_SHAPE and offset == 0
+        big = (I, J, K, R) == BIG_SHAPE
         for mode in range(3):
-            label = f"mode {mode} {I}x{J}x{K} R={R}"
-            abs_err, rel = held_to_plain(
-                label, mttkrp3.mttkrp3_mode(V, Ws, mode),
-                mttkrp3.mttkrp3_mode_plain(V, Ws, mode))
+            key = f"K{mode + 1}"
+            label = (f"mode {mode} {I}x{J}x{K} R={R} data_ptr % 16 = "
+                     f"{V.data_ptr() % 16}"
+                     + mttkrp3_plan_label(mttkrp3, V, R, mode))
+
+            def kernel(m=mode):
+                return mttkrp3.mttkrp3_mode(V, Ws, m)
+
+            def plain(m=mode):
+                return mttkrp3.mttkrp3_mode_plain(V, Ws, m)
+
+            abs_err, rel = held_twice(label, kernel, plain)
             others = [W for j, W in enumerate(Ws) if j != mode]
-            timed_row(f"K{mode + 1}", label, abs_err, rel,
-                      lambda: mttkrp3.mttkrp3_mode(V, Ws, mode),
-                      lambda: mttkrp3.mttkrp3_mode_plain(V, Ws, mode),
-                      lambda: torch.einsum(specs[mode], V, *others),
-                      tensor_bytes(V, *others) + 4 * V.shape[mode] * R,
-                      2 * V.numel() * R, library_name="torch.einsum",
-                      report=(I, J, K, R) == MAIN_SHAPE)
-        del V, Ws
+
+            def library(m=mode, o=others):
+                return torch.einsum(specs[m], V, *o)
+
+            fields = timed_row(
+                key, label + " (bitwise repeat ok)", abs_err, rel, kernel,
+                plain, library,
+                tensor_bytes(V, *others) + 4 * V.shape[mode] * R,
+                2 * V.numel() * R, library_name="torch.einsum", report=main)
+            res = RESULTS[key]
+            if main:
+                res["device_ms"] = device_busy_ms("kernel", kernel)
+                res["device_ms_l2_flushed"] = device_ms_l2_flushed(
+                    "kernel", kernel)
+                res["device_ms_l2_clean"] = device_ms_l2_flushed(
+                    "kernel", kernel, clean=True)
+                res["library_device_ms"] = device_busy_ms("torch.einsum",
+                                                          library)
+                res["host_us"] = host_us(kernel)
+                print(f"  host per call: {res['host_us']:.1f} us")
+            if big:
+                res.update({f"{k}_512": fields[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms")})
+                res["device_ms_512"] = device_busy_ms("kernel", kernel)
+                res["library_device_ms_512"] = device_busy_ms(
+                    "torch.einsum", library)
+        del V, Ws, buf
+        torch.cuda.empty_cache()
 
 
 MID_SPECS = {"rank_minor": "pbm,br->pmr", "rank_major": "pbm,br->prm",

@@ -100,13 +100,16 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in ("pp_mttkrp3_mode0", "pp_mttkrp3_mode1"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
-        fn.restype = i32
-    lib.pp_mttkrp3_mode2.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
-                                     i64, i64, p]
+    lib.pp_mttkrp3_rows.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i64,
+                                    i64, i32, i32, i32, i32, i32, i32, i64,
+                                    i32, p]
+    lib.pp_mttkrp3_rows.restype = i32
+    lib.pp_mttkrp3_mode2.argtypes = [p, p, p, p, p, i64, i64, i64, i32, i32,
+                                     i32, i32, i32, i32, i64, i64, i32, i32,
+                                     p]
     lib.pp_mttkrp3_mode2.restype = i32
+    lib.pp_mttkrp3_prepare.argtypes = [i32, i32, i32]
+    lib.pp_mttkrp3_prepare.restype = i32
     lib.pp_mid_contract.argtypes = [p, i32, p, p, i64, i64, i64, i32, i32,
                                     i32, p]
     lib.pp_mid_contract.restype = i32

@@ -102,14 +102,110 @@ def test_wrapper_checks_arguments(bad):
         mttkrp3.mttkrp3_mode(V, Ws, mode)
 
 
-@pytest.mark.parametrize("I,J,K,n_sm", [(200, 200, 200, 132),
-                                         (512, 512, 512, 132),
-                                         (13, 37, 200, 132), (1, 1, 5, 132),
-                                         (96, 96, 96, 8), (7, 3, 1000, 1)])
-def test_minor_slabs_cover_every_fiber_once(I, J, K, n_sm):
-    n_slabs, per_slab = mttkrp3.minor_slabs(I, J, K, n_sm)
-    assert n_slabs >= 1 and per_slab >= 1
-    assert (n_slabs - 1) * per_slab < I * J <= n_slabs * per_slab
+MINOR_CASES = [(200, 200, 200, 10, 132), (512, 512, 512, 10, 132),
+               (13, 37, 200, 7, 132), (13, 37, 203, 7, 132),
+               (1, 1, 5, 3, 132), (96, 96, 96, 40, 8), (96, 96, 96, 40, 132),
+               (7, 3, 1000, 1, 1), (20, 20, 100000, 10, 132),
+               (200, 200, 200, 33, 132)]
+# (I, J, K, R, n_sm, vec): 16-byte loads only where K % 4 == 0
+MINOR_PLANS = [c + (vec,) for c in MINOR_CASES for vec in (True, False)
+               if not (vec and c[2] % 4)]
+
+
+@pytest.mark.parametrize("I,J,K,R,n_sm,vec", MINOR_PLANS)
+def test_minor_plan_covers_every_fiber_and_k_once(I, J, K, R, n_sm, vec):
+    """Mode 2's plan: the slabs partition the I*J fibers, the k chunks
+    cover every vector of k once, a block's (rows x kcols) grid fits its
+    threads, and the shared memory holds the staged weights and the row
+    sums, within what two blocks on an SM may take."""
+    p = mttkrp3.minor_plan(I, J, K, R, n_sm, vec)
+    n = I * J
+    assert p.n_slabs >= 1 and p.slab_len >= 1
+    assert (p.n_slabs - 1) * p.slab_len < n <= p.n_slabs * p.slab_len
+    kv = -(-K // p.vec)
+    assert (p.k_chunks - 1) * p.kcols < kv <= p.k_chunks * p.kcols
+    assert p.rows * p.kcols <= p.threads <= mttkrp3.THREADS
+    assert p.threads % 32 == 0 and p.rows * p.kcols > p.threads - 32
+    assert p.rank_chunk == mttkrp3.rank_chunk(R) and p.rank_chunk >= min(R, 32)
+    assert 1 <= p.stage <= p.slab_len
+    assert p.smem == 4 * p.rank_chunk * max(p.stage, p.threads)
+    assert p.smem <= mttkrp3.STAGE_BYTES
+
+
+@pytest.mark.parametrize("I,J,K,R,n_sm,vec", MINOR_PLANS)
+def test_minor_plan_scratch_is_a_small_share_of_v(I, J, K, R, n_sm, vec):
+    """The (n_slabs, K, R) partials take at most SCRATCH_SHARE of V's
+    bytes, or one slab's where V has fewer fibers than that allows."""
+    p = mttkrp3.minor_plan(I, J, K, R, n_sm, vec)
+    assert p.n_slabs * K * R <= max(mttkrp3.SCRATCH_SHARE * I * J * K,
+                                    K * R)
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("size", [200, 512])
+def test_minor_plan_fills_the_card_at_the_main_shapes(size, vec):
+    """At 200^3 and 512^3, rank 10, on 132 SMs: at least two blocks per
+    SM, with 16-byte loads or scalar ones."""
+    p = mttkrp3.minor_plan(size, size, size, 10, 132, vec)
+    assert p.n_slabs * p.k_chunks >= 2 * 132
+    assert p.vec == (4 if vec else 1)
+    assert p.n_slabs * size * 10 <= 0.04 * size ** 3
+
+
+ROWS_CASES = [(200, 200, 200, 10, 132), (512, 512, 512, 10, 132),
+              (13, 37, 200, 7, 132), (37, 13, 203, 7, 132),
+              (1, 1, 5, 3, 132), (96, 96, 96, 40, 8), (3, 5000, 64, 10, 132),
+              (5000, 3, 64, 10, 132), (20, 20, 100000, 10, 132),
+              (200, 6000, 200, 33, 132), (600, 4096, 64, 10, 132)]
+# (nx, ny, K, R, n_sm, vec): 16-byte loads only where K % 4 == 0
+ROWS_PLANS = [c + (vec,) for c in ROWS_CASES for vec in (True, False)
+              if not (vec and c[2] % 4)]
+
+
+@pytest.mark.parametrize("nx,ny,K,R,n_sm,vec", ROWS_PLANS)
+def test_rows_plan_covers_every_fiber_and_k_once(nx, ny, K, R, n_sm, vec):
+    """The rows kernel's plan: the parts partition each output row's ny
+    fibers, the k steps cover every vector of k once, a block's (rows x
+    kcols) grid fits its threads, and the staged weights fit the shared
+    memory that two blocks on an SM may take."""
+    p = mttkrp3.rows_plan(nx, ny, K, R, n_sm, vec)
+    assert p.parts >= 1 and p.part_len >= 1
+    assert (p.parts - 1) * p.part_len < ny <= p.parts * p.part_len
+    kv = -(-K // p.vec)
+    assert (p.k_chunks - 1) * p.kcols < kv <= p.k_chunks * p.kcols
+    assert p.rows * p.kcols <= p.threads <= mttkrp3.THREADS
+    assert p.threads % 32 == 0 and p.rows * p.kcols > p.threads - 32
+    assert p.rank_chunk == mttkrp3.rank_chunk(R)
+    assert p.smem == 4 * p.rank_chunk * max(p.part_len, p.threads // 32)
+    assert p.smem <= mttkrp3.STAGE_BYTES
+    # the (parts, nx, R) partials are a small share of V's bytes
+    assert p.parts * nx * R <= max(0.04 * nx * ny * K, nx * R)
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("size", [200, 512])
+def test_rows_plan_fills_the_card_at_the_main_shapes(size, vec):
+    """At 200^3 and 512^3, rank 10, on 132 SMs: at least two blocks (one
+    per output row and part) per SM."""
+    p = mttkrp3.rows_plan(size, size, size, 10, 132, vec)
+    assert size * p.parts >= 2 * 132
+    assert p.vec == (4 if vec else 1)
+
+
+def test_plan_of_each_mode_and_its_load_width():
+    """``plan`` gives the rows plan of modes 0 (rows i, fibers j) and 1
+    (rows j, fibers i) and mode 2's plan, and ``can_vec`` asks for 16-byte
+    loads only for K % 4 == 0 and a 16-byte aligned V."""
+    assert mttkrp3.plan((30, 500, 64), 10, 0, 132, True) == \
+        mttkrp3.rows_plan(30, 500, 64, 10, 132, True)
+    assert mttkrp3.plan((30, 500, 64), 10, 1, 132, True) == \
+        mttkrp3.rows_plan(500, 30, 64, 10, 132, True)
+    assert mttkrp3.plan((200, 200, 200), 10, 2, 132, True) == \
+        mttkrp3.minor_plan(200, 200, 200, 10, 132, True)
+    buf = torch.zeros(200 * 200 * 200 + 1)
+    assert mttkrp3.can_vec(buf[:-1].view(200, 200, 200))
+    assert not mttkrp3.can_vec(buf[1:].view(200, 200, 200))
+    assert not mttkrp3.can_vec(torch.zeros(13, 37, 203))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -136,23 +232,56 @@ def test_library_name_follows_sources(monkeypatch):
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_cuda_kernel_matches_plain(mode):
     """On a card: the CUDA kernel against the plain version, f32, rel
-    max-norm 1e-4 (different summation orders over up to 40,000 terms);
-    each call counts exactly one launch."""
+    max-norm 1e-4 (different summation orders over up to 40,000 terms),
+    and two launches equal bit for bit; at 16-byte loads, a ragged K and a
+    V 4 bytes off 16-byte alignment (scalar loads), and R above one rank
+    chunk. Each call counts exactly one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(mode)
-    for (I, J, K, R) in [(200, 200, 200, 10), (13, 37, 200, 7),
-                         (96, 96, 96, 40)]:
-        V = torch.rand((I, J, K), generator=gen, device="cuda")
+    for (I, J, K, R, offset) in [(200, 200, 200, 10, 0), (13, 37, 200, 7, 0),
+                                 (13, 37, 203, 7, 0), (96, 96, 96, 40, 0),
+                                 (40, 50, 64, 10, 1)]:
+        buf = torch.rand(I * J * K + offset, generator=gen, device="cuda")
+        V = buf[offset:].view(I, J, K)
+        assert mttkrp3.can_vec(V) == (K % 4 == 0 and offset == 0)
         Ws = [torch.rand((s, R), generator=gen, device="cuda")
               for s in (I, J, K)]
         n0 = mttkrp3.LAUNCHES[mode]
         got = mttkrp3.mttkrp3_mode(V, Ws, mode)
+        again = mttkrp3.mttkrp3_mode(V, Ws, mode)
         want = mttkrp3.mttkrp3_mode_plain(V, Ws, mode)
         torch.cuda.synchronize()
-        assert mttkrp3.LAUNCHES[mode] == n0 + 1
+        assert mttkrp3.LAUNCHES[mode] == n0 + 2
+        assert torch.equal(got, again), (I, J, K, R, offset)
         err = float((got - want).abs().max() / want.abs().max())
-        assert err <= 1e-4, (I, J, K, R, err)
+        assert err <= 1e-4, (I, J, K, R, offset, err)
+
+
+@pytest.mark.cuda
+def test_cuda_plans_of_one_instance_in_turns():
+    """On a card: modes 0 and 1 of one V share a kernel instance with
+    plans of different shared memory; launched in turns, with mode 2 and
+    another shape between them, each stays held to the plain version (rel
+    1e-4) and to its own first result bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = []
+    for shape in [(40, 50, 60), (60, 40, 200)]:
+        V = torch.rand(shape, generator=gen, device="cuda")
+        Ws = [torch.rand((s, 5), generator=gen, device="cuda") for s in shape]
+        cases.append((V, Ws))
+    first = {}
+    for _ in range(2):
+        for c, (V, Ws) in enumerate(cases):
+            for mode in range(3):
+                got = mttkrp3.mttkrp3_mode(V, Ws, mode)
+                want = mttkrp3.mttkrp3_mode_plain(V, Ws, mode)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max() / want.abs().max())
+                assert err <= 1e-4, (c, mode, err)
+                assert torch.equal(first.setdefault((c, mode), got), got)
 
 
 @pytest.mark.cuda
