@@ -19,7 +19,10 @@ traceback and exits nonzero:
    time of a call; at 512^3 device times (the _512 fields).
 3b. The same for the chain-root kernels, float32 and bf16-stored V:
    mid_contract in its package layouts (K4 rank-minor, K4' rank-major)
-   and triple_roots (K6).
+   and triple_roots (K6), every K6 check also bit for bit across two
+   calls; at the coil shape K6's torch.profiler device time split by
+   launch, beside its yardstick of three torch.matmul calls over views
+   of V (device time too), its one-read bound and its two-read floor.
 3c. The sparse COO MTTKRP kernel (K7) against its plain version, every
    mode, on phase 6's own tensor and initial factors, at the
    sparse200_4_nnz1.6M fixture and its PP pair view (0, 1), the Pallas
@@ -34,7 +37,8 @@ traceback and exits nonzero:
    bit for bit equal: last_contract (K5), mid_contract's rank-outer
    layout (S2), column_sum (S4) and mid_contract rank-major at every
    block width (S5), at the coil-100 shapes of the scripts, ragged
-   shapes and R = 40 (K5 also with V 4 bytes off 16-byte alignment; K5's
+   shapes and R = 40 (K5 also with V 4 bytes off 16-byte alignment,
+   and with bf16 V at the coil shape, aligned and 2 bytes off; K5's
    and S4's device times beside torch.matmul's and torch.sum's from
    torch.profiler); K4' at the coil shape in f32 (S1) and bf16 (S3).
    Every kernel row of phases 3-3d is timed beside its plain version, the
@@ -53,7 +57,8 @@ traceback and exits nonzero:
 5. Order-4 CP-PP at the coil-100 shape (3, 128, 128, 7200) f32, rank 10.
 5b. The same shape, f32 and bf16 V, under
    ``config.override(use_kernels_triple=True)``: every PP cache build
-   takes its three chain roots from one K6 launch.
+   takes its three chain roots from one K6 call (two rank-outer
+   mid_contract launches and one last_contract).
 6. The sparse CLI: ``test_als -model CP -issparse 1 -pp 1`` on the folded
    Poisson tensor (100^4); checks the CSV and that K7 launched exactly N
    times per exact sweep, N + 1 times per diagnostics row and N +
@@ -78,11 +83,11 @@ The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --phases 3c,3d`` (or ``--phases 3`` for K1-K3)
-runs phases 1, 2 and the named kernel phases alone and ends with their
-rows as one JSON line and the card's name and power limit, without the
-ok line: run from the root of two checkouts in turns, it times two
-trees' kernels on one card.
+``python3 chip_smoke.py --phases 3c,3d`` (or ``--phases 3`` for K1-K3,
+``--phases 3b`` for K4, K4' and K6) runs phases 1, 2 and the named
+kernel phases alone and ends with their rows as one JSON line and the
+card's name and power limit, without the ok line: run from the root of
+two checkouts in turns, it times two trees' kernels on one card.
 """
 
 from __future__ import annotations
@@ -101,7 +106,7 @@ CSRC = "pairwise_perturbation_tpu_torch/ops/kernels/csrc/"
 PALLAS = "pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py:"
 COO_REPLACES = "pairwise_perturbation_tpu/ops/kernels/coo_pallas.py:145"
 # Every function of the repo that reaches pl.pallas_call: table id ->
-# (JSON name, CUDA source, the pl.pallas_call it replaces).
+# (JSON name, CUDA sources it launches, the pl.pallas_call it replaces).
 TABLE = {
     "K1": ("mttkrp3_mode0", "mttkrp3.cu", PALLAS + "145"),
     "K2": ("mttkrp3_mode1", "mttkrp3.cu", PALLAS + "240"),
@@ -109,7 +114,8 @@ TABLE = {
     "K4": ("mid_contract_rank_minor", "mid_contract.cu", PALLAS + "468"),
     "K4'": ("mid_contract_rank_major", "mid_contract.cu", PALLAS + "482"),
     "K5": ("last_contract", "last_contract.cu", PALLAS + "550"),
-    "K6": ("triple_roots", "triple_roots.cu", PALLAS + "712"),
+    "K6": ("triple_roots", ("mid_contract.cu", "last_contract.cu"),
+           PALLAS + "712"),
     "K7": ("coo_mttkrp", "coo_mttkrp.cu", COO_REPLACES),
     "S1": ("mid_contract_rank_major_f32_rankpos", "mid_contract.cu",
            "scripts/bench_rankpos.py:64"),
@@ -222,16 +228,22 @@ def median_ms(fn, n=25, warmup=3, flush=False):
     return statistics.median(times)
 
 
-def device_busy_ms(what, fn, reps=25):
-    """Device busy ms per call of ``fn`` from torch.profiler (device
-    events only), printed with each kernel's share. Event times also hold
-    the host's enqueue of a call; this is the device's time alone."""
+def device_split_ms(what, fn, reps=25):
+    """(device busy ms per call of ``fn``, {kernel name: device ms per
+    call}) from torch.profiler (device events only), printed. Event times
+    also hold the host's enqueue of a call; this is the device's time
+    alone."""
     from pairwise_perturbation_tpu_torch import phase_profile
     busy, per = phase_profile.profile(fn, "cuda", reps)
     print(f"  {what}: device busy {1e3 * busy:.1f} us per call "
           "(torch.profiler): " + ", ".join(
               f"{k[:48]} {1e3 * v:.1f} us" for k, v in per.items()))
-    return busy
+    return busy, per
+
+
+def device_busy_ms(what, fn, reps=25):
+    """Device busy ms per call of ``fn`` (:func:`device_split_ms`)."""
+    return device_split_ms(what, fn, reps)[0]
 
 
 def host_us(fn, n=200):
@@ -501,21 +513,61 @@ def compare_chain_roots():
             V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
             Ws = [torch.rand((s, R), generator=gen, device="cuda")
                   for s in shape[1:]]
-            got, want = tr.triple_roots(V, *Ws), tr.triple_roots_plain(V, *Ws)
             label = f"triple_roots {shape} R={R} {dname}"
+
+            def kernel():
+                return tr.triple_roots(V, *Ws)
+
+            def plain():
+                return tr.triple_roots_plain(V, *Ws)
+
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{label}: two calls differ")
             errs = [held_to_plain(f"{label} O{k + 1}", g, w)
-                    for k, (g, w) in enumerate(zip(got, want))]
+                    for k, (g, w) in enumerate(zip(got, plain()))]
             out_bytes = tensor_bytes(*got)
-            del got, want
-            timed_row("K6", label, max(e[0] for e in errs),
-                      max(e[1] for e in errs), lambda: tr.triple_roots(V, *Ws),
-                      lambda: tr.triple_roots_plain(V, *Ws), None,
-                      tensor_bytes(V, *Ws) + out_bytes, 6 * V.numel() * R,
-                      dname, reference=("the einsum route, three einsums",
-                                        lambda: tr.triple_roots_plain(V, *Ws)),
-                      report=i == 0 and dtype == torch.float32)
+            del got, again
+            library = triple_library(V, Ws)
+            fields = timed_row(
+                "K6", label + " (bitwise repeat ok)", max(e[0] for e in errs),
+                max(e[1] for e in errs), kernel, plain, library,
+                tensor_bytes(V, *Ws) + out_bytes, 6 * V.numel() * R, dname,
+                "three torch.matmul calls, TF32 off"
+                + (", bf16 out" if dname == "bfloat16" else ""),
+                report=i == 0 and dtype == torch.float32)
+            if i == 0:
+                # the coil shape: device times, and the floor of a design
+                # that reads V twice
+                sfx = "" if dtype == torch.float32 else "_bf16"
+                res = RESULTS["K6"]
+                res["device_ms" + sfx], res["device_ms_by_launch" + sfx] = \
+                    device_split_ms(f"K6 {dname}", kernel)
+                res["library_device_ms" + sfx] = device_busy_ms(
+                    f"three torch.matmul calls {dname}", library)
+                res["bound_two_read_ms" + sfx] = bound_ms(
+                    2 * tensor_bytes(V) + tensor_bytes(*Ws) + out_bytes,
+                    6 * V.numel() * R, dname)[0]
+                print(f"  K6 {dname}: one-read bound {fields['bound_ms']:.4f} "
+                      f"ms, two-read floor {res['bound_two_read_ms' + sfx]:.4f}"
+                      " ms")
+                if sfx:
+                    res.update({k + sfx: fields[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms")})
             del V, Ws
             torch.cuda.empty_cache()
+
+
+def triple_library(V, Ws):
+    """K6's yardstick: three torch.matmul calls over views of V (TF32 off;
+    bf16 V: bf16 factors and bf16 outputs) that compute its three sums,
+    without the permutes to rank-outer."""
+    P, B1, B2, M = V.shape
+    W1, W2, W3 = (W.to(V.dtype) for W in Ws)
+    V1, V2, V3 = (V.reshape(P, B1, B2 * M), V.reshape(P * B1, B2, M),
+                  V.reshape(-1, M))
+    return lambda: (W1.T @ V1, W2.T @ V2, V3 @ W3)
 
 
 def random_coo(shape, nnz, R, gen, seed, skewed=False):
@@ -696,12 +748,14 @@ def compare_coo():
         torch.cuda.empty_cache()
 
 
-# (V shape, R, offset) of last_contract (K5): the coil-100 shape of
-# bench_firstpair, a ragged (N, B), R above one rank chunk (32), and the
+# (V shape, R, offset, dtype) of last_contract (K5): the coil-100 shape
+# of bench_firstpair, a ragged (N, B), R above one rank chunk (32), the
 # coil shape again with V's data 4 bytes past a 16-byte boundary (offset
-# 1 float: scalar loads).
-K5_CHECKS = [(COIL_SHAPE, 10, 0), ((37, 1001), 7, 0), ((64, 64, 1000), 40, 0),
-             (COIL_SHAPE, 10, 1)]
+# 1 float: scalar loads), and bf16 V at the coil shape (K6's O3), aligned
+# and 2 bytes off (scalar loads).
+K5_CHECKS = [(COIL_SHAPE, 10, 0, "float32"), ((37, 1001), 7, 0, "float32"),
+             ((64, 64, 1000), 40, 0, "float32"), (COIL_SHAPE, 10, 1, "float32"),
+             (COIL_SHAPE, 10, 0, "bfloat16"), (COIL_SHAPE, 10, 1, "bfloat16")]
 # (P, B, M) views and R of S2/S5: the two coil-100 views of
 # bench_midvariants (the first is also bench_rankpos's mode-1 view), a
 # ragged shape, and R = 40.
@@ -720,32 +774,38 @@ def compare_firstlevel():
     from pairwise_perturbation_tpu_torch.ops.kernels import last_contract as lc
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract as mc
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for i, (shape, R, offset) in enumerate(K5_CHECKS):
+    for i, (shape, R, offset, dname) in enumerate(K5_CHECKS):
         buf = torch.rand(math.prod(shape) + offset, generator=gen,
-                         device="cuda")
+                         device="cuda").to(getattr(torch, dname))
         V = buf[offset:].view(shape)
         W = torch.rand((shape[-1], R), generator=gen, device="cuda")
-        V2 = V.reshape(-1, shape[-1])
+        V2, Wd = V.reshape(-1, shape[-1]), W.to(V.dtype)
         p = lc.plan(V2.shape[0], shape[-1], R,
                     torch.cuda.get_device_properties(0).multi_processor_count,
-                    shape[-1] % 4 == 0 and V.data_ptr() % 16 == 0)
-        label = (f"last_contract {shape} R={R} data_ptr % 16 = "
+                    lc.can_vec(V))
+        label = (f"last_contract {shape} R={R} {dname} data_ptr % 16 = "
                  f"{V.data_ptr() % 16} ({p.n_slices} slices of "
                  f"{p.slice_cols}, {p.blocks} blocks each, vec {p.vec})")
         abs_err, rel = held_twice(label, lambda: lc.last_contract(V, W),
                                   lambda: lc.last_contract_plain(V, W))
-        timed_row("K5", label + " (bitwise repeat ok)", abs_err, rel,
-                  lambda: lc.last_contract(V, W),
-                  lambda: lc.last_contract_plain(V, W), lambda: V2 @ W,
-                  tensor_bytes(V, W) + 4 * V2.shape[0] * R,
-                  2 * V.numel() * R, library_name="torch.matmul",
-                  report=i == 0)
-        if i == 0:
-            RESULTS["K5"]["device_ms"] = device_busy_ms(
+        fields = timed_row(
+            "K5", label + " (bitwise repeat ok)", abs_err, rel,
+            lambda: lc.last_contract(V, W),
+            lambda: lc.last_contract_plain(V, W), lambda: V2 @ Wd,
+            tensor_bytes(V, W) + 4 * V2.shape[0] * R, 2 * V.numel() * R,
+            dname, "torch.matmul" + (", bf16 out" if dname == "bfloat16"
+                                     else ""),
+            report=i == 0)
+        if offset == 0 and shape == COIL_SHAPE:
+            sfx = "" if dname == "float32" else "_bf16"
+            RESULTS["K5"]["device_ms" + sfx] = device_busy_ms(
                 "kernel", lambda: lc.last_contract(V, W))
-            RESULTS["K5"]["library_device_ms"] = device_busy_ms(
-                "torch.matmul", lambda: V2 @ W)
-        del V, W, V2, buf
+            RESULTS["K5"]["library_device_ms" + sfx] = device_busy_ms(
+                "torch.matmul", lambda: V2 @ Wd)
+            if sfx:
+                RESULTS["K5"].update({k + sfx: fields[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms")})
+        del V, W, V2, Wd, buf
     for i, (shape, R) in enumerate(VIEW_CHECKS):
         V3 = torch.rand(shape, generator=gen, device="cuda")
         W = torch.rand((shape[1], R), generator=gen, device="cuda")
@@ -975,7 +1035,7 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
     import torch
     from pairwise_perturbation_tpu_torch import config, native
     from pairwise_perturbation_tpu_torch.models import cp
-    from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots
+    from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
     gen = torch.Generator(device="cuda").manual_seed(0)
     V = torch.rand(COIL_SHAPE, generator=gen, device="cuda").to(
@@ -985,7 +1045,7 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
     cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=5,
                       tree_split=split)
     tracing.reset()
-    triple_roots.reset_launch_counts()
+    _bench.reset_launch_counts()
     tracing.enable()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -994,7 +1054,8 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tracing.enable(False)
-    launches = triple_roots.LAUNCHES["triple_roots"]
+    counts = _bench.launch_counts()
+    launches = counts["triple_roots.triple_roots"]
     stats = tracing.stats()
     gns = [h["gradnorm"] for h in res.history]
     n_pp = sum(1 for h in res.history if h["pp"] == 1)
@@ -1009,9 +1070,16 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
         raise AssertionError("gradnorm did not decrease")
     if triple:
         n_builds = stats.get("cp.pp_cache_build", (0,))[0]
-        print(f"K6 launches {launches}, PP cache builds {n_builds}")
+        print(f"K6 launches {launches}, PP cache builds {n_builds}; every "
+              f"kernel launch of the run: "
+              f"{ {k: n for k, n in counts.items() if n} }")
         if not launches == n_builds > 0:
             raise AssertionError("K6 launches differ from the cache builds")
+        # each K6 call: O1 and O2 by rank-outer mid_contract, O3 by K5
+        if (counts["mid_contract.rank_outer"], counts[
+                "last_contract.last_contract"]) != (2 * launches, launches):
+            raise AssertionError("K6's inner launches differ from two "
+                                 "rank-outer launches and one K5 a call")
     print_phase_times(stats, beside)
     return stats, launches
 
@@ -1310,12 +1378,15 @@ def main(argv=None) -> int:
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]
     kernels = []
-    for kid, (name, src, replaces) in TABLE.items():
+    for kid, (name, srcs, replaces) in TABLE.items():
         if launches.get(kid, 0) <= 0 or "ms" not in RESULTS[kid]:
             raise AssertionError(f"{kid} ({name}) was not launched on its "
                                  "path or not timed")
+        srcs = (srcs,) if isinstance(srcs, str) else srcs
         kernels.append(dict(id=kid, name=name, route="cuda",
-                            source=CSRC + src, replaces=replaces,
+                            source=CSRC + srcs[0],
+                            sources=[CSRC + src for src in srcs],
+                            replaces=replaces,
                             launches=launches[kid],
                             on_main_path=kid not in OFF_SLICE_PATH,
                             **RESULTS[kid]))

@@ -5,7 +5,8 @@
 // last_contract and its Pallas kernel _last_kernel (K5). With V viewed as
 // (N, B) around its last mode (N = the leading modes merged):
 //   out[n, r] = sum_b V[n, b] W[b, r]                          (N, R)
-// V, W and the output are float32.
+// V is float32 or bfloat16 (widened exactly); W is float32 and already
+// rounded to V's type by the caller; sums and the output are float32.
 //
 // What bounds it on the H100: memory bandwidth. At the coil-100 shape V
 // is 49152 x 7200 (1.416 GB) and each element costs R = 10 FMAs, so the
@@ -25,9 +26,10 @@
 //   at two blocks, above the ~18 KB that DRAM latency asks for. (4 rows
 //   unrolled twice, with the same bytes in flight, ran slower on the
 //   H100: it needs all 128 registers, for fewer shared-memory reads.)
-// * VW = 4 (16-byte loads) when B % 4 == 0 and V is 16-byte aligned; the
-//   slices then start on multiples of 4 columns. Otherwise VW = 1: the
-//   same template with scalar loads takes any B and any offset.
+// * VW = 4 (loads of 4 values: 16 bytes of f32, 8 of bf16) when B % 4 ==
+//   0 and V is aligned to that load; the slices then start on multiples
+//   of 4 columns. Otherwise VW = 1: the same template with scalar loads
+//   takes any B and any offset.
 // * Shared memory holds W's slice as groups of VW rows, RC ranks each, at
 //   a group stride that is 4 modulo 8 floats, so that the 8 lanes of each
 //   float4 phase read distinct banks.
@@ -68,6 +70,8 @@ __host__ __device__ constexpr int group_stride() {
   return (VW * RC) % 8 == 0 ? VW * RC + 4 : VW * RC;
 }
 
+// VW values of V from p as floats, with the streaming hint; a bf16 is the
+// high half of the f32 of the same value.
 __device__ __forceinline__ void load_stream(const float* p, float (&x)[1]) { x[0] = __ldcs(p); }
 __device__ __forceinline__ void load_stream(const float* p, float (&x)[4]) {
   const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
@@ -75,6 +79,17 @@ __device__ __forceinline__ void load_stream(const float* p, float (&x)[4]) {
   x[1] = v.y;
   x[2] = v.z;
   x[3] = v.w;
+}
+__device__ __forceinline__ void load_stream(const uint16_t* p, float (&x)[1]) {
+  x[0] = __uint_as_float(static_cast<uint32_t>(__ldcs(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+__device__ __forceinline__ void load_stream(const uint16_t* p, float (&x)[4]) {
+  const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
 // acc[j][r] += sum_v x[j][v] W[group g's row v, r], in v order.
@@ -102,9 +117,9 @@ __device__ __forceinline__ void fma_group(const float (&x)[ROWS][VW], const floa
 // memory ceil(slice_cols / VW) * group_stride * 4 bytes. Slice s covers
 // columns [s * slice_cols, min(B, (s + 1) * slice_cols)) and writes
 // part + s * N * R.
-template <int RC, int VW>
+template <typename T, int RC, int VW>
 __global__ void __launch_bounds__(kThreads, 2)
-last_partial_kernel(const float* __restrict__ V, const float* __restrict__ W,
+last_partial_kernel(const T* __restrict__ V, const float* __restrict__ W,
                     float* __restrict__ part, int64_t N, int64_t B, int R, int64_t slice_cols) {
   constexpr int ROWS = rows_per_warp<RC>();
   constexpr int G = group_stride<RC, VW>();
@@ -127,7 +142,7 @@ last_partial_kernel(const float* __restrict__ V, const float* __restrict__ W,
   part += (int64_t)blockIdx.y * N * R + r0;
   for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t row0 = (tile * kWarps + warp) * ROWS;
-    const float* v[ROWS];
+    const T* v[ROWS];
     float acc[ROWS][RC];
 #pragma unroll
     for (int j = 0; j < ROWS; ++j) {
@@ -183,13 +198,13 @@ sum_slices_kernel(const float* __restrict__ part, float* __restrict__ out, int64
   out[i] = v;
 }
 
-template <int RC, int VW>
-cudaError_t launch_partial(const float* V, const float* W, float* part, int64_t N, int64_t B,
+template <typename T, int RC, int VW>
+cudaError_t launch_partial(const T* V, const float* W, float* part, int64_t N, int64_t B,
                            int R, int64_t slice_cols, int n_slices, int blocks, int64_t smem,
                            cudaStream_t stream) {
   if (smem != (slice_cols + VW - 1) / VW * group_stride<RC, VW>() * 4)
     return cudaErrorInvalidValue;
-  auto kernel = last_partial_kernel<RC, VW>;
+  auto kernel = last_partial_kernel<T, RC, VW>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -201,37 +216,51 @@ cudaError_t launch_partial(const float* V, const float* W, float* part, int64_t 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_vec(const T* V, const float* W, float* target, int64_t N, int64_t B, int R,
+                       int64_t slice_cols, int n_slices, int blocks, int vec, int64_t smem,
+                       cudaStream_t stream) {
+  const int rc = pp::rank_chunk(R);
+  cudaError_t err;
+  if (vec == 4) {
+    PP_DISPATCH_RC(rc, err = launch_partial<T, RC, 4>(V, W, target, N, B, R, slice_cols,
+                                                      n_slices, blocks, smem, stream));
+  } else {
+    PP_DISPATCH_RC(rc, err = launch_partial<T, RC, 1>(V, W, target, N, B, R, slice_cols,
+                                                      n_slices, blocks, smem, stream));
+  }
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
-// K5: out (N, R) = V (N, B) @ W (B, R), all float32, with the wrapper's
-// plan: slices of slice_cols columns (n_slices of them), `blocks` blocks
-// per slice and rank chunk, vec = 4 for 16-byte loads of V (B % 4 == 0,
-// slice_cols % 4 == 0, V 16-byte aligned) or 1, smem the dynamic shared
-// memory of launch 1. part is (n_slices, N, R) f32 scratch when n_slices
-// > 1 (launch 1 then writes it and launch 2 sums it into out), and unused
-// otherwise (launch 1 writes out).
-int pp_last_contract(const float* V, const float* W, float* part, float* out, int64_t N,
-                     int64_t B, int R, int64_t slice_cols, int n_slices, int blocks, int vec,
-                     int64_t smem, cudaStream_t stream) {
+// K5: out (N, R) = V (N, B) @ W (B, R), V float32 or (v_bf16) bfloat16,
+// W and out float32, with the wrapper's plan: slices of slice_cols
+// columns (n_slices of them), `blocks` blocks per slice and rank chunk,
+// vec = 4 for loads of 4 values (B % 4 == 0, slice_cols % 4 == 0, V
+// aligned to 4 elements: 16 bytes for f32, 8 for bf16) or 1, smem the
+// dynamic shared memory of launch 1. part is (n_slices, N, R) f32 scratch
+// when n_slices > 1 (launch 1 then writes it and launch 2 sums it into
+// out), and unused otherwise (launch 1 writes out).
+int pp_last_contract(const void* V, int v_bf16, const float* W, float* part, float* out,
+                     int64_t N, int64_t B, int R, int64_t slice_cols, int n_slices, int blocks,
+                     int vec, int64_t smem, cudaStream_t stream) {
   if (N <= 0 || B <= 0 || R <= 0 || slice_cols <= 0 || blocks <= 0 ||
       n_slices != (B + slice_cols - 1) / slice_cols || n_slices > 65535 ||
       (n_slices > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
+  const uintptr_t align = v_bf16 ? 8 : 16;
   if (vec != 1 && (vec != 4 || B % 4 != 0 || slice_cols % 4 != 0 ||
-                   reinterpret_cast<uintptr_t>(V) % 16 != 0))
+                   reinterpret_cast<uintptr_t>(V) % align != 0))
     return (int)cudaErrorInvalidValue;
   float* target = n_slices > 1 ? part : out;
-  const int rc = pp::rank_chunk(R);
-  cudaError_t err;
-  if (vec == 4) {
-    PP_DISPATCH_RC(rc, err = launch_partial<RC, 4>(V, W, target, N, B, R, slice_cols, n_slices,
-                                                   blocks, smem, stream));
-  } else {
-    PP_DISPATCH_RC(rc, err = launch_partial<RC, 1>(V, W, target, N, B, R, slice_cols, n_slices,
-                                                   blocks, smem, stream));
-  }
+  const cudaError_t err =
+      v_bf16 ? launch_vec(static_cast<const uint16_t*>(V), W, target, N, B, R, slice_cols,
+                          n_slices, blocks, vec, smem, stream)
+             : launch_vec(static_cast<const float*>(V), W, target, N, B, R, slice_cols,
+                          n_slices, blocks, vec, smem, stream);
   if (err != cudaSuccess || n_slices == 1) return (int)err;
   const int64_t n = N * R;
   sum_slices_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(

@@ -7,9 +7,9 @@ Replaces ``pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py``:
 ``last_contract`` with its Pallas kernel ``_last_kernel`` (K5), and
 ``last_contract_eligible`` with ``_last_tile``, copied verbatim so that
 the port's routing rule reads like the JAX one. As in the JAX package,
-nothing in the package routes to it (the minor mode stays on the einsum
-in ``contract.first_contraction``); its entry point is
-``scripts/bench_firstpair.py``.
+the minor mode of ``contract.first_contraction`` stays on the einsum; the
+kernel's callers are ``triple_roots`` (K6), for the chain root O3 of the
+PP cache build, and ``scripts/bench_firstpair.py``.
 
 The kernel (``csrc/last_contract.cu``) views V as the (N, B) matrix
 around its last mode and computes the tall-skinny product with W in one
@@ -18,6 +18,10 @@ answers. It takes any N and B: the TPU tile rule only decides
 eligibility. Its yardstick is the one library call that computes the
 same function, ``V2 @ W`` (cuBLAS SGEMM with TF32 off), which the port
 never calls.
+
+bf16-stored V follows the JAX package's mixed-precision rule: W is
+rounded to bf16, products and sums are float32, the output is float32.
+Eligibility stays float32 only, as in the JAX package.
 
 :func:`plan` chooses, from the shapes alone, how B is split into slices
 of W that fit in shared memory with two blocks on an SM, and how many
@@ -56,7 +60,7 @@ SMEM_BUDGET = SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED
 
 class Plan(NamedTuple):
     """Launch 1's shape (csrc/last_contract.cu)."""
-    vec: int          # columns per load: 4 (16 bytes) or 1
+    vec: int          # columns per load: 4 or 1
     rank_chunk: int   # RC, ranks per pass
     rows: int         # rows of V per warp and tile
     slice_cols: int   # columns of V (rows of W) per slice
@@ -86,9 +90,9 @@ def group_stride(rc: int, vec: int) -> int:
 @functools.lru_cache(maxsize=256)
 def plan(N: int, B: int, R: int, n_sm: int, vec: bool) -> Plan:
     """Slices, tiles and grid of launch 1 for an (N, B) @ (B, R) product
-    on ``n_sm`` SMs; ``vec`` asks for 16-byte loads (B % 4 == 0 and V
-    16-byte aligned). B is cut into the fewest equal slices whose staged
-    W fits in SMEM_BUDGET, so two blocks share an SM; the
+    on ``n_sm`` SMs; ``vec`` asks for loads of 4 values (:func:`can_vec`).
+    B is cut into the fewest equal slices whose staged W fits in
+    SMEM_BUDGET, so two blocks share an SM; the
     BLOCKS_PER_SM * n_sm blocks the card holds at once are shared out
     over slices and rank chunks, and each block takes an equal run of row
     tiles (8 warps x rows rows each)."""
@@ -138,10 +142,19 @@ def _sm_count(index: int) -> int:
 
 def last_contract_plain(V, W):
     """Plain PyTorch version (one einsum over the (N, B) view of V); what
-    the kernel is held to."""
+    the kernel is held to. bf16 V: V and W rounded to bf16, contracted in
+    float32."""
     shape = tuple(V.shape)
-    out = torch.einsum("nb,br->nr", V.reshape(-1, shape[-1]), W)
+    acc = torch.float32 if V.dtype == torch.bfloat16 else V.dtype
+    out = torch.einsum("nb,br->nr", V.reshape(-1, shape[-1]).to(acc),
+                       W.to(V.dtype).to(acc))
     return out.reshape(shape[:-1] + (W.shape[1],))
+
+
+def can_vec(V) -> bool:
+    """Whether the kernel may load V 4 values at a time: B % 4 == 0 and
+    V aligned to 4 elements (16 bytes of f32, 8 of bf16)."""
+    return V.shape[-1] % 4 == 0 and V.data_ptr() % (4 * V.element_size()) == 0
 
 
 def _check(V, W):
@@ -150,9 +163,11 @@ def _check(V, W):
     if W.ndim != 2 or W.shape[0] != V.shape[-1] or W.shape[1] <= 0:
         raise ValueError(f"W has shape {tuple(W.shape)}, expected "
                          f"({V.shape[-1]}, R)")
-    for name, t in (("V", V), ("W", W)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+    if V.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"V is {V.dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    if W.dtype != torch.float32:
+        raise TypeError(f"W is {W.dtype}; the kernel takes float32")
     for name, t in (("V", V), ("W", W)):
         if t.device != V.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs "
@@ -166,20 +181,22 @@ def last_contract(V, W):
     rank (already the rank-last convention).
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel on
-    the current stream (contiguous f32 V and W) or raise."""
+    the current stream (contiguous f32 or bf16 V, f32 W) or raise."""
     if V.device.type == "cpu":
         return last_contract_plain(V, W)
     _check(V, W)
     shape = tuple(V.shape)
     N, B, R = math.prod(shape[:-1]), shape[-1], W.shape[1]
-    p = plan(N, B, R, _sm_count(V.device.index),
-             B % 4 == 0 and V.data_ptr() % 16 == 0)
+    p = plan(N, B, R, _sm_count(V.device.index), can_vec(V))
+    bf16 = V.dtype == torch.bfloat16
+    Wr = W.to(V.dtype).float() if bf16 else W
     out = torch.empty((N, R), dtype=torch.float32, device=V.device)
     part = torch.empty((p.n_slices, N, R), dtype=torch.float32,
                        device=V.device) if p.n_slices > 1 else None
     lib = _build.load()
     code = lib.pp_last_contract(
-        V.data_ptr(), W.data_ptr(), 0 if part is None else part.data_ptr(),
+        V.data_ptr(), int(bf16), Wr.data_ptr(),
+        0 if part is None else part.data_ptr(),
         out.data_ptr(), N, B, R, p.slice_cols, p.n_slices, p.blocks, p.vec,
         p.smem, torch.cuda.current_stream(V.device).cuda_stream)
     _build.check(lib, code, "last_contract launch")

@@ -1,5 +1,6 @@
-"""The PP cache build's three chain roots of an order-4 tensor in one pass
-over V: the hand-written CUDA kernel and its plain PyTorch version.
+"""The PP cache build's three chain roots of an order-4 tensor: the
+route through the port's hand-written CUDA kernels and its plain PyTorch
+version.
 
     O1[r, p, b2, m] = sum_b1 V[p, b1, b2, m] W1[b1, r]
     O2[r, p, b1, m] = sum_b2 V[p, b1, b2, m] W2[b2, r]
@@ -8,38 +9,47 @@ over V: the hand-written CUDA kernel and its plain PyTorch version.
 Replaces ``pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py``:
 ``triple_roots`` and its Pallas kernel ``_triple_kernel`` (K6), with
 ``triple_roots_eligible`` copied verbatim so that the port routes exactly
-the calls the JAX package routes. The kernel (``csrc/triple_roots.cu``)
-reads V once, where the einsum chain reads it three times; at R = 10 its
-3R FMAs per element put it near the H100's FP32 balance, so both V's bytes
-and the FMA count bound it. O3 sums over every column tile, so the blocks
-write per-tile partials to scratch that a second launch sums in order (no
-atomics). Outputs are rank-major, the chain convention of
-``contract.build_pp_caches``.
+the calls the JAX package routes. Outputs are rank-major, the chain
+convention of ``contract.build_pp_caches``.
+
+On the H100 the three roots are three launches (:func:`composed`), not
+one pass over V. O3 is the one root whose sum runs over the minor axis
+m, so a kernel that cuts m into column tiles must keep O3's
+R x B1 x B2 sums per tile (640 KB at the coil shape, more than an SM
+holds) and sum them in a second pass; a one-read kernel built that way
+reached 12% of its bound. Instead:
+
+- O1 is ``mid_contract`` of mode 1 in its rank-outer layout: the (R, P,
+  B2 M) output is O1 itself;
+- O2 is ``mid_contract`` of mode 2 in its rank-outer layout: the (R, P
+  B1, M) output is O2 itself;
+- O3 is ``last_contract`` (K5) on V's (P B1 B2, M) view, whose (P, B1,
+  B2, R) result is moved to rank-major (a copy of R P B1 B2 floats).
+
+Each launch reads V once, coalesced, and sums in a fixed order: runs
+repeat bit for bit.
 
 bf16-stored V follows the JAX package's mixed-precision rule: the factors
 are rounded to bf16, products and sums are float32, outputs are float32.
 
-:func:`triple_roots` launches the kernel for a CUDA tensor, or raises; it
-takes the plain version (:func:`triple_roots_plain`) only for a tensor on
-the CPU. Each launch (both passes) adds one to ``LAUNCHES["triple_roots"]``.
+:func:`triple_roots` launches the kernels for a CUDA tensor, or raises;
+it takes the plain version (:func:`triple_roots_plain`) only for a tensor
+on the CPU. Each call adds one to ``LAUNCHES["triple_roots"]``; its inner
+launches also count in their own modules' counters (``mid_contract``'s
+``rank_outer``, ``last_contract``'s ``last_contract``).
 """
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
-from pairwise_perturbation_tpu_torch.ops.kernels import _build
+from pairwise_perturbation_tpu_torch.ops.kernels import last_contract
+from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
 
 # Kernel launches, counted where the kernel is launched.
 LAUNCHES: Dict[str, int] = {"triple_roots": 0}
-
-# The kernel's block (csrc/triple_roots.cu kThreads) and the shared memory
-# one block may use on Hopper (227 KB).
-_THREADS = 512
-_SMEM_LIMIT = 232448
 
 
 def reset_launch_counts() -> None:
@@ -68,23 +78,6 @@ def triple_roots_eligible(shape, dtype, r: int) -> bool:
     if M < 1024 or P > 64:
         return False
     return _triple_tile(B1, B2, M) > 0
-
-
-def plan(B2: int, R: int) -> Tuple[int, int, int]:
-    """(ranks per pass RC, columns per block L, shared-memory bytes) of the
-    kernel: RC is R rounded up to even, at most 16; L the widest power of
-    two <= 32 that fits. The one place the bytes of the shared-memory
-    layout of csrc/triple_roots.cu are worked out; the launch takes all
-    three."""
-    rc = min(16, R + R % 2)
-    rs = rc if rc % 4 == 2 else rc + 2
-    for L in (32, 16, 8, 4, 2, 1):
-        floats = (B2 * L * rs + B2 * rc + L * rc
-                  + max(B2 * (L + 1), _THREADS * rs))
-        if 4 * floats <= _SMEM_LIMIT:
-            return rc, L, 4 * floats
-    raise ValueError(f"B2 = {B2}: one column of the O1 accumulator does not "
-                     "fit in shared memory")
 
 
 def triple_roots_plain(V, W1, W2, W3):
@@ -118,35 +111,28 @@ def _check(V, Ws):
                              f"every operand on V's CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    return R
+
+
+def composed(V, W1, W2, W3):
+    """(O1, O2, O3), rank-major and contiguous, from the first-level
+    kernels' wrappers (module docstring); on CPU tensors their plain
+    versions, which is how the tests reach the views and layouts."""
+    O1 = mid_contract.mid_contract(V, W1, 1, layout="rank_outer")
+    O2 = mid_contract.mid_contract(V, W2, 2, layout="rank_outer")
+    O3 = last_contract.last_contract(V, W3)
+    return O1.movedim(-1, 0), O2.movedim(-1, 0), O3.movedim(-1, 0).contiguous()
 
 
 def triple_roots(V, W1, W2, W3):
     """(O1, O2, O3), rank-major: the chain roots contracting axes 1, 2 and
-    3 of an order-4 V in one pass over V.
+    3 of an order-4 V.
 
-    CPU tensors go to the plain version; CUDA tensors launch the kernel
+    CPU tensors go to the plain version; CUDA tensors launch the kernels
     on the current stream (contiguous f32 or bf16 V, f32 factors) or
     raise."""
     if V.device.type == "cpu":
         return triple_roots_plain(V, W1, W2, W3)
-    R = _check(V, (W1, W2, W3))
-    P, B1, B2, M = V.shape
-    rc, L, smem = plan(B2, R)
-    bf16 = V.dtype == torch.bfloat16
-    W1, W2, W3 = (W.to(V.dtype).float() if bf16 else W for W in (W1, W2, W3))
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=V.device)
-
-    O1, O2, O3 = empty(R, P, B2, M), empty(R, P, B1, M), empty(R, P, B1, B2)
-    part3 = empty(P, math.ceil(M / L), R, B1, B2)
-    lib = _build.load()
-    code = lib.pp_triple_roots(
-        V.data_ptr(), int(bf16), W1.data_ptr(), W2.data_ptr(), W3.data_ptr(),
-        O1.data_ptr(), O2.data_ptr(), O3.data_ptr(), part3.data_ptr(),
-        P, B1, B2, M, R, rc, L, smem,
-        torch.cuda.current_stream(V.device).cuda_stream)
-    _build.check(lib, code, "triple_roots launch")
+    _check(V, (W1, W2, W3))
+    out = composed(V, W1, W2, W3)
     LAUNCHES["triple_roots"] += 1
-    return O1, O2, O3
+    return out

@@ -128,6 +128,25 @@ def test_last_contract_plain_matches_pallas_f32(shape, R):
     assert _rel(got, want) <= 1e-5
 
 
+@pytest.mark.parametrize("shape,R", LAST_CASES)
+def test_last_contract_plain_bf16_matches_numpy(shape, R):
+    """bf16 V (K6's O3 takes K5 on bf16-stored V): float32 output equal
+    to numpy's float64 product of the bf16-rounded V and W to rel 1e-6
+    (each product is exact in float32; up to 384 of them are summed in
+    float32), and no launch on the CPU."""
+    rng = np.random.default_rng(R + 1)
+    V = torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16)
+    W = torch.from_numpy(rng.standard_normal((shape[-1], R)).astype(
+        np.float32))
+    before = dict(lc.LAUNCHES)
+    got = lc.last_contract(V, W)
+    assert lc.LAUNCHES == before
+    assert got.dtype == torch.float32 and got.shape == shape[:-1] + (R,)
+    want = np.einsum("...b,br->...r", V.double().numpy(),
+                     W.to(torch.bfloat16).double().numpy())
+    assert _rel(got, want) <= 1e-6
+
+
 def test_last_contract_plain_f64_matches_numpy():
     """In float64 the plain version equals numpy's product to 1e-10."""
     rng = np.random.default_rng(9)
@@ -444,6 +463,30 @@ def test_cuda_last_contract_unaligned_v():
         assert _held(got, lc.last_contract_plain(V, W)) <= 1e-4
         assert torch.equal(got, again)
         assert _held(got, lc.last_contract(V.clone(), W)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_last_contract_bf16(offset):
+    """On a card: K5 with bf16 V, aligned (8-byte loads of 4 values) and
+    2 bytes off alignment (a contiguous view of buf[1:]: scalar loads),
+    against its plain version on the same bf16-rounded operands, rel
+    1e-4, two launches bit for bit equal; the coil shape (K6's O3), a
+    ragged B and R above one rank chunk."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for shape, R in [((3, 128, 128, 7200), 10), ((3, 40, 1001), 7),
+                     ((16, 4000), 40)]:
+        n = math.prod(shape)
+        buf = torch.rand(n + offset, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        V = buf[offset:].view(shape)
+        assert V.data_ptr() % 8 == 2 * offset
+        assert lc.can_vec(V) == (offset == 0 and shape[-1] % 4 == 0)
+        W = torch.rand((shape[-1], R), generator=gen, device="cuda")
+        got, again = lc.last_contract(V, W), lc.last_contract(V, W)
+        assert _held(got, lc.last_contract_plain(V, W)) <= 1e-4
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

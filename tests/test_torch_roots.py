@@ -18,6 +18,7 @@ import torch
 
 from pairwise_perturbation_tpu_torch import config
 from pairwise_perturbation_tpu_torch.ops import contract as tc, dimtree as td
+from pairwise_perturbation_tpu_torch.ops.kernels import last_contract as lc
 from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract as mc
 from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots as tr
 
@@ -29,6 +30,10 @@ MID_SHAPES = [((3, 16, 24, 50), 1), ((3, 16, 24, 50), 2), ((3, 16, 24, 50), 0),
               ((16, 24, 50), 0), ((16, 24, 50), 1), ((8, 8, 8, 8, 8, 8), 2),
               ((16, 10, 15), 0)]
 TRIPLE_SHAPE = (3, 16, 24, 1200)
+# chip_smoke.py TRIPLE_CHECKS: the coil cache build, a ragged column tile,
+# and R above one rank chunk.
+TRIPLE_CHECKS = [((3, 128, 128, 7200), 10), ((3, 16, 24, 1200), 5),
+                 ((3, 64, 64, 2048), 40)]
 
 
 def _rel(got, want):
@@ -147,16 +152,59 @@ def test_eligibility_matches_jax():
     assert n_true > 0
 
 
-def test_triple_plan_fits_and_covers_ranks():
-    """The kernel's plan: RC even and covering R up to 16, L a power of
-    two, shared memory within Hopper's 227 KB; B2 = 128 at R = 10 keeps
-    the 32-column tile."""
-    assert tr.plan(128, 10)[:2] == (10, 32)
-    for B2 in (8, 24, 128, 512):
-        for R in (1, 5, 10, 16, 40, 128):
-            rc, L, smem = tr.plan(B2, R)
-            assert rc % 2 == 0 and min(R, 16) <= rc <= 16
-            assert L in (1, 2, 4, 8, 16, 32) and smem <= 232448
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_triple_roots_composed_matches_pallas(dtype):
+    """The route a CUDA tensor takes (two rank-outer mid_contract calls
+    and last_contract, moved to rank-major), here through the wrappers'
+    plain versions: contiguous rank-major outputs equal to the JAX kernel
+    in interpret mode at rel 2e-5, as the plain version is."""
+    import jax.numpy as jnp
+    from pairwise_perturbation_tpu.ops.kernels import mttkrp_pallas
+    rng = np.random.default_rng(6)
+    V = rng.standard_normal(TRIPLE_SHAPE).astype(np.float32)
+    Ws = [rng.standard_normal((s, 5)).astype(np.float32)
+          for s in TRIPLE_SHAPE[1:]]
+    want = mttkrp_pallas.triple_roots(jnp.asarray(V, _jdt(dtype)),
+                                      *map(jnp.asarray, Ws), interpret=True)
+    got = tr.composed(torch.tensor(V, dtype=dtype), *map(torch.from_numpy, Ws))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.is_contiguous()
+        assert _rel(g, w) <= 2e-5
+
+
+def test_triple_roots_launch_accounting(monkeypatch):
+    """A K6 call on a device tensor is one ``triple_roots`` launch made of
+    mid_contract at modes 1 and 2 in the rank-outer layout and one
+    last_contract, and never the plain version. Meta tensors stand for
+    CUDA ones here: the device check is stubbed, and the inner wrappers
+    are spies that run their plain versions, which meta tensors take."""
+    mids, lasts = [], []
+
+    def mid(V, W, mode, layout="rank_minor"):
+        mids.append((mode, layout))
+        return mc.mid_contract_plain(V, W, mode, layout)
+
+    def last(V, W):
+        lasts.append(tuple(V.shape))
+        return lc.last_contract_plain(V, W)
+
+    def no_plain(*a):
+        raise AssertionError("the plain version served a device tensor")
+
+    monkeypatch.setattr(tr, "_check", lambda V, Ws: None)
+    monkeypatch.setattr(mc, "mid_contract", mid)
+    monkeypatch.setattr(lc, "last_contract", last)
+    monkeypatch.setattr(tr, "triple_roots_plain", no_plain)
+    P, B1, B2, M, R = 2, 8, 16, 1024, 3
+    V = torch.empty((P, B1, B2, M), device="meta")
+    Ws = [torch.empty((s, R), device="meta") for s in (B1, B2, M)]
+    n0 = tr.LAUNCHES["triple_roots"]
+    O1, O2, O3 = tr.triple_roots(V, *Ws)
+    assert tr.LAUNCHES["triple_roots"] == n0 + 1
+    assert mids == [(1, "rank_outer"), (2, "rank_outer")]
+    assert lasts == [(P, B1, B2, M)]
+    assert (O1.shape, O2.shape, O3.shape) == ((R, P, B2, M), (R, P, B1, M),
+                                              (R, P, B1, B2))
 
 
 def test_non_cpu_tensors_without_cuda_raise():
@@ -396,20 +444,26 @@ def test_cuda_mid_contract_matches_plain(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_triple_roots_matches_plain(dtype):
+@pytest.mark.parametrize("shape,R", TRIPLE_CHECKS + [((2, 16, 16, 1030), 40)])
+def test_cuda_triple_roots_matches_plain(dtype, shape, R):
     """On a card: K6 against the plain version, rel max-norm 1e-4 per
-    output, ragged column tiles and R above one rank pass included."""
+    output (f32 sums of up to 7200 products in other orders), two calls
+    bit for bit equal, at every chip_smoke.py check shape and a ragged M;
+    each call is one K6 launch of two rank-outer mid_contract launches
+    and one last_contract."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for shape, R in [((3, 16, 24, 1200), 5), ((3, 64, 64, 1000), 10),
-                     ((2, 16, 16, 1030), 40)]:
-        V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
-        Ws = [torch.rand((s, R), generator=gen, device="cuda")
-              for s in shape[1:]]
-        n0 = tr.LAUNCHES["triple_roots"]
-        got = tr.triple_roots(V, *Ws)
-        want = tr.triple_roots_plain(V, *Ws)
-        torch.cuda.synchronize()
-        assert tr.LAUNCHES["triple_roots"] == n0 + 1
-        for g, w in zip(got, want):
-            assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+    V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    Ws = [torch.rand((s, R), generator=gen, device="cuda")
+          for s in shape[1:]]
+    n0 = (tr.LAUNCHES["triple_roots"], mc.LAUNCHES["rank_outer"],
+          lc.LAUNCHES["last_contract"])
+    got, again = tr.triple_roots(V, *Ws), tr.triple_roots(V, *Ws)
+    want = tr.triple_roots_plain(V, *Ws)
+    torch.cuda.synchronize()
+    assert (tr.LAUNCHES["triple_roots"], mc.LAUNCHES["rank_outer"],
+            lc.LAUNCHES["last_contract"]) == (n0[0] + 2, n0[1] + 4, n0[2] + 2)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-4
+        assert torch.equal(g, a)
