@@ -9,7 +9,9 @@ traceback and exits nonzero:
 
 1. Require CUDA (no CPU fallback), pin FP32 matmuls, print the card's
    name and power limit.
-2. Build the CUDA kernels from ops/kernels/csrc with nvcc (sm_90a).
+2. Build the CUDA kernels from ops/kernels/csrc with nvcc (sm_90a); print
+   ptxas's registers and spills of every instance, and of the tensor-core
+   (mma) instances by name.
 3. Hold each fused order-3 MTTKRP kernel (modes 0/1/2) against its plain
    PyTorch version on the card, two launches bit for bit equal, at 200^3
    and 512^3 (R 10), a small and a ragged-K shape, R = 40 and a V 4 bytes
@@ -18,11 +20,13 @@ traceback and exits nonzero:
    and by a store and a read, which leaves no dirty lines), and the host
    time of a call; at 512^3 device times (the _512 fields).
 3b. The same for the chain-root kernels, float32 and bf16-stored V:
-   mid_contract in its package layouts (K4 rank-minor, K4' rank-major)
-   and triple_roots (K6), every K6 check also bit for bit across two
-   calls; at the coil shape K6's torch.profiler device time split by
-   launch, beside its yardstick of three torch.matmul calls over views
-   of V (device time too), its one-read bound and its two-read floor.
+   mid_contract in its package layouts (K4 rank-minor, K4' rank-major;
+   torch.profiler device times beside the einsum's at 512^3, both types)
+   and triple_roots (K6), every check bit for bit across two calls; at
+   the coil shape K6's torch.profiler device time split by launch,
+   beside its yardstick of three torch.matmul calls over views of V
+   (device time too), its one-read bound and its two-read floor. Every
+   bf16 label names the path of each launch (mma: tensor cores; fma).
 3c. The sparse COO MTTKRP kernel (K7) against its plain version, every
    mode, on phase 6's own tensor and initial factors, at the
    sparse200_4_nnz1.6M fixture and its PP pair view (0, 1), the Pallas
@@ -38,9 +42,12 @@ traceback and exits nonzero:
    layout (S2), column_sum (S4) and mid_contract rank-major at every
    block width (S5), at the coil-100 shapes of the scripts, ragged
    shapes and R = 40 (K5 also with V 4 bytes off 16-byte alignment,
-   and with bf16 V at the coil shape, aligned and 2 bytes off; K5's
-   and S4's device times beside torch.matmul's and torch.sum's from
-   torch.profiler); K4' at the coil shape in f32 (S1) and bf16 (S3).
+   and with bf16 V at the coil shape, aligned and 2 bytes off, a ragged
+   shape and R 40; K5's and S4's device times beside torch.matmul's and
+   torch.sum's from torch.profiler); K4' at the coil shape in f32 (S1)
+   and bf16 (S3), and S2, with device times beside their einsum's; the
+   rank-outer and rank-major layouts in bf16 at every view check shape,
+   the path named in each bf16 label.
    Every kernel row of phases 3-3d is timed beside its plain version, the
    one PyTorch call that computes the same function (or "none"), and its
    bound: the larger of its bytes (each input read once, each output
@@ -340,6 +347,23 @@ def build_kernels():
         elif "spill" in line and " 0 bytes spill stores, 0 bytes spill" \
                 not in line:
             print("  " + line.strip())
+    for name, report in ptxas_report(_build.build_log).items():
+        if "_mma" in name:
+            print(f"ptxas, tensor-core instance {name}: {report}")
+
+
+def ptxas_report(log):
+    """{kernel's mangled name: its stack, spill and register lines from
+    ptxas -v, joined}."""
+    reports, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            reports[name] = []
+        elif name is not None and ("spill" in line or "Used" in line):
+            reports[name].append(line.split(":", 1)[-1].strip()
+                                 if "Used" in line else line.strip())
+    return {k: "; ".join(v) for k, v in reports.items()}
 
 
 def held_to_plain(label, got, want):
@@ -474,6 +498,50 @@ def mid_library(V, W, mode, layout):
     return lambda: torch.einsum(spec, V3, Wd)
 
 
+def path_label(path):
+    """" path <path>" for a bf16 row's label (empty for none)."""
+    return f" path {path}" if path else ""
+
+
+def mid_path(mc, V, R, mode, layout, cols=256):
+    """mid_contract's path at V for a bf16 row's label: its plan's (an
+    older tree without plan_for has only the FMA template); empty for
+    float32 V, which has one path."""
+    import torch
+    if V.dtype != torch.bfloat16:
+        return ""
+    if not hasattr(mc, "plan_for"):
+        return "fma"
+    return mc.plan_for(V, R, mode, layout, cols).path
+
+
+def k5_plan(lc, V, R):
+    """K5's launch plan at V (an older tree's plan takes can_vec and has
+    no path)."""
+    import torch
+    if hasattr(lc, "plan_for"):
+        return lc.plan_for(V, R)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return lc.plan(V.numel() // V.shape[-1], V.shape[-1], R, n_sm,
+                   lc.can_vec(V))
+
+
+def triple_paths(mc, lc, V, R):
+    """The paths of K6's three launches at V: O1 and O2 are mid_contract
+    rank-outer at modes 1 and 2, O3 is K5 on the (P B1 B2, M) view."""
+    return (mid_path(mc, V, R, 1, "rank_outer"),
+            mid_path(mc, V, R, 2, "rank_outer"),
+            getattr(k5_plan(lc, V, R), "path", "fma"))
+
+
+def add_device_ms(key, kernel, library, library_name, sfx=""):
+    """torch.profiler device time of ``kernel`` and ``library`` into
+    ``RESULTS[key]`` (fields suffixed ``sfx``)."""
+    res = RESULTS[key]
+    res["device_ms" + sfx] = device_busy_ms("kernel", kernel)
+    res["library_device_ms" + sfx] = device_busy_ms(library_name, library)
+
+
 def mid_bytes(V, W):
     """mid_contract's bytes: V and W read, the float32 output written."""
     return tensor_bytes(V, W) + 4 * (V.numel() // W.shape[0]) * W.shape[1]
@@ -483,6 +551,7 @@ def compare_chain_roots():
     """K4, K4' and K6 against their plain versions on the card, f32 and
     bf16 V; times reported at the first shape, f32."""
     import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import last_contract as lc
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract as mc
     from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots as tr
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -495,7 +564,8 @@ def compare_chain_roots():
             W = torch.rand((shape[mode], R), generator=gen, device="cuda")
             for key, layout in (("K4", "rank_minor"), ("K4'", "rank_major")):
                 label = f"mid_contract {layout} {shape} mode {mode} R={R} " \
-                        f"{dname}"
+                        f"{dname}" + path_label(mid_path(mc, V, R, mode,
+                                                         layout))
 
                 def kernel(lo=layout):
                     return mc.mid_contract(V, W, mode, layout=lo)
@@ -503,17 +573,28 @@ def compare_chain_roots():
                 def plain(lo=layout):
                     return mc.mid_contract_plain(V, W, mode, layout=lo)
 
-                abs_err, rel = held_to_plain(label, kernel(), plain())
-                timed_row(key, label, abs_err, rel, kernel, plain,
-                          mid_library(V, W, mode, layout), mid_bytes(V, W),
-                          2 * V.numel() * R, dname, lib_name,
-                          report=i == 0 and dtype == torch.float32)
+                abs_err, rel = held_twice(label, kernel, plain)
+                library = mid_library(V, W, mode, layout)
+                fields = timed_row(
+                    key, label + " (bitwise repeat ok)", abs_err, rel, kernel,
+                    plain, library, mid_bytes(V, W), 2 * V.numel() * R, dname,
+                    lib_name, report=i == 0 and dtype == torch.float32)
+                if i == 0:
+                    sfx = "" if dtype == torch.float32 else "_bf16"
+                    add_device_ms(key, kernel, library, lib_name, sfx)
+                    if sfx:
+                        RESULTS[key].update({k + sfx: fields[k] for k in (
+                            "ms", "plain_ms", "library_ms", "bound_ms")})
             del V, W
         for i, (shape, R) in enumerate(TRIPLE_CHECKS):
             V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
             Ws = [torch.rand((s, R), generator=gen, device="cuda")
                   for s in shape[1:]]
-            label = f"triple_roots {shape} R={R} {dname}"
+            label = f"triple_roots {shape} R={R} {dname}" + (
+                path_label(", ".join(
+                    f"O{k + 1} {p}" for k, p in enumerate(triple_paths(
+                        mc, lc, V, R))))
+                if dtype == torch.bfloat16 else "")
 
             def kernel():
                 return tr.triple_roots(V, *Ws)
@@ -752,15 +833,22 @@ def compare_coo():
 # of bench_firstpair, a ragged (N, B), R above one rank chunk (32), the
 # coil shape again with V's data 4 bytes past a 16-byte boundary (offset
 # 1 float: scalar loads), and bf16 V at the coil shape (K6's O3), aligned
-# and 2 bytes off (scalar loads).
+# (the mma path) and 2 bytes off (the fma path, scalar loads); then bf16
+# at a ragged N with a last partial step (mma), a ragged B (fma) and R 40
+# (mma, three rank chunks).
 K5_CHECKS = [(COIL_SHAPE, 10, 0, "float32"), ((37, 1001), 7, 0, "float32"),
              ((64, 64, 1000), 40, 0, "float32"), (COIL_SHAPE, 10, 1, "float32"),
-             (COIL_SHAPE, 10, 0, "bfloat16"), (COIL_SHAPE, 10, 1, "bfloat16")]
+             (COIL_SHAPE, 10, 0, "bfloat16"), (COIL_SHAPE, 10, 1, "bfloat16"),
+             ((37, 1000), 7, 0, "bfloat16"), ((37, 1001), 7, 0, "bfloat16"),
+             ((64, 64, 1000), 40, 0, "bfloat16")]
 # (P, B, M) views and R of S2/S5: the two coil-100 views of
 # bench_midvariants (the first is also bench_rankpos's mode-1 view), a
-# ragged shape, and R = 40.
+# ragged shape (M odd: bf16 takes the fma path), R = 40 (bf16: the mma
+# path with a partial column tile), and a ragged B and column tile with
+# M % 8 == 0 (bf16: the mma path). Each in f32 and bf16 V.
 VIEW_CHECKS = [((3, 128, 921600), 10), ((384, 128, 7200), 10),
-               ((5, 37, 1001), 7), ((200, 200, 200), 40)]
+               ((5, 37, 1001), 7), ((200, 200, 200), 40),
+               ((5, 37, 1000), 7)]
 # (P, B, M) of column_sum (S4): the two coil views and a ragged shape.
 S4_CHECKS = [(3, 128, 921600), (384, 128, 7200), (5, 37, 1001)]
 
@@ -780,12 +868,13 @@ def compare_firstlevel():
         V = buf[offset:].view(shape)
         W = torch.rand((shape[-1], R), generator=gen, device="cuda")
         V2, Wd = V.reshape(-1, shape[-1]), W.to(V.dtype)
-        p = lc.plan(V2.shape[0], shape[-1], R,
-                    torch.cuda.get_device_properties(0).multi_processor_count,
-                    lc.can_vec(V))
+        p = k5_plan(lc, V, R)
         label = (f"last_contract {shape} R={R} {dname} data_ptr % 16 = "
-                 f"{V.data_ptr() % 16} ({p.n_slices} slices of "
-                 f"{p.slice_cols}, {p.blocks} blocks each, vec {p.vec})")
+                 f"{V.data_ptr() % 16}"
+                 + path_label(getattr(p, "path", "fma")
+                              if dname == "bfloat16" else "")
+                 + f" ({p.n_slices} slices of {p.slice_cols}, {p.blocks} "
+                 f"blocks each, vec {p.vec})")
         abs_err, rel = held_twice(label, lambda: lc.last_contract(V, W),
                                   lambda: lc.last_contract_plain(V, W))
         fields = timed_row(
@@ -809,16 +898,16 @@ def compare_firstlevel():
     for i, (shape, R) in enumerate(VIEW_CHECKS):
         V3 = torch.rand(shape, generator=gen, device="cuda")
         W = torch.rand((shape[1], R), generator=gen, device="cuda")
-        dtypes = (torch.float32, torch.bfloat16) if i == 0 else \
-            (torch.float32,)
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
             Vd = V3.to(dtype)
             dname = str(dtype).replace("torch.", "")
             bf16 = dtype == torch.bfloat16
             for layout in ("rank_major", "rank_outer"):
                 for cols in mc.BLOCK_COLS:
                     label = (f"mid_contract {layout} cols={cols} {shape} "
-                             f"R={R} {dname}")
+                             f"R={R} {dname}"
+                             + path_label(mid_path(mc, Vd, R, 1, layout,
+                                                   cols)))
 
                     def kernel(lo=layout, c=cols):
                         return mc.mid_contract(Vd, W, 1, layout=lo,
@@ -836,14 +925,24 @@ def compare_firstlevel():
                         keys.append({"rank_outer": "S2"}.get(
                             layout, "S3" if bf16 else "S1"))
                     for key in keys:
+                        lib_name = "torch.einsum" + (", bf16 out" if bf16
+                                                     else "")
+                        library = mid_library(Vd, W, 1, layout)
+                        report = i == 0 and key != "S5" \
+                            and (key == "S3") == bf16
                         fields = timed_row(
                             key, f"[{key}] {label} (bitwise repeat ok)",
-                            abs_err, rel, kernel, plain,
-                            mid_library(Vd, W, 1, layout), mid_bytes(Vd, W),
-                            2 * Vd.numel() * R, dname,
-                            "torch.einsum" + (", bf16 out" if bf16 else ""),
-                            report=i == 0 and key != "S5"
-                            and (key == "S3") == bf16)
+                            abs_err, rel, kernel, plain, library,
+                            mid_bytes(Vd, W), 2 * Vd.numel() * R, dname,
+                            lib_name, report=report)
+                        if report:
+                            add_device_ms(key, kernel, library, lib_name)
+                        elif i == 0 and key == "S2":
+                            # S2 with bf16 V: K6's O1 and O2 launch
+                            add_device_ms(key, kernel, library, lib_name,
+                                          "_bf16")
+                            RESULTS[key].update({k + "_bf16": fields[k] for k
+                                                 in ("ms", "bound_ms")})
                         if key == "S5" and i < 2:
                             res = RESULTS["S5"].setdefault(
                                 "ms_by_view_and_block_cols", {})

@@ -43,6 +43,36 @@
 // Arithmetic is FP32 FMA on the CUDA cores (the Pallas kernel dots f32 at
 // Precision.HIGHEST, so TF32 would be less accurate).
 //
+// bf16 V with B % 8 == 0 at a 16-byte boundary takes the tensor cores
+// instead (path "mma", last_partial_mma_kernel): the JAX rule for bf16 V is
+// bf16 operands with f32 sums, which is mma.sync m16n8k16 bf16 -> f32. The
+// FMA loop needs ~24 bytes of W from shared memory and ~18 instructions per
+// element of V, which at 2 bytes an element is more than an SM issues at
+// the read rate (it reached 53% of the bound); on the tensor cores a warp's
+// step is one 16-byte load of V, two 16-byte shared-memory loads and two
+// mmas per lane for 512 bytes of V:
+// * A warp owns 8 rows of a tile, the mma's B columns (n); W^T's 16 ranks
+//   of a chunk are its A rows. Lane (g, t) loads 16 bytes of row g at
+//   columns 8t ... 8t + 7 of each 32-column step and passes them to the
+//   mmas as they are: pairs 0 and 1 are the first mma's k rows 2t, 2t + 1
+//   and 2t + 8, 2t + 9, pairs 2 and 3 the second's. The sum over k does not
+//   depend on which physical column is which k, as long as A's fragment
+//   uses the same columns.
+// * So W's slice is staged in shared memory as the A fragments themselves:
+//   for each step, rank half j (ranks 8j ... 8j + 7 of the chunk) and lane
+//   (g, t), the 16 bytes of W^T's rank 8j + g at columns 8t ... 8t + 7, read
+//   with one conflict-free 16-byte load. The wrapper passes W^T in bf16,
+//   zero past R and B (ops/kernels/_mma.py wt_bf16), so padding adds zeros.
+// * 8 steps' loads are issued together, with the streaming hint: 512 bytes
+//   of each of the warp's rows. 16 rows a warp (V as A) with 4 steps, 256
+//   bytes a row, ran slower on the H100, and 16 steps, 12 warps a block,
+//   or loads of the next 8 steps issued before the mmas of these were no
+//   faster (PERF.md, Findings).
+// * The accumulators are D itself (two of 4 floats a lane, one per mma of
+//   a step); no shuffles. Slices, rank chunks (16 ranks), the persistent
+//   grid and launch 2 are as above; slices are whole steps (2 of 3616
+//   columns, 115.7 KB each, at coil).
+//
 // The slice, tile and grid choice is the wrapper's (ops/kernels/
 // last_contract.py plan); the entry checks it against the shapes. It
 // launches on the given stream, does not synchronise, allocates nothing,
@@ -187,6 +217,81 @@ last_partial_kernel(const T* __restrict__ V, const float* __restrict__ W,
   }
 }
 
+// The mma path: kMmaRows rows of V a warp, kMmaStep columns a step, the
+// A fragments of a step (two rank halves of 32 lanes x 16 bytes) in shared
+// memory, and the steps whose loads are issued together.
+constexpr int kMmaRows = 8;
+constexpr int kMmaStep = 32;
+constexpr int kMmaStepBytes = 2 * 32 * 16;
+constexpr int kMmaUnroll = 8;
+
+// One step: x is the lane's 16 bytes of row g, wf its A fragment of ranks
+// g (wf[0]) and g + 8 (wf[32]); acc[q] is the D of the step's mma q.
+__device__ __forceinline__ void mma_step(const uint4 x, const uint4* wf, float (&acc)[2][4]) {
+  const uint4 w0 = wf[0], w1 = wf[32];
+  pp::mma_bf16(acc[0], w0.x, w1.x, w0.y, w1.y, x.x, x.y);
+  pp::mma_bf16(acc[1], w0.z, w1.z, w0.w, w1.w, x.z, x.w);
+}
+
+// Launch 1 of the mma path. grid (blocks, slices, rank chunks of 16),
+// kThreads, dynamic shared memory slice_cols / kMmaStep * kMmaStepBytes.
+// V (N, B) bf16 and 16-byte aligned, B % 8 == 0; Wt is W^T in bf16, (16 x
+// rank chunks, ldw), ldw % 32 == 0, zero past R and B; slice_cols % 32 == 0.
+// Slice s covers columns [s * slice_cols, min(B, (s + 1) * slice_cols)) and
+// writes part + s * N * R.
+__global__ void __launch_bounds__(kThreads, 2)
+last_partial_mma_kernel(const uint16_t* __restrict__ V, const uint16_t* __restrict__ Wt,
+                        int64_t ldw, float* __restrict__ part, int64_t N, int64_t B, int R,
+                        int64_t slice_cols) {
+  extern __shared__ uint4 w_frag[];  // [step][rank half][lane]
+  const int r0 = blockIdx.z * 16;
+  const int64_t c0 = (int64_t)blockIdx.y * slice_cols;
+  const int L = (int)pp::min64(slice_cols, B - c0);  // columns of this slice
+  const int steps = (L + kMmaStep - 1) / kMmaStep;
+
+#pragma unroll 4
+  for (int e = threadIdx.x; e < steps * 64; e += kThreads) {
+    const int s = e >> 6, j = (e >> 5) & 1, ln = e & 31;
+    w_frag[e] = __ldg(reinterpret_cast<const uint4*>(
+        Wt + (int64_t)(r0 + 8 * j + (ln >> 2)) * ldw + c0 + kMmaStep * s + 8 * (ln & 3)));
+  }
+  __syncthreads();  // the only barrier: the fragments are read-only from here
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int full = L / kMmaStep;  // whole steps; a last partial one is masked per lane
+  const int64_t n_tiles = (N + kWarps * kMmaRows - 1) / (kWarps * kMmaRows);
+  const uint4* wf = w_frag + lane;
+  part += (int64_t)blockIdx.y * N * R;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t row0 = (tile * kWarps + warp) * kMmaRows;
+    const uint16_t* v = V + pp::min64(row0 + g, N - 1) * B + c0 + 8 * t;
+    float acc[2][4] = {};
+    int s = 0;
+    for (; s + kMmaUnroll <= full; s += kMmaUnroll) {
+      uint4 x[kMmaUnroll];
+#pragma unroll
+      for (int u = 0; u < kMmaUnroll; ++u)
+        x[u] = __ldcs(reinterpret_cast<const uint4*>(v + (s + u) * kMmaStep));
+#pragma unroll
+      for (int u = 0; u < kMmaUnroll; ++u) mma_step(x[u], wf + (s + u) * 64, acc);
+    }
+    for (; s < steps; ++s) {  // the last whole steps, then a partial one
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (s * kMmaStep + 8 * t < L) x = __ldcs(reinterpret_cast<const uint4*>(v + s * kMmaStep));
+      mma_step(x, wf + s * 64, acc);
+    }
+
+    // D float i: rank r0 + g + 8 (i >> 1), row row0 + 2t + (i & 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t row = row0 + 2 * t + (i & 1);
+      const int r = r0 + g + 8 * (i >> 1);
+      if (row < N && r < R) part[row * R + r] = acc[0][i] + acc[1][i];
+    }
+  }
+}
+
 // Launch 2. out[i] = sum over slices s (in order) of part[s * n + i].
 __global__ void __launch_bounds__(kThreads)
 sum_slices_kernel(const float* __restrict__ part, float* __restrict__ out, int64_t n,
@@ -232,6 +337,14 @@ cudaError_t launch_vec(const T* V, const float* W, float* target, int64_t N, int
   return err;
 }
 
+// Launch 2 when there is more than one slice.
+cudaError_t sum_slices(const float* part, float* out, int64_t n, int n_slices,
+                       cudaStream_t stream) {
+  sum_slices_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      part, out, n, n_slices);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -262,10 +375,37 @@ int pp_last_contract(const void* V, int v_bf16, const float* W, float* part, flo
              : launch_vec(static_cast<const float*>(V), W, target, N, B, R, slice_cols,
                           n_slices, blocks, vec, smem, stream);
   if (err != cudaSuccess || n_slices == 1) return (int)err;
-  const int64_t n = N * R;
-  sum_slices_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      part, out, n, n_slices);
-  return (int)cudaGetLastError();
+  return (int)sum_slices(part, out, N * R, n_slices, stream);
+}
+
+// K5 with bf16 V on the tensor cores (the wrapper's path "mma"): V (N, B)
+// bf16, B % 8 == 0, V and Wt 16-byte aligned; Wt (16 x ceil(R / 16), ldw)
+// bf16 is W^T zero past R and B, ldw % 32 == 0 and >= B; slices of
+// slice_cols (a multiple of 32) columns, smem = slice_cols / 32 * 1024;
+// part, out and the rest as pp_last_contract.
+int pp_last_contract_mma(const void* V, const void* Wt, int64_t ldw, float* part, float* out,
+                         int64_t N, int64_t B, int R, int64_t slice_cols, int n_slices,
+                         int blocks, int64_t smem, cudaStream_t stream) {
+  if (N <= 0 || B <= 0 || R <= 0 || blocks <= 0 || B % 8 != 0 || slice_cols <= 0 ||
+      slice_cols % kMmaStep != 0 || n_slices != (B + slice_cols - 1) / slice_cols ||
+      n_slices > 65535 || (n_slices > 1 && part == nullptr) || ldw % kMmaStep != 0 ||
+      ldw < B || reinterpret_cast<uintptr_t>(V) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(Wt) % 16 != 0 || smem != slice_cols / kMmaStep * kMmaStepBytes)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = last_partial_mma_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return (int)err;
+  float* target = n_slices > 1 ? part : out;
+  const dim3 grid((unsigned)blocks, (unsigned)n_slices, (unsigned)((R + 15) / 16));
+  kernel<<<grid, kThreads, (size_t)smem, stream>>>(static_cast<const uint16_t*>(V),
+                                                   static_cast<const uint16_t*>(Wt), ldw, target,
+                                                   N, B, R, slice_cols);
+  if ((err = cudaGetLastError()) != cudaSuccess || n_slices == 1) return (int)err;
+  return (int)sum_slices(part, out, N * R, n_slices, stream);
 }
 
 }  // extern "C"

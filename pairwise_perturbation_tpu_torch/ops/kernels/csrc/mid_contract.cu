@@ -41,6 +41,31 @@
 // Precision.HIGHEST, so TF32 would be less accurate). No atomics: every
 // output is one thread's sequential sum, so runs repeat bit for bit.
 //
+// bf16 V with M % 8 == 0 at a 16-byte boundary takes the tensor cores
+// instead (path "mma", mid_contract_mma_kernel): the JAX rule for bf16 V is
+// bf16 operands with f32 sums, which is mma.sync m16n8k16 bf16 -> f32. The
+// loop above gives a thread one 2-byte element per b and ~18 instructions
+// for it (a load, a shift, three broadcast reads of W, twelve FMAs), near
+// what an SM issues at the read rate (48% of the bound by events). On the
+// tensor cores:
+// * W^T (16 ranks of a chunk x 16 b, bf16) is the A operand, read from L1
+//   (the wrapper's zero-padded W^T, ops/kernels/_mma.py wt_bf16); V is the
+//   B operand. A warp owns 64 columns m of one p; for each k tile of 16
+//   rows b, lane (g, t) loads 16 bytes (columns m0 + 8g ... m0 + 8g + 7)
+//   of rows 2t, 2t + 1, 2t + 8 and 2t + 9: each load is a coalesced
+//   128-byte run of its row. PRMT pairs rows (2t, 2t + 1) and (2t + 8,
+//   2t + 9) element by element into B fragments, so mma j (j = 0 ... 7)
+//   has column n = g at m = m0 + 8g + j: 8 mmas a k tile, 2 k tiles of
+//   loads in flight, rows past B loaded as zeros.
+// * After the k tiles lane (g, t) holds ranks g and g + 8 at m = m0 + 16t
+//   ... m0 + 16t + 15, 16 contiguous floats each: rank-major and
+//   rank-outer output is stored from them as 16-byte writes; the
+//   rank-minor layout goes through a (64 x 17) tile of shared memory per
+//   warp, written out as one run when the chunk covers R.
+// * block_cols (128, 256, 512) is the column tile of a block, 64 a warp.
+// Every output is one warp's fixed sequence of mmas: runs repeat bit for
+// bit.
+//
 // The entry launches on the given stream, does not synchronise, allocates
 // nothing, and returns cudaGetLastError() (0 = launched).
 
@@ -155,6 +180,125 @@ int launch_layout(const T* V, const float* W, float* out, int64_t P, int64_t B,
   }
 }
 
+// ---- bf16 V on the tensor cores (the wrapper's path "mma") ----
+
+constexpr int kMmaCols = 64;   // columns of M a warp
+constexpr int kMmaUnroll = 2;  // k tiles whose loads are issued together
+
+// The lane's 16 bytes of rows k0 + 2t, + 1, + 8, + 9 (zeros past B or for
+// a dead column group), as y[q][0..3].
+__device__ __forceinline__ void load_k_tile(uint32_t (&y)[4][4], const uint16_t* vp, int64_t k0,
+                                            int t, int64_t B, int64_t M, bool live) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int64_t row = k0 + 2 * t + (q & 1) + 8 * (q >> 1);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (live && row < B) v = __ldcs(reinterpret_cast<const uint4*>(vp + row * M));
+    y[q][0] = v.x;
+    y[q][1] = v.y;
+    y[q][2] = v.z;
+    y[q][3] = v.w;
+  }
+}
+
+// The 8 mmas of k tile kt: A is W^T's ranks g (w_lo) and g + 8 (w_hi) at k
+// columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the tile (w_lo and w_hi already
+// point at word t of their rows); mma j's B pairs element j of rows 2t and
+// 2t + 1 (b0) and of rows 2t + 8 and 2t + 9 (b1).
+__device__ __forceinline__ void mma_k_tile(const uint32_t (&y)[4][4], const uint32_t* w_lo,
+                                           const uint32_t* w_hi, int64_t kt,
+                                           float (&acc)[8][4]) {
+  const uint32_t a0 = __ldg(w_lo + 8 * kt), a1 = __ldg(w_hi + 8 * kt);
+  const uint32_t a2 = __ldg(w_lo + 8 * kt + 4), a3 = __ldg(w_hi + 8 * kt + 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+    const uint32_t b0 = __byte_perm(y[0][j >> 1], y[1][j >> 1], sel);
+    const uint32_t b1 = __byte_perm(y[2][j >> 1], y[3][j >> 1], sel);
+    pp::mma_bf16(acc[j], a0, a1, a2, a3, b0, b1);
+  }
+}
+
+// grid (P * n_tiles, rank chunks of 16), COLS / 2 threads (64 columns a
+// warp). V (P, B, M) bf16, 16-byte aligned, M % 8 == 0; Wt is W^T in bf16,
+// (16 x rank chunks, ldw), ldw % 32 == 0 and >= B, zero past R and B.
+template <int COLS, bool MINOR>
+__global__ void __launch_bounds__(COLS / 2, 1024 / COLS)
+mid_contract_mma_kernel(const uint16_t* __restrict__ V, const uint16_t* __restrict__ Wt,
+                        int64_t ldw, float* __restrict__ out, int64_t P, int64_t B, int64_t M,
+                        int R, int64_t n_tiles, int layout) {
+  __shared__ float o_s[MINOR ? COLS * 17 : 1];
+  const int64_t p = blockIdx.x / n_tiles;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t m0 = (blockIdx.x - p * n_tiles) * COLS + warp * kMmaCols;
+  if (m0 >= M) return;  // a warp past M; no block barrier below
+  const int r0 = blockIdx.y * 16;
+  const bool live = m0 + 8 * g < M;  // the lane's 8 columns: all in or all out (M % 8 == 0)
+  const uint16_t* vp = V + p * B * M + m0 + 8 * g;
+  const uint32_t* w_lo = reinterpret_cast<const uint32_t*>(Wt + (int64_t)(r0 + g) * ldw) + t;
+  const uint32_t* w_hi = reinterpret_cast<const uint32_t*>(Wt + (int64_t)(r0 + g + 8) * ldw) + t;
+
+  float acc[8][4] = {};
+  const int64_t k_tiles = (B + 15) / 16;
+  int64_t kt = 0;
+  for (; kt + kMmaUnroll <= k_tiles; kt += kMmaUnroll) {
+    uint32_t y[kMmaUnroll][4][4];
+#pragma unroll
+    for (int u = 0; u < kMmaUnroll; ++u) load_k_tile(y[u], vp, 16 * (kt + u), t, B, M, live);
+#pragma unroll
+    for (int u = 0; u < kMmaUnroll; ++u) mma_k_tile(y[u], w_lo, w_hi, kt + u, acc);
+  }
+  for (; kt < k_tiles; ++kt) {
+    uint32_t y[4][4];
+    load_k_tile(y, vp, 16 * kt, t, B, M, live);
+    mma_k_tile(y, w_lo, w_hi, kt, acc);
+  }
+
+  // acc[j][i]: rank r0 + g + 8 (i >> 1) at m = m0 + 16t + 8 (i & 1) + j
+  if (!MINOR) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = r0 + g + 8 * rh;
+      if (r >= R) continue;
+      float* dst = out + (layout == kRankOuter ? (r * P + p) * M : (p * R + r) * M) + m0 + 16 * t;
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        if (m0 + 16 * t + 8 * ch >= M) continue;
+        const int i = 2 * rh + ch;
+        float4* d4 = reinterpret_cast<float4*>(dst + 8 * ch);
+        d4[0] = make_float4(acc[0][i], acc[1][i], acc[2][i], acc[3][i]);
+        d4[1] = make_float4(acc[4][i], acc[5][i], acc[6][i], acc[7][i]);
+      }
+    }
+    return;
+  }
+  float* o = o_s + warp * kMmaCols * 17;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[(16 * t + 8 * (i & 1) + j) * 17 + g + 8 * (i >> 1)] = acc[j][i];
+  __syncwarp();
+  const int cols = (int)min64(kMmaCols, M - m0);
+  const int rcv = R - r0 < 16 ? R - r0 : 16;  // ranks of this chunk
+  float* dst = out + (p * M + m0) * R + r0;
+  for (int e = lane; e < cols * rcv; e += 32) {
+    const int c = e / rcv, r = e - c * rcv;
+    dst[(int64_t)c * R + r] = o[c * 17 + r];
+  }
+}
+
+template <int COLS, bool MINOR>
+int launch_mma(const uint16_t* V, const uint16_t* Wt, int64_t ldw, float* out, int64_t P,
+               int64_t B, int64_t M, int R, int layout, cudaStream_t stream) {
+  const int64_t n_tiles = (M + COLS - 1) / COLS;
+  if (P * n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(P * n_tiles), (unsigned)((R + 15) / 16));
+  mid_contract_mma_kernel<COLS, MINOR><<<grid, COLS / 2, 0, stream>>>(V, Wt, ldw, out, P, B, M, R,
+                                                                     n_tiles, layout);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -172,6 +316,29 @@ int pp_mid_contract(const void* V, int v_bf16, const float* W, float* out, int64
                          cols, stream);
   return launch_layout(static_cast<const float*>(V), W, out, P, B, M, R, layout, cols,
                        stream);
+}
+
+// The same with bf16 V on the tensor cores (the wrapper's path "mma"): V
+// (P, B, M) bf16, M % 8 == 0, V and Wt 16-byte aligned; Wt (16 x ceil(R /
+// 16), ldw) bf16 is W^T zero past R and B, ldw % 32 == 0 and >= B.
+int pp_mid_contract_mma(const void* V, const void* Wt, int64_t ldw, float* out, int64_t P,
+                        int64_t B, int64_t M, int R, int layout, int cols,
+                        cudaStream_t stream) {
+  if (P <= 0 || B <= 0 || M <= 0 || R <= 0 || M % 8 != 0 || ldw % 32 != 0 || ldw < B ||
+      reinterpret_cast<uintptr_t>(V) % 16 != 0 || reinterpret_cast<uintptr_t>(Wt) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const uint16_t* v = static_cast<const uint16_t*>(V);
+  const uint16_t* w = static_cast<const uint16_t*>(Wt);
+  if (layout == kRankMinor)
+    return cols == 256 ? launch_mma<256, true>(v, w, ldw, out, P, B, M, R, layout, stream)
+                       : (int)cudaErrorInvalidValue;
+  if (layout != kRankMajor && layout != kRankOuter) return (int)cudaErrorInvalidValue;
+  switch (cols) {
+    case 128: return launch_mma<128, false>(v, w, ldw, out, P, B, M, R, layout, stream);
+    case 256: return launch_mma<256, false>(v, w, ldw, out, P, B, M, R, layout, stream);
+    case 512: return launch_mma<512, false>(v, w, ldw, out, P, B, M, R, layout, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -35,6 +35,16 @@ only.
 bf16-stored V follows the JAX package's mixed-precision rule: W is
 rounded to bf16, products and sums are float32, the output is float32.
 
+:func:`plan` chooses, from the shapes, V's type and its alignment alone,
+the path and its launch: ``"mma"`` (bf16 V, M % 8 == 0, V 16-byte
+aligned) runs the products on the tensor cores (``_mma``), W^T as the A
+operand and 64 columns of V a warp as B; ``"fma"`` (float32 V, and bf16 V
+off 16-byte alignment or with a ragged M) runs them as FP32 FMAs. Both
+are hand written; a shape takes one of them, and a failed launch raises.
+:func:`mma_tile_map` is the mma path's fragment mapping and
+:func:`emulate_mma` walks it over a whole launch in numpy, so the CPU
+tests hold the mapping to the contraction.
+
 :func:`mid_contract` launches the kernel for a CUDA tensor, or raises; it
 takes the plain version (:func:`mid_contract_plain`) only for a tensor on
 the CPU. Each launch adds one to ``LAUNCHES[layout]``.
@@ -42,12 +52,16 @@ the CPU. Each launch adds one to ``LAUNCHES[layout]``.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict
+from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
-from pairwise_perturbation_tpu_torch.ops.kernels import _build
+from pairwise_perturbation_tpu_torch.ops.kernels import _build, _mma
+from pairwise_perturbation_tpu_torch.ops.kernels.last_contract import \
+    rank_chunk
 
 LAYOUTS = ("rank_minor", "rank_major", "rank_outer")
 BLOCK_COLS = (128, 256, 512)
@@ -57,6 +71,126 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in LAYOUTS}
 
 _SPECS = {"rank_minor": "pbm,br->pmr", "rank_major": "pbm,br->prm",
           "rank_outer": "pbm,br->rpm"}
+
+# csrc/mid_contract.cu: rows of W staged per pass of the fma path (kRows),
+# columns of M a warp of the mma path (kMmaCols), and its k tile.
+K_ROWS = 64
+MMA_COLS = 64
+K_TILE = 16
+# Static shared memory a block may use.
+SMEM_STATIC = 48 * 1024
+
+
+class Plan(NamedTuple):
+    """A launch of csrc/mid_contract.cu."""
+    path: str         # "mma" (tensor cores, bf16 V) or "fma"
+    threads: int      # of a block: block_cols (fma) or 32 per 64 columns (mma)
+    col_tiles: int    # column tiles of each p (grid x = P * col_tiles)
+    rank_chunk: int   # ranks per pass (grid y = ceil(R / rank_chunk))
+    smem: int         # static shared memory of a block, bytes
+
+
+def path(M: int, v_offset: int, bf16: bool) -> str:
+    """``"mma"`` for bf16 V with M % 8 == 0 at a 16-byte boundary
+    (``v_offset`` = V's address modulo 16), else ``"fma"``."""
+    return "mma" if bf16 and M % 8 == 0 and v_offset == 0 else "fma"
+
+
+@functools.lru_cache(maxsize=256)
+def plan(P: int, B: int, M: int, R: int, layout: str = "rank_minor",
+         block_cols: int = 256, v_offset: int = 0,
+         bf16: bool = False) -> Plan:
+    """The launch for V (P, B, M) and W (B, R) in ``layout`` at
+    ``block_cols`` columns a block, V float32 or (``bf16``) bfloat16 at
+    ``v_offset`` bytes past a 16-byte boundary. The rank-minor layout
+    stages its output tile in shared memory."""
+    _check_layout(layout, block_cols)
+    minor = layout == "rank_minor"
+    if path(M, v_offset, bf16) == "mma":
+        threads, rc = 32 * block_cols // MMA_COLS, _mma.RANKS
+        smem = 4 * block_cols * (rc + 1) if minor else 0
+    else:
+        threads, rc = block_cols, rank_chunk(R)
+        smem = 4 * (K_ROWS * rc + (block_cols * (rc + 1) if minor else 1))
+    return Plan(path(M, v_offset, bf16), threads, -(-M // block_cols), rc,
+                smem)
+
+
+def plan_for(V, R: int, mode: int, layout: str = "rank_minor",
+             block_cols: int = 256) -> Plan:
+    """:func:`plan` for a tensor V contracted over ``mode`` at rank R."""
+    P, B = math.prod(V.shape[:mode]), V.shape[mode]
+    return plan(P, B, V.numel() // (P * B), R, layout, block_cols,
+                V.data_ptr() % 16, V.dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=1)
+def mma_tile_map():
+    """One warp's k tile of the mma path as the kernel forms it
+    (csrc/mid_contract.cu ``mma_k_tile``), as three (16384, 2) int arrays
+    over its products: the W^T element (rank of the chunk's 16, row of the
+    tile's 16), the V element (row of the tile, column of the warp's 64)
+    and the output the product is summed into (rank, column).
+
+    W^T is the A operand in its own layout. Lane (g, t) loads 16 bytes of
+    rows 2t, 2t + 1, 2t + 8 and 2t + 9 at columns 8g ... 8g + 7; mma j's
+    B pairs element j of rows 2t and 2t + 1 (b0) and of rows 2t + 8 and
+    2t + 9 (b1), so its column n = g is m = 8g + j; D's float i is rank
+    g + 8 (i >> 1) at column 16t + 8 (i & 1) + j."""
+    g, t = _mma.lanes()
+    a = np.zeros((32, 4, 2, 2), np.int64)
+    for i in range(4):
+        for h in (0, 1):
+            a[:, i, h] = np.stack([g + 8 * (i & 1), 2 * t + h + 8 * (i >> 1)],
+                                  1)
+    parts = []
+    for j in range(8):
+        b = np.zeros((32, 2, 2, 2), np.int64)
+        for i in range(2):
+            for h in (0, 1):
+                b[:, i, h] = np.stack([2 * t + 8 * i + h, 8 * g + j], 1)
+        c = np.stack([np.stack([g + 8 * (i >> 1), 16 * t + 8 * (i & 1) + j],
+                               1) for i in range(4)], 1)
+        parts.append(_mma.products(a, b, c))
+    return tuple(np.concatenate([p[k] for p in parts]) for k in range(3))
+
+
+def emulate_mma(V3, W):
+    """The mma path in numpy, warp tile by warp tile as the kernel runs it:
+    for each p, 64-column tile and rank chunk of 16, the k tiles of 16
+    rows (rows past B, and a lane's 8 columns past M, load zeros), W^T
+    zero past R and B. Returns (out (P, M, R) float64, count (P, B, M, R),
+    misplaced): count[p, b, m, r] is the number of times V[p, b, m] W[b,
+    r] was summed into out[p, m, r]; ``misplaced`` counts products of real
+    elements summed anywhere else."""
+    P, B, M = V3.shape
+    R = W.shape[1]
+    w, v, o = mma_tile_map()
+    Wt = _mma.wt_bf16(torch.as_tensor(W, dtype=torch.float32)).float() \
+        .numpy().astype(np.float64)
+    out = np.zeros((P, M, R))
+    count = np.zeros((P, B, M, R), np.int64)
+    misplaced = 0
+    for p in range(P):
+        for m0 in range(0, M, MMA_COLS):
+            for r0 in range(0, R, _mma.RANKS):
+                for k0 in range(0, B, K_TILE):
+                    row, col = k0 + v[:, 0], m0 + v[:, 1]
+                    live = (row < B) & (m0 + v[:, 1] // 8 * 8 < M)
+                    wrow, rank = k0 + w[:, 1], r0 + w[:, 0]
+                    orank, ocol = r0 + o[:, 0], m0 + o[:, 1]
+                    x = np.where(live, V3[p, np.minimum(row, B - 1),
+                                          np.minimum(col, M - 1)], 0.) \
+                        * Wt[rank, wrow]
+                    written = (ocol < M) & (orank < R)
+                    np.add.at(out[p], (ocol[written], orank[written]),
+                              x[written])
+                    real = live & written & (wrow < B) & (rank < R)
+                    ok = real & (row == wrow) & (col == ocol) & \
+                        (rank == orank)
+                    misplaced += int((real & ~ok).sum())
+                    np.add.at(count[p], (row[ok], col[ok], orank[ok]), 1)
+    return out, count, misplaced
 
 
 def reset_launch_counts() -> None:
@@ -164,15 +298,22 @@ def mid_contract(V, W, mode: int, layout: str = "rank_minor",
     shape = tuple(V.shape)
     P, B = math.prod(shape[:mode]), shape[mode]
     M, R = V.numel() // (P * B), W.shape[1]
-    Wr = W.to(V.dtype).float() if V.dtype == torch.bfloat16 else W
     phys = {"rank_minor": (P, M, R), "rank_major": (P, R, M),
             "rank_outer": (R, P, M)}[layout]
     out = torch.empty(phys, dtype=torch.float32, device=V.device)
+    stream = torch.cuda.current_stream(V.device).cuda_stream
     lib = _build.load()
-    code = lib.pp_mid_contract(
-        V.data_ptr(), int(V.dtype == torch.bfloat16), Wr.data_ptr(),
-        out.data_ptr(), P, B, M, R, LAYOUTS.index(layout), block_cols,
-        torch.cuda.current_stream(V.device).cuda_stream)
+    if plan_for(V, R, mode, layout, block_cols).path == "mma":
+        Wt = _mma.wt_bf16(W)
+        code = lib.pp_mid_contract_mma(
+            V.data_ptr(), Wt.data_ptr(), Wt.shape[1], out.data_ptr(), P, B,
+            M, R, LAYOUTS.index(layout), block_cols, stream)
+    else:
+        bf16 = V.dtype == torch.bfloat16
+        Wr = W.to(V.dtype).float() if bf16 else W
+        code = lib.pp_mid_contract(
+            V.data_ptr(), int(bf16), Wr.data_ptr(), out.data_ptr(), P, B, M,
+            R, LAYOUTS.index(layout), block_cols, stream)
     _build.check(lib, code, "mid_contract launch")
     LAUNCHES[layout] += 1
     return _out(out, shape, mode, layout)

@@ -31,6 +31,9 @@ repeat bit for bit.
 
 bf16-stored V follows the JAX package's mixed-precision rule: the factors
 are rounded to bf16, products and sums are float32, outputs are float32.
+With bf16 V each launch takes its module's tensor-core path (``plan()``
+names it) when V is 16-byte aligned and the launch's contiguous run (B2
+M, M, M) is a multiple of 8, as at the coil shape.
 
 :func:`triple_roots` launches the kernels for a CUDA tensor, or raises;
 it takes the plain version (:func:`triple_roots_plain`) only for a tensor

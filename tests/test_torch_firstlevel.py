@@ -157,23 +157,25 @@ def test_last_contract_plain_f64_matches_numpy():
     assert _rel(got, np.einsum("abcd,dr->abcr", V, W)) <= 1e-10
 
 
-# (N, B, R, vec) for K5's planner: the coil-100 shape at R 10 and 40,
-# the same with an unaligned V (scalar loads), a B below one slice, and
-# ragged B.
-PLAN_CASES = [(49152, 7200, 10, True), (49152, 7200, 40, True),
-              (49152, 7200, 10, False), (8192, 1000, 10, True),
-              (37, 1001, 7, False)]
+# (N, B, R, V's offset from a 16-byte boundary) for K5's planner, f32 V:
+# the coil-100 shape at R 10 and 40, the same with an unaligned V (scalar
+# loads), a B below one slice, and ragged B.
+PLAN_CASES = [(49152, 7200, 10, 0), (49152, 7200, 40, 0),
+              (49152, 7200, 10, 4), (8192, 1000, 10, 0),
+              (37, 1001, 7, 0)]
 
 
-@pytest.mark.parametrize("N,B,R,vec", PLAN_CASES)
-def test_last_contract_plan(N, B, R, vec):
+@pytest.mark.parametrize("N,B,R,offset", PLAN_CASES)
+def test_last_contract_plan(N, B, R, offset):
     """Equal slices that cover B, whose staged W leaves room for two
     blocks on an SM; 16-byte loads start each slice on a multiple of 4
     columns; the blocks of all slices and rank chunks fit the card at
     once, and each block's run of row tiles covers them all."""
     n_sm = 132
-    p = lc.plan(N, B, R, n_sm, vec)
+    vec = B % 4 == 0 and offset == 0
+    p = lc.plan(N, B, R, n_sm, offset)
     vw = 4 if vec else 1
+    assert p.path == "fma"
     assert p.vec == vw and p.rank_chunk == lc.rank_chunk(R)
     assert p.rows == lc.rows_per_warp(p.rank_chunk)
     n_rc = -(-R // p.rank_chunk)
@@ -190,13 +192,87 @@ def test_last_contract_plan(N, B, R, vec):
         groups = math.ceil(-(-B // vw) / (p.n_slices - 1))
         assert groups * lc.group_stride(p.rank_chunk, vw) * 4 > \
             lc.SMEM_BUDGET
-    if (N, B, R, vec) == (49152, 7200, 10, True):
+    if (N, B, R, offset) == (49152, 7200, 10, 0):
         # the coil-100 shape: 4 slices of 1800 rows of W, 93.6 KB each
         assert (p.n_slices, p.slice_cols, p.smem, p.rank_chunk) == \
             (4, 1800, 93600, 12)
         assert p.blocks * p.n_slices <= 2 * n_sm
     if B == 1000:
         assert p.n_slices == 1
+
+
+# (bf16, B, V's offset from a 16-byte boundary) -> (path, values per load):
+# the tensor cores take bf16 V with B % 8 == 0 on a 16-byte boundary; bf16
+# 8 bytes off, B % 8 == 4 or 2 bytes off, and f32, keep the FMA template.
+PATH_CASES = [((True, 7200, 0), ("mma", 8)), ((True, 7200, 8), ("fma", 4)),
+              ((True, 7200, 2), ("fma", 1)), ((True, 7204, 0), ("fma", 4)),
+              ((True, 1001, 0), ("fma", 1)), ((True, 200, 0), ("mma", 8)),
+              ((False, 7200, 0), ("fma", 4)), ((False, 7200, 8), ("fma", 1))]
+
+
+@pytest.mark.parametrize("case,want", PATH_CASES)
+def test_last_contract_plan_path(case, want):
+    """plan() names the path from V's type, B % 8 and V's alignment."""
+    bf16, B, offset = case
+    p = lc.plan(4096, B, 10, 132, offset, bf16)
+    assert (p.path, p.vec) == want
+    assert lc.path(B, offset, bf16) == want[0]
+
+
+# (N, B, R) of the mma path's plan: the coil shape (K6's O3), 512^3's
+# mode 2 view, R = 40, and a B of one partial step.
+MMA_PLAN_CASES = [(49152, 7200, 10), (262144, 512, 10), (49152, 7200, 40),
+                  (37, 8, 1)]
+
+
+@pytest.mark.parametrize("N,B,R", MMA_PLAN_CASES)
+def test_last_contract_mma_plan(N, B, R):
+    """The mma path stages whole 32-column steps of A fragments (1 KB a
+    step) in slices that leave room for two blocks on an SM and cover B;
+    8 rows a warp, 16 ranks a chunk; the grid fits the card at once."""
+    n_sm = 132
+    p = lc.plan(N, B, R, n_sm, 0, True)
+    assert (p.path, p.rank_chunk, p.rows) == ("mma", 16, lc.MMA_ROWS)
+    assert p.slice_cols % lc.MMA_STEP == 0
+    assert p.smem == p.slice_cols // lc.MMA_STEP * lc.MMA_STEP_BYTES
+    assert 2 * (p.smem + lc.SMEM_RESERVED) <= lc.SMEM_PER_SM
+    assert (p.n_slices - 1) * p.slice_cols < B <= p.n_slices * p.slice_cols
+    n_rc = -(-R // 16)
+    assert p.blocks * p.n_slices * n_rc <= 2 * n_sm or p.blocks == 1
+    tiles = -(-N // (lc.WARPS * lc.MMA_ROWS))
+    per_block = -(-tiles // p.blocks)
+    assert (p.blocks - 1) * per_block < tiles <= p.blocks * per_block
+    if (N, B) == (49152, 7200):
+        # two slices of 113 steps, 115.7 KB each: the whole budget
+        assert (p.n_slices, p.slice_cols, p.smem) == (2, 3616, 115712)
+
+
+# (N, B, R, slice_cols) of the mma path's emulation: whole tiles and steps,
+# ragged N with a partial last step, R = 40 (three rank chunks), and
+# slices (cut smaller than the plan's) whose last step is partial.
+MMA_EMULATION_CASES = [(32, 256, 10, None), (37, 200, 10, None),
+                       (37, 96, 40, None), (49, 232, 12, 96),
+                       (16, 256, 7, 64)]
+
+
+@pytest.mark.parametrize("N,B,R,slice_cols", MMA_EMULATION_CASES)
+def test_last_contract_mma_mapping(N, B, R, slice_cols):
+    """csrc/last_contract.cu's fragment mapping, emulated over a whole
+    launch (lc.emulate_mma through the PTX fragment layouts): every
+    product V[n, b] W[b, r] is summed exactly once, into out[n, r], and
+    no product of real elements lands elsewhere; the emulated sums equal
+    the plain version to rel 1e-5 (float64 emulation, float32 plain)."""
+    rng = np.random.default_rng(N * B + R)
+    V = torch.from_numpy(rng.random((N, B), dtype=np.float32)).bfloat16()
+    W = rng.random((B, R), dtype=np.float32)
+    p = lc.plan(N, B, R, 132, 0, True)
+    if slice_cols is not None:
+        p = p._replace(slice_cols=slice_cols, n_slices=-(-B // slice_cols))
+    out, count, misplaced = lc.emulate_mma(V.double().numpy(), W, p)
+    assert misplaced == 0
+    assert count.min() == 1 and count.max() == 1
+    assert _rel(torch.from_numpy(out),
+                lc.last_contract_plain(V, torch.from_numpy(W))) <= 1e-5
 
 
 def test_last_contract_eligible_matches_jax():
@@ -466,12 +542,13 @@ def test_cuda_last_contract_unaligned_v():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("offset", [0, 1, 4])
 def test_cuda_last_contract_bf16(offset):
-    """On a card: K5 with bf16 V, aligned (8-byte loads of 4 values) and
-    2 bytes off alignment (a contiguous view of buf[1:]: scalar loads),
-    against its plain version on the same bf16-rounded operands, rel
-    1e-4, two launches bit for bit equal; the coil shape (K6's O3), a
+    """On a card: K5 with bf16 V, aligned (the tensor cores where B % 8
+    == 0), 8 bytes off a 16-byte boundary (the fma path's 8-byte loads of
+    4 values) and 2 bytes off (a contiguous view of buf[1:]: scalar
+    loads), against its plain version on the same bf16-rounded operands,
+    rel 1e-4, two launches bit for bit equal; the coil shape (K6's O3), a
     ragged B and R above one rank chunk."""
     _cuda_or_skip()
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -481,12 +558,47 @@ def test_cuda_last_contract_bf16(offset):
         buf = torch.rand(n + offset, generator=gen,
                          device="cuda").to(torch.bfloat16)
         V = buf[offset:].view(shape)
-        assert V.data_ptr() % 8 == 2 * offset
-        assert lc.can_vec(V) == (offset == 0 and shape[-1] % 4 == 0)
+        assert V.data_ptr() % 16 == 2 * offset
+        p = lc.plan_for(V, R)
+        if offset == 0 and shape[-1] % 8 == 0:
+            assert (p.path, p.vec) == ("mma", 8)
+        else:
+            assert (p.path, p.vec) == (
+                "fma", 4 if offset != 1 and shape[-1] % 4 == 0 else 1)
         W = torch.rand((shape[-1], R), generator=gen, device="cuda")
         got, again = lc.last_contract(V, W), lc.last_contract(V, W)
         assert _held(got, lc.last_contract_plain(V, W)) <= 1e-4
         assert torch.equal(got, again)
+
+
+# (V shape, R, V's offset in elements, path) of K5 with bf16 V on a card:
+# the coil shape (two slices), a ragged N with a last partial step, R = 40,
+# a B of one partial step, then B % 8 == 4 and V 2 bytes off alignment,
+# which take the fma path.
+K5_BF16_PATHS = [((3, 128, 128, 7200), 10, 0, "mma"), ((37, 1000), 7, 0, "mma"),
+                 ((5, 9, 232), 40, 0, "mma"), ((3, 8), 1, 0, "mma"),
+                 ((64, 1004), 7, 0, "fma"), ((64, 7200), 10, 1, "fma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,R,offset,path", K5_BF16_PATHS)
+def test_cuda_last_contract_bf16_paths(shape, R, offset, path):
+    """On a card: K5 with bf16 V on the path its plan names (the tensor
+    cores for B % 8 == 0 at a 16-byte boundary, else the FMA template)
+    against its plain version on the same bf16-rounded operands, rel
+    1e-4, two launches bit for bit equal, one launch counted each."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    buf = torch.rand(math.prod(shape) + offset, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    V = buf[offset:].view(shape)
+    W = torch.rand((shape[-1], R), generator=gen, device="cuda")
+    assert lc.plan_for(V, R).path == path
+    n0 = lc.LAUNCHES["last_contract"]
+    got, again = lc.last_contract(V, W), lc.last_contract(V, W)
+    assert lc.LAUNCHES["last_contract"] == n0 + 2
+    assert _held(got, lc.last_contract_plain(V, W)) <= 1e-4
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

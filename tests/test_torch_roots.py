@@ -207,6 +207,79 @@ def test_triple_roots_launch_accounting(monkeypatch):
                                               (R, P, B1, B2))
 
 
+# (P, B, M, R) of mid_contract's mma emulation: whole k and column tiles,
+# a ragged B (a last partial k tile) and M (a partial column tile, M % 8
+# == 0), R = 40 (three rank chunks), and a small ragged shape.
+MID_MMA_CASES = [(2, 32, 128, 10), (2, 40, 200, 10), (1, 32, 128, 40),
+                 (3, 17, 72, 5)]
+
+
+@pytest.mark.parametrize("P,B,M,R", MID_MMA_CASES)
+def test_mid_contract_mma_mapping(P, B, M, R):
+    """csrc/mid_contract.cu's fragment mapping, emulated over every warp
+    tile (mc.emulate_mma through the PTX fragment layouts): every product
+    V[p, b, m] W[b, r] is summed exactly once, into out[p, m, r], and no
+    product of real elements lands elsewhere; the emulated sums equal the
+    plain version to rel 1e-5 (float64 emulation, float32 plain)."""
+    rng = np.random.default_rng(P * B * M + R)
+    V = torch.from_numpy(rng.random((P, B, M), dtype=np.float32)).bfloat16()
+    W = rng.random((B, R), dtype=np.float32)
+    out, count, misplaced = mc.emulate_mma(V.double().numpy(), W)
+    assert misplaced == 0
+    assert count.min() == 1 and count.max() == 1
+    assert _rel(torch.from_numpy(out),
+                mc.mid_contract_plain(V, torch.from_numpy(W), 1)) <= 1e-5
+
+
+# (bf16, M, V's offset from a 16-byte boundary) -> path: the tensor cores
+# take bf16 V with M % 8 == 0 on a 16-byte boundary; bf16 with M odd, M %
+# 8 == 4, 2 or 8 bytes off, and f32 keep the FMA template.
+MID_PATH_CASES = [((True, 921600, 0), "mma"), ((True, 1000, 0), "mma"),
+                  ((True, 1001, 0), "fma"), ((True, 1004, 0), "fma"),
+                  ((True, 921600, 2), "fma"), ((True, 921600, 8), "fma"),
+                  ((False, 921600, 0), "fma")]
+
+
+@pytest.mark.parametrize("case,want", MID_PATH_CASES)
+@pytest.mark.parametrize("layout", ["rank_minor", "rank_major",
+                                    "rank_outer"])
+def test_mid_contract_plan_path(case, want, layout):
+    """plan() names the path from V's type, M % 8 and V's alignment, in
+    every layout; the mma path runs 32 threads per 64 columns."""
+    bf16, M, offset = case
+    p = mc.plan(3, 128, M, 10, layout, 256, offset, bf16)
+    assert p.path == want == mc.path(M, offset, bf16)
+    assert p.threads == (128 if want == "mma" else 256)
+    assert p.col_tiles == -(-M // 256)
+
+
+# (P, B, M) of the shared-memory check: the coil view (S3, K6's O1), K6's
+# O2 view, and 512^3's mode 0 (K4 in phase 4b).
+MID_SMEM_SHAPES = [(3, 128, 921600), (384, 128, 7200), (1, 512, 262144)]
+
+
+@pytest.mark.parametrize("P,B,M", MID_SMEM_SHAPES)
+@pytest.mark.parametrize("R", [10, 40])
+def test_mid_contract_plan_smem(P, B, M, R):
+    """Every launch's static shared memory fits 48 KB: the fma path's
+    staged W (64 rows x RC) and rank-minor tile, the mma path's rank-minor
+    tile (64 columns x 17 a warp), at every layout and block width, f32
+    and bf16."""
+    for layout in mc.LAYOUTS:
+        for cols in ((256,) if layout == "rank_minor" else mc.BLOCK_COLS):
+            for bf16 in (False, True):
+                p = mc.plan(P, B, M, R, layout, cols, 0, bf16)
+                assert p.smem <= mc.SMEM_STATIC
+                minor = layout == "rank_minor"
+                if p.path == "mma":
+                    assert (p.rank_chunk, p.threads) == (16, cols // 2)
+                    assert p.smem == (cols * 17 * 4 if minor else 0)
+                else:
+                    rc = lc.rank_chunk(R)
+                    assert p.smem == 4 * (64 * rc + (cols * (rc + 1)
+                                                     if minor else 1))
+
+
 def test_non_cpu_tensors_without_cuda_raise():
     """A tensor that is not on the CPU takes the kernel path, which refuses
     anything but CUDA operands instead of falling back; a bf16 factor is
@@ -440,6 +513,48 @@ def test_cuda_mid_contract_matches_plain(dtype):
             torch.cuda.synchronize()
             assert mc.LAUNCHES[key] == n0 + 1
             assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+# (V shape, mode, R, V's offset in elements, path) of mid_contract with
+# bf16 V on a card: whole tiles, a ragged B, a partial column tile (M %
+# 8 == 0), R = 40, then M odd and V 2 bytes off alignment, which take the
+# fma path.
+MID_BF16_PATHS = [((3, 128, 1024), 1, 10, 0, "mma"),
+                  ((5, 37, 1000), 1, 7, 0, "mma"),
+                  ((4, 32, 200), 1, 10, 0, "mma"),
+                  ((64, 64, 64), 1, 40, 0, "mma"),
+                  ((5, 40, 1001), 1, 7, 0, "fma"),
+                  ((3, 128, 1024), 1, 10, 1, "fma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mode,R,offset,path", MID_BF16_PATHS)
+def test_cuda_mid_contract_bf16_paths(shape, mode, R, offset, path):
+    """On a card: mid_contract with bf16 V on the path its plan names, in
+    every layout and (rank-major, rank-outer) block width, against the
+    plain version on the same bf16-rounded operands, rel 1e-4; two
+    launches bit for bit equal, one launch counted each."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    n = int(np.prod(shape))
+    buf = torch.rand(n + offset, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    V = buf[offset:].view(shape)
+    W = torch.rand((shape[mode], R), generator=gen, device="cuda")
+    for layout in mc.LAYOUTS:
+        want = mc.mid_contract_plain(V, W, mode, layout=layout)
+        for cols in ((256,) if layout == "rank_minor" else mc.BLOCK_COLS):
+            assert mc.plan_for(V, R, mode, layout, cols).path == path
+            n0 = mc.LAUNCHES[layout]
+            got = mc.mid_contract(V, W, mode, layout=layout,
+                                  block_cols=cols)
+            again = mc.mid_contract(V, W, mode, layout=layout,
+                                    block_cols=cols)
+            torch.cuda.synchronize()
+            assert mc.LAUNCHES[layout] == n0 + 2
+            assert float((got - want).abs().max() / want.abs().max()) \
+                <= 1e-4
+            assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
