@@ -21,12 +21,14 @@ traceback and exits nonzero:
    time of a call; at 512^3 device times (the _512 fields).
 3b. The same for the chain-root kernels, float32 and bf16-stored V:
    mid_contract in its package layouts (K4 rank-minor, K4' rank-major;
-   torch.profiler device times beside the einsum's at 512^3, both types)
+   torch.profiler device times beside the einsum's at 512^3, both types;
+   also 512^3 with V one element off a 16-byte boundary and a ragged M)
    and triple_roots (K6), every check bit for bit across two calls; at
    the coil shape K6's torch.profiler device time split by launch,
    beside its yardstick of three torch.matmul calls over views of V
    (device time too), its one-read bound and its two-read floor. Every
-   bf16 label names the path of each launch (mma: tensor cores; fma).
+   mid_contract label names its path (f32v: K4's f32 loop; mma: tensor
+   cores; fma), as every bf16 triple_roots label names its launches'.
 3c. The sparse COO MTTKRP kernel (K7) against its plain version, every
    mode, on phase 6's own tensor and initial factors, at the
    sparse200_4_nnz1.6M fixture and its PP pair view (0, 1), the Pallas
@@ -61,6 +63,11 @@ traceback and exits nonzero:
    under ``config.override(use_kernels_first=True)``: the DT tree's
    top-level child (1, 2) goes through K4 once per DT sweep, and K4'
    never.
+4c. ``pp_bench -model CP`` at 512^3 rank 10, f32, maxiter 3, through the
+   CLI, with use_kernels_first off, on, on, off: the CSV's header and row
+   kinds, K4 launched once a DT sweep in the "on" runs (none "off"), and
+   the [DTtime], [PPfirst] and [PPsecond] medians of each run beside the
+   card's name and power limit.
 5. Order-4 CP-PP at the coil-100 shape (3, 128, 128, 7200) f32, rank 10.
 5b. The same shape, f32 and bf16 V, under
    ``config.override(use_kernels_triple=True)``: every PP cache build
@@ -149,10 +156,14 @@ SCRIPTS = ("bench_firstpair", "bench_rankpos", "bench_midvariants")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50 * 2**20
-# (shape, mode, R) of mid_contract: DT node (1, 2) at 512^3, the coil
-# shape's mode 1, a ragged shape, and R above one rank chunk (32).
-MID_CHECKS = [((512, 512, 512), 0, 10), ((3, 128, 128, 7200), 1, 10),
-              ((5, 40, 1000), 1, 7), ((200, 200, 200), 1, 40)]
+# (shape, mode, R, V's offset in elements) of mid_contract: DT node (1, 2)
+# at 512^3, the coil shape's mode 1, a ragged column tile, R above one
+# rank pass (f32v: 3 of 14; fma: 32), then 512^3 with V one element off a
+# 16-byte boundary and a ragged M (M % 4 != 0), which keep the FMA
+# template in f32.
+MID_CHECKS = [((512, 512, 512), 0, 10, 0), ((3, 128, 128, 7200), 1, 10, 0),
+              ((5, 40, 1000), 1, 7, 0), ((200, 200, 200), 1, 40, 0),
+              ((512, 512, 512), 0, 10, 1), ((5, 40, 1001), 1, 7, 0)]
 # (shape, R) of triple_roots: the coil cache build, a ragged column tile,
 # and R above one rank pass (16).
 TRIPLE_CHECKS = [((3, 128, 128, 7200), 10), ((3, 16, 24, 1200), 5),
@@ -499,17 +510,13 @@ def mid_library(V, W, mode, layout):
 
 
 def path_label(path):
-    """" path <path>" for a bf16 row's label (empty for none)."""
+    """" path <path>" for a row's label (empty for none)."""
     return f" path {path}" if path else ""
 
 
 def mid_path(mc, V, R, mode, layout, cols=256):
-    """mid_contract's path at V for a bf16 row's label: its plan's (an
-    older tree without plan_for has only the FMA template); empty for
-    float32 V, which has one path."""
-    import torch
-    if V.dtype != torch.bfloat16:
-        return ""
+    """mid_contract's path at V for a row's label: its plan's (an older
+    tree without plan_for has only the FMA template)."""
     if not hasattr(mc, "plan_for"):
         return "fma"
     return mc.plan_for(V, R, mode, layout, cols).path
@@ -559,13 +566,15 @@ def compare_chain_roots():
         dname = str(dtype).replace("torch.", "")
         lib_name = "torch.einsum" + (", bf16 out" if dname == "bfloat16"
                                      else "")
-        for i, (shape, mode, R) in enumerate(MID_CHECKS):
-            V = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+        for i, (shape, mode, R, offset) in enumerate(MID_CHECKS):
+            V = torch.rand(math.prod(shape) + offset, generator=gen,
+                           device="cuda").to(dtype)[offset:].view(shape)
             W = torch.rand((shape[mode], R), generator=gen, device="cuda")
             for key, layout in (("K4", "rank_minor"), ("K4'", "rank_major")):
+                path = mid_path(mc, V, R, mode, layout)
                 label = f"mid_contract {layout} {shape} mode {mode} R={R} " \
-                        f"{dname}" + path_label(mid_path(mc, V, R, mode,
-                                                         layout))
+                        f"{dname} data_ptr % 16 = {V.data_ptr() % 16}" + \
+                        path_label(path)
 
                 def kernel(lo=layout):
                     return mc.mid_contract(V, W, mode, layout=lo)
@@ -581,6 +590,7 @@ def compare_chain_roots():
                     lib_name, report=i == 0 and dtype == torch.float32)
                 if i == 0:
                     sfx = "" if dtype == torch.float32 else "_bf16"
+                    RESULTS[key]["path" + sfx] = path
                     add_device_ms(key, kernel, library, lib_name, sfx)
                     if sfx:
                         RESULTS[key].update({k + sfx: fields[k] for k in (
@@ -1115,6 +1125,49 @@ def run_cli_512(dtype, first, beside=None):
     return stats, minor, major
 
 
+PP_BENCH_ARGS = ["pp_bench", "-model", "CP", "-tensor", "r", "-dim", "3",
+                 "-size", "512", "-rank", "10", "-maxiter", "3"]
+BENCH_KINDS = ("DTtime", "PPfirst", "PPsecond")
+
+
+def run_pp_bench(first):
+    """``pp_bench -model CP`` at 512^3 rank 10, f32, maxiter 3, through the
+    CLI under use_kernels_first = ``first``; checks the CSV (the
+    reference's header, 3 [DTtime] rows then 3 [PPfirst]/[PPsecond]
+    pairs, finite positive times) and K4's launches: one a DT sweep (the
+    untimed one and the 3 timed) with the kernel on, none with it off.
+    Returns ({row kind: median s}, K4 launches)."""
+    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "pp_bench_512.csv")
+        mid_contract.reset_launch_counts()
+        with config.override(use_kernels_first=first):
+            rc = cli.main(PP_BENCH_ARGS + ["-quiet", "-filename", out])
+        launches = mid_contract.LAUNCHES["rank_minor"]
+        with open(out) as fh:
+            rows = list(csv.reader(fh))
+    if rc != 0:
+        raise AssertionError(f"pp_bench returned {rc}")
+    kinds = [r[0] for r in rows[1:]]
+    times = [float(r[1]) for r in rows[1:]]
+    if rows[0] != ["[timetype]", "[dtime]"] or kinds != (
+            ["[DTtime]"] * 3 + ["[PPfirst]", "[PPsecond]"] * 3):
+        raise AssertionError(f"pp_bench CSV: header {rows[0]}, rows {kinds}")
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"pp_bench times {times}")
+    if launches != (4 if first else 0):
+        raise AssertionError(f"pp_bench use_kernels_first={first}: K4 "
+                             f"launched {launches} times, expected "
+                             f"{4 if first else 0} (one a DT sweep)")
+    med = {k: statistics.median(t for kind, t in zip(kinds, times)
+                                if kind == f"[{k}]") for k in BENCH_KINDS}
+    print(f"pp_bench 512^3 f32 use_kernels_first={first}: K4 launches "
+          f"{launches}; medians " + ", ".join(
+              f"[{k}] {1e3 * v:.3f} ms" for k, v in med.items()))
+    return med, launches
+
+
 def print_phase_times(stats, beside=None, names=CP_PHASES):
     for name in names:
         calls, secs, med = stats.get(name, (0, 0.0, float("nan")))
@@ -1457,6 +1510,17 @@ def main(argv=None) -> int:
     if major_512 != 0:
         raise AssertionError("K4' (rank-major) launched on the 512^3 path, "
                              "which has no caller of it")
+    phase("4c. pp_bench -model CP at 512^3 rank 10, f32, use_kernels_first "
+          "off, on, on, off")
+    bench = {False: [], True: []}
+    for first in (False, True, True, False):
+        med, n = run_pp_bench(first)
+        bench[first].append(med)
+        launches["K4"] += n
+    print(f"pp_bench medians, ms (off: runs 1, 4; on: runs 2, 3), {smi}: "
+          + "; ".join(f"[{k}] off " + ", ".join(
+              f"{1e3 * m[k]:.3f}" for m in bench[False]) + " on " + ", ".join(
+              f"{1e3 * m[k]:.3f}" for m in bench[True]) for k in BENCH_KINDS))
     phase("5. order-4 CP-PP at the coil-100 shape")
     off = {d: run_coil_order4(d)[0] for d in ("float32", "bfloat16")}
     phase("5b. coil-100 shape under use_kernels_triple, f32 and bf16")

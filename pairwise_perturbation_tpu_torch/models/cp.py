@@ -56,6 +56,10 @@ class CPConfig:
     # minimum, or a factor moves by far more than its own norm in one
     # sweep (the JAX package's guard, cp.py:556-575). 0 disables.
     gn_guard: float = 10.0
+    # pp_bench timing mode (the JAX package's cp.py:68): als_cp_pp runs one
+    # PP phase straight from the given factors, with no DT preconditioning
+    # and no restart checks, then returns.
+    bench: bool = False
     # Binary-tree root split (None = reference midpoint, common.cxx:252).
     # The CLI sets this from the native planner (native/planner.cpp).
     tree_split: object = None
@@ -306,26 +310,30 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
     Ws_pre, dWs_pre = Ws, dWs  # pre-sweep state (guard revert target)
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
-        if cfg.gn_guard and state["grads"] is not None:
-            rg = ratios_and_gradnorm(Ws, dWs, state["grads"]).cpu().numpy()
-            ratios, gn_est = rg[:-1], float(rg[-1])
-            # revert guards: gradnorm growth OR a factor that moved by
-            # >> its own norm in one sweep (a last-mode solve explosion
-            # is invisible to gn_est)
-            if gn_est > cfg.gn_guard * gn_floor or \
-                    float(np.max(np.abs(ratios))) \
-                    > max(5.0 * cfg.pp_res_tol, 0.5):
-                # discard the blown sweep and restart from the last
-                # healthy iterate; the discarded sweep does not consume
-                # an iteration — EXCEPT when its iteration number was
-                # already logged (rewinding would duplicate CSV rows)
-                if state.get("last_logged") != it - 1:
-                    state["iter"] = it - 1
-                return Ws_pre, dWs_pre, "restart"
-            gn_floor = min(gn_floor, gn_est)
-        else:
-            ratios = factor_norm_ratios(Ws, dWs).cpu().numpy()
-        num_dw_break = int(np.sum(np.abs(ratios) > cfg.pp_res_tol))
+        num_dw_break = 0
+        if not cfg.bench:  # pp_bench timing mode runs no restart checks
+            if cfg.gn_guard and state["grads"] is not None:
+                rg = ratios_and_gradnorm(Ws, dWs,
+                                         state["grads"]).cpu().numpy()
+                ratios, gn_est = rg[:-1], float(rg[-1])
+                # revert guards: gradnorm growth OR a factor that moved by
+                # >> its own norm in one sweep (a last-mode solve explosion
+                # is invisible to gn_est)
+                if gn_est > cfg.gn_guard * gn_floor or \
+                        float(np.max(np.abs(ratios))) \
+                        > max(5.0 * cfg.pp_res_tol, 0.5):
+                    # discard the blown sweep and restart from the last
+                    # healthy iterate; the discarded sweep does not
+                    # consume an iteration — EXCEPT when its iteration
+                    # number was already logged (rewinding would
+                    # duplicate CSV rows)
+                    if state.get("last_logged") != it - 1:
+                        state["iter"] = it - 1
+                    return Ws_pre, dWs_pre, "restart"
+                gn_floor = min(gn_floor, gn_est)
+            else:
+                ratios = factor_norm_ratios(Ws, dWs).cpu().numpy()
+            num_dw_break = int(np.sum(np.abs(ratios) > cfg.pp_res_tol))
         if (it - init_iter) % cfg.pp_cache_sweeps == 0 or num_dw_break > 0:
             if num_dw_break > 0 or it != init_iter:
                 return Ws, dWs, "restart"
@@ -367,13 +375,14 @@ def als_cp_pp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     dWs = [torch.zeros_like(W) for W in Ws]
     reason = None
     while state["gradnorm"] > cfg.tol and state["iter"] <= cfg.maxiter:
-        Ws, dWs, reason = _dt_sub(V, Ws, dWs, cfg, plot, clock, state,
-                                  V_norm_sq)
-        if reason in ("converged", "timelimit", "maxiter"):
-            break
+        if not cfg.bench:
+            Ws, dWs, reason = _dt_sub(V, Ws, dWs, cfg, plot, clock, state,
+                                      V_norm_sq)
+            if reason in ("converged", "timelimit", "maxiter"):
+                break
         Ws, dWs, reason = _pp_sub(V, Ws, dWs, cfg, plot, clock, state,
                                   V_norm_sq)
-        if reason in ("converged", "timelimit", "maxiter"):
+        if reason in ("converged", "timelimit", "maxiter") or cfg.bench:
             break
     return CPResult(Ws, state["gradnorm"], state["diffV"], state["iter"],
                     reason == "converged", state["history"])

@@ -116,6 +116,9 @@ def load() -> ctypes.CDLL:
     lib.pp_mid_contract_mma.argtypes = [p, p, i64, p, i64, i64, i64, i32,
                                         i32, i32, p]
     lib.pp_mid_contract_mma.restype = i32
+    lib.pp_mid_contract_f32v.argtypes = [p, p, p, i64, i64, i64, i32, i32,
+                                         i32, p]
+    lib.pp_mid_contract_f32v.restype = i32
     lib.pp_last_contract.argtypes = [p, i32, p, p, p, i64, i64, i32, i64,
                                      i32, i32, i32, i64, p]
     lib.pp_last_contract.restype = i32

@@ -41,6 +41,30 @@
 // Precision.HIGHEST, so TF32 would be less accurate). No atomics: every
 // output is one thread's sequential sum, so runs repeat bit for bit.
 //
+// float32 V in the rank-minor layout with M % 4 == 0 at a 16-byte boundary
+// (K4 on the package's route, DT node (1, 2) at 512^3) takes its own loop
+// instead (path "f32v", mid_contract_f32v_kernel). At 512^3 mode 0 (P = 1,
+// B = 512, M = 262144) the template above gives each thread one 4-byte
+// load a row, at most 4 in flight, and stops the block at two barriers
+// every 64 rows to restage W with the load pipe drained; its 1024 blocks
+// are under one wave. The f32v loop keeps the same one-thread sums but:
+// * a thread owns 4 consecutive columns and loads them as one 16-byte
+//   __ldcs a row; rows go in groups of 4, the next group's loads issued
+//   before the current group's FMAs (4 to 8 rows, 64 to 128 bytes, in
+//   flight a thread), so at P = 1 the 512 blocks of 128 threads keep
+//   ~32 KB a SM in flight without more blocks;
+// * W's rank chunk is staged once, whole, in dynamic shared memory by
+//   4-byte cp.async copies (zero past B, R and the chunk), rows padded to
+//   a multiple of 4 floats and read as float4 broadcasts: no barrier in
+//   the row loop. Only a W chunk above 48 KB (B x RC > 12288 at RC 16) is
+//   cut into a few chunks of w_rows rows, a barrier pair each;
+// * accumulators for the chunk's exact ranks (an instance per RC = 1 ...
+//   16; R above 16 in ceil(R / 16) equal chunks, grid y, each a re-read
+//   of V), so R = 10 runs no padded FMA;
+// * the (4 x RC) sums go through the shared buffer as the block's
+//   (512 x RC) tile, written out as contiguous 16-byte stores when one
+//   chunk covers R.
+//
 // bf16 V with M % 8 == 0 at a 16-byte boundary takes the tensor cores
 // instead (path "mma", mid_contract_mma_kernel): the JAX rule for bf16 V is
 // bf16 operands with f32 sums, which is mma.sync m16n8k16 bf16 -> f32. The
@@ -180,6 +204,154 @@ int launch_layout(const T* V, const float* W, float* out, int64_t P, int64_t B,
   }
 }
 
+// ---- float32 V, rank-minor output, 16-byte loads (the wrapper's path "f32v") ----
+
+constexpr int kV4Threads = 128;          // threads of a block
+constexpr int kV4Cols = 4 * kV4Threads;  // columns of M a block, 4 a thread
+constexpr int kV4Group = 4;              // rows of a load group; two in flight
+constexpr int kV4MaxRanks = 16;          // ranks of a pass at most
+constexpr int kV4MaxSmem = 48 * 1024;    // dynamic shared memory of a block at most
+
+// W's row stride in shared memory: RC rounded up to whole float4s.
+template <int RC>
+__host__ __device__ constexpr int w_stride() {
+  return (RC + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Rows b ... b + kV4Group - 1 of the thread's 4 columns (zeros past n).
+__device__ __forceinline__ void load_group(float4 (&y)[kV4Group], const float* v, int b, int n,
+                                           int64_t M) {
+#pragma unroll
+  for (int u = 0; u < kV4Group; ++u)
+    y[u] = b + u < n ? __ldcs(reinterpret_cast<const float4*>(v + (int64_t)(b + u) * M))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// acc[j RC + r] += y[u].j * w[u][r], row u after row u - 1 (w: the
+// group's first row of W in shared memory).
+template <int RC>
+__device__ __forceinline__ void fma_group(const float4 (&y)[kV4Group], const float* w,
+                                          float (&acc)[4 * RC]) {
+  constexpr int S = w_stride<RC>();
+#pragma unroll
+  for (int u = 0; u < kV4Group; ++u) {
+    const float* wr = w + u * S;
+    float c[RC];
+#pragma unroll
+    for (int q = 0; q < RC / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(wr)[q];
+      c[4 * q] = t.x;
+      c[4 * q + 1] = t.y;
+      c[4 * q + 2] = t.z;
+      c[4 * q + 3] = t.w;
+    }
+    if constexpr (RC % 4 >= 2) {
+      const float2 t = *reinterpret_cast<const float2*>(wr + RC / 4 * 4);
+      c[RC / 4 * 4] = t.x;
+      c[RC / 4 * 4 + 1] = t.y;
+    }
+    if constexpr (RC % 2 == 1) c[RC - 1] = wr[RC - 1];
+    const float x[4] = {y[u].x, y[u].y, y[u].z, y[u].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < RC; ++r) acc[j * RC + r] = fmaf(x[j], c[r], acc[j * RC + r]);
+  }
+}
+
+// grid (P * n_tiles, ceil(R / RC)), kV4Threads threads, dynamic shared
+// memory 4 max(w_rows S, kV4Cols RC) bytes. V (P, B, M) float32, 16-byte
+// aligned, M % 4 == 0; out (P, M, R) 16-byte aligned; w_rows % (2
+// kV4Group) == 0.
+template <int RC>
+__global__ void __launch_bounds__(kV4Threads, 4)
+mid_contract_f32v_kernel(const float* __restrict__ V, const float* __restrict__ W,
+                         float* __restrict__ out, int64_t P, int64_t B, int64_t M, int R,
+                         int64_t n_tiles, int w_rows) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int S = w_stride<RC>();
+  const int64_t p = blockIdx.x / n_tiles;
+  const int64_t m0 = (blockIdx.x - p * n_tiles) * kV4Cols;
+  const int r0 = blockIdx.y * RC;
+  const int tid = threadIdx.x;
+  const bool live = m0 + 4 * tid < M;  // the thread's 4 columns: all in or all out
+  const float* v = V + p * B * M + m0 + 4 * tid;
+
+  float acc[4 * RC];  // column 4 tid + j, rank r0 + r at j RC + r
+#pragma unroll
+  for (int i = 0; i < 4 * RC; ++i) acc[i] = 0.f;
+
+  for (int64_t c0 = 0; c0 < B; c0 += w_rows) {
+    const int n = (int)min64(w_rows, B - c0);                          // rows of V
+    const int n_pad = (n + 2 * kV4Group - 1) / (2 * kV4Group) * (2 * kV4Group);  // of W
+    if (c0 > 0) __syncthreads();  // the previous chunk is no longer read
+    for (int t = tid; t < n_pad * S; t += kV4Threads) {
+      const int bb = t / S, rr = t - bb * S;
+      const bool valid = bb < n && rr < RC && r0 + rr < R;
+      cp_async4(smem + t, valid ? W + (c0 + bb) * R + r0 + rr : W, valid);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (live) {
+      const float* vc = v + c0 * M;
+      float4 ya[kV4Group], yb[kV4Group];
+      load_group(ya, vc, 0, n, M);
+      for (int b = 0; b < n; b += 2 * kV4Group) {
+        load_group(yb, vc, b + kV4Group, n, M);
+        fma_group<RC>(ya, smem + b * S, acc);
+        load_group(ya, vc, b + 2 * kV4Group, n, M);
+        fma_group<RC>(yb, smem + (b + kV4Group) * S, acc);
+      }
+    }
+  }
+
+  __syncthreads();  // W is no longer read: the buffer takes the output tile
+  if (live) {
+    // column 4 tid + j, rank r at (4 tid + j) RC + r: acc as it is
+    float4* o4 = reinterpret_cast<float4*>(smem + 4 * tid * RC);
+#pragma unroll
+    for (int k = 0; k < RC; ++k)
+      o4[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
+  }
+  __syncthreads();
+  const int64_t cols = min64(kV4Cols, M - m0);
+  if (R == RC) {  // one chunk covers R: the tile is one run of the output
+    const float4* s4 = reinterpret_cast<const float4*>(smem);
+    float4* d4 = reinterpret_cast<float4*>(out + (p * M + m0) * R);
+    for (int64_t e = tid; e < cols * RC / 4; e += kV4Threads) d4[e] = s4[e];
+    return;
+  }
+  const int rcv = R - r0 < RC ? R - r0 : RC;  // ranks of this chunk
+  float* dst = out + (p * M + m0) * R + r0;
+  for (int64_t e = tid; e < cols * rcv; e += kV4Threads) {
+    const int64_t c = e / rcv;
+    const int r = (int)(e - c * rcv);
+    dst[c * R + r] = smem[c * RC + r];
+  }
+}
+
+template <int RC>
+int launch_f32v(const float* V, const float* W, float* out, int64_t P, int64_t B, int64_t M,
+                int R, int w_rows, cudaStream_t stream) {
+  constexpr int S = w_stride<RC>();
+  const int64_t smem = 4 * (w_rows * S > kV4Cols * RC ? (int64_t)w_rows * S : kV4Cols * RC);
+  if (smem > kV4MaxSmem) return (int)cudaErrorInvalidValue;
+  const int64_t n_tiles = (M + kV4Cols - 1) / kV4Cols;
+  if (P * n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(P * n_tiles), (unsigned)((R + RC - 1) / RC));
+  mid_contract_f32v_kernel<RC><<<grid, kV4Threads, (size_t)smem, stream>>>(
+      V, W, out, P, B, M, R, n_tiles, w_rows);
+  return (int)cudaGetLastError();
+}
+
 // ---- bf16 V on the tensor cores (the wrapper's path "mma") ----
 
 constexpr int kMmaCols = 64;   // columns of M a warp
@@ -316,6 +488,29 @@ int pp_mid_contract(const void* V, int v_bf16, const float* W, float* out, int64
                          cols, stream);
   return launch_layout(static_cast<const float*>(V), W, out, P, B, M, R, layout, cols,
                        stream);
+}
+
+// K4 with float32 V on the 16-byte-load loop (the wrapper's path "f32v"):
+// out (P, M, R) from V (P, B, M) float32, M % 4 == 0, V and out 16-byte
+// aligned, W (B, R) float32; rc ranks a pass (1 ... 16, ceil(R / rc)
+// passes), w_rows rows of W staged a pass (a multiple of 8, at most 48 KB
+// of shared memory with the output tile).
+int pp_mid_contract_f32v(const float* V, const float* W, float* out, int64_t P, int64_t B,
+                         int64_t M, int R, int rc, int w_rows, cudaStream_t stream) {
+  if (P <= 0 || B <= 0 || M <= 0 || R <= 0 || M % 4 != 0 || rc < 1 || rc > kV4MaxRanks ||
+      w_rows <= 0 || w_rows % (2 * kV4Group) != 0 ||
+      reinterpret_cast<uintptr_t>(V) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (rc) {
+#define PP_F32V_CASE(N) \
+  case N: return launch_f32v<N>(V, W, out, P, B, M, R, w_rows, stream);
+    PP_F32V_CASE(1) PP_F32V_CASE(2) PP_F32V_CASE(3) PP_F32V_CASE(4)
+    PP_F32V_CASE(5) PP_F32V_CASE(6) PP_F32V_CASE(7) PP_F32V_CASE(8)
+    PP_F32V_CASE(9) PP_F32V_CASE(10) PP_F32V_CASE(11) PP_F32V_CASE(12)
+    PP_F32V_CASE(13) PP_F32V_CASE(14) PP_F32V_CASE(15) PP_F32V_CASE(16)
+#undef PP_F32V_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same with bf16 V on the tensor cores (the wrapper's path "mma"): V

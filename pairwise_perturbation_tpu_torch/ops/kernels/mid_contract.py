@@ -35,15 +35,20 @@ only.
 bf16-stored V follows the JAX package's mixed-precision rule: W is
 rounded to bf16, products and sums are float32, the output is float32.
 
-:func:`plan` chooses, from the shapes, V's type and its alignment alone,
-the path and its launch: ``"mma"`` (bf16 V, M % 8 == 0, V 16-byte
-aligned) runs the products on the tensor cores (``_mma``), W^T as the A
-operand and 64 columns of V a warp as B; ``"fma"`` (float32 V, and bf16 V
-off 16-byte alignment or with a ragged M) runs them as FP32 FMAs. Both
-are hand written; a shape takes one of them, and a failed launch raises.
+:func:`plan` chooses, from the shapes, the layout, V's type and its
+alignment alone, the path and its launch: ``"mma"`` (bf16 V, M % 8 == 0,
+V 16-byte aligned) runs the products on the tensor cores (``_mma``), W^T
+as the A operand and 64 columns of V a warp as B; ``"f32v"`` (float32 V,
+rank-minor layout, M % 4 == 0, V 16-byte aligned: K4 on the package's
+route) runs them as FP32 FMAs with 4 columns a thread, loaded 16 bytes a
+row, and W's rank chunk staged once; ``"fma"`` (every other shape: the
+rank-major and rank-outer layouts, and V off 16-byte alignment or with a
+ragged M) runs them as FP32 FMAs with one column a thread. All three are
+hand written; a shape takes one of them, and a failed launch raises.
 :func:`mma_tile_map` is the mma path's fragment mapping and
-:func:`emulate_mma` walks it over a whole launch in numpy, so the CPU
-tests hold the mapping to the contraction.
+:func:`emulate_mma` walks it over a whole launch in numpy, as
+:func:`emulate_f32v` walks the f32v path's tiling, so the CPU tests hold
+each mapping to the contraction.
 
 :func:`mid_contract` launches the kernel for a CUDA tensor, or raises; it
 takes the plain version (:func:`mid_contract_plain`) only for a tensor on
@@ -73,27 +78,65 @@ _SPECS = {"rank_minor": "pbm,br->pmr", "rank_major": "pbm,br->prm",
           "rank_outer": "pbm,br->rpm"}
 
 # csrc/mid_contract.cu: rows of W staged per pass of the fma path (kRows),
-# columns of M a warp of the mma path (kMmaCols), and its k tile.
+# columns of M a warp of the mma path (kMmaCols), and its k tile; the
+# f32v path's threads a block (kV4Threads), columns a block (kV4Cols, 4 a
+# thread), rows a load group (kV4Group, two in flight) and ranks a pass
+# at most (kV4MaxRanks).
 K_ROWS = 64
 MMA_COLS = 64
 K_TILE = 16
-# Static shared memory a block may use.
+V4_THREADS = 128
+V4_COLS = 4 * V4_THREADS
+V4_GROUP = 4
+V4_MAX_RANKS = 16
+# Shared memory a block may use without opting in (static, or dynamic:
+# the f32v path's never exceeds it).
 SMEM_STATIC = 48 * 1024
 
 
 class Plan(NamedTuple):
     """A launch of csrc/mid_contract.cu."""
-    path: str         # "mma" (tensor cores, bf16 V) or "fma"
-    threads: int      # of a block: block_cols (fma) or 32 per 64 columns (mma)
+    path: str         # "mma" (tensor cores, bf16 V), "f32v" or "fma"
+    threads: int      # of a block: block_cols (fma), 32 per 64 columns
+                      # (mma), V4_THREADS (f32v)
     col_tiles: int    # column tiles of each p (grid x = P * col_tiles)
     rank_chunk: int   # ranks per pass (grid y = ceil(R / rank_chunk))
-    smem: int         # static shared memory of a block, bytes
+    smem: int         # shared memory of a block, bytes (f32v: dynamic)
+    w_rows: int       # rows of W staged a pass (mma: 0, W^T read from L1)
 
 
-def path(M: int, v_offset: int, bf16: bool) -> str:
+def path(M: int, v_offset: int, bf16: bool,
+         layout: str = "rank_minor") -> str:
     """``"mma"`` for bf16 V with M % 8 == 0 at a 16-byte boundary
-    (``v_offset`` = V's address modulo 16), else ``"fma"``."""
-    return "mma" if bf16 and M % 8 == 0 and v_offset == 0 else "fma"
+    (``v_offset`` = V's address modulo 16); ``"f32v"`` for float32 V in
+    the rank-minor layout with M % 4 == 0 at a 16-byte boundary; else
+    ``"fma"``."""
+    if bf16:
+        return "mma" if M % 8 == 0 and v_offset == 0 else "fma"
+    return "f32v" if layout == "rank_minor" and M % 4 == 0 \
+        and v_offset == 0 else "fma"
+
+
+def f32v_rank_chunk(R: int) -> int:
+    """Ranks a pass of the f32v path: R itself up to V4_MAX_RANKS, else
+    R cut into ceil(R / 16) chunks as equal as whole ranks allow (the
+    last chunk pads the rest with zeros)."""
+    return -(-R // -(-R // V4_MAX_RANKS))
+
+
+def f32v_w_stride(rc: int) -> int:
+    """W's row stride in the f32v path's shared memory: rc rounded up to
+    whole float4s (csrc/mid_contract.cu ``w_stride``)."""
+    return -(-rc // 4) * 4
+
+
+def f32v_w_rows(B: int, rc: int) -> int:
+    """Rows of W the f32v path stages a pass: B rounded up to two load
+    groups (8 rows), or as many rows as 48 KB of shared memory hold at
+    W's row stride, whichever is fewer."""
+    step = 2 * V4_GROUP
+    cap = SMEM_STATIC // (4 * f32v_w_stride(rc)) // step * step
+    return min(-(-B // step) * step, cap)
 
 
 @functools.lru_cache(maxsize=256)
@@ -106,14 +149,19 @@ def plan(P: int, B: int, M: int, R: int, layout: str = "rank_minor",
     stages its output tile in shared memory."""
     _check_layout(layout, block_cols)
     minor = layout == "rank_minor"
-    if path(M, v_offset, bf16) == "mma":
-        threads, rc = 32 * block_cols // MMA_COLS, _mma.RANKS
+    kind = path(M, v_offset, bf16, layout)
+    if kind == "f32v":
+        rc = f32v_rank_chunk(R)
+        w_rows = f32v_w_rows(B, rc)
+        smem = 4 * max(w_rows * f32v_w_stride(rc), V4_COLS * rc)
+        return Plan(kind, V4_THREADS, -(-M // V4_COLS), rc, smem, w_rows)
+    if kind == "mma":
+        threads, rc, w_rows = 32 * block_cols // MMA_COLS, _mma.RANKS, 0
         smem = 4 * block_cols * (rc + 1) if minor else 0
     else:
-        threads, rc = block_cols, rank_chunk(R)
+        threads, rc, w_rows = block_cols, rank_chunk(R), K_ROWS
         smem = 4 * (K_ROWS * rc + (block_cols * (rc + 1) if minor else 1))
-    return Plan(path(M, v_offset, bf16), threads, -(-M // block_cols), rc,
-                smem)
+    return Plan(kind, threads, -(-M // block_cols), rc, smem, w_rows)
 
 
 def plan_for(V, R: int, mode: int, layout: str = "rank_minor",
@@ -191,6 +239,67 @@ def emulate_mma(V3, W):
                     misplaced += int((real & ~ok).sum())
                     np.add.at(count[p], (row[ok], col[ok], orank[ok]), 1)
     return out, count, misplaced
+
+
+def emulate_f32v(V3, W):
+    """The f32v path in numpy, block by block as the kernel runs it
+    (csrc/mid_contract.cu ``mid_contract_f32v_kernel``, at :func:`plan`'s
+    rank chunk and W rows): each block's W chunk staged at its stride
+    (zero past B, R and the chunk), thread t's 16-byte loads of columns
+    m0 + 4t ... m0 + 4t + 3 row by row (zeros past the chunk's rows), its
+    sums at acc[j RC + r], the output tile at 4 t RC + j RC + r of the
+    shared buffer and its copy out. Returns (out (P, M, R) float64, count
+    (P, B, M, R), misplaced), as :func:`emulate_mma` does."""
+    P, B, M = V3.shape
+    R = W.shape[1]
+    p_ = plan(P, B, M, R)
+    assert p_.path == "f32v"
+    rc, w_rows = p_.rank_chunk, p_.w_rows
+    step = 2 * V4_GROUP
+    t = np.arange(V4_THREADS)[:, None, None, None]
+    j = np.arange(4)[None, :, None, None]
+    r = np.arange(rc)[None, None, :, None]
+    slot = 4 * t * rc + j * rc + r  # the sum's place in the shared tile
+    out = np.zeros(P * M * R)
+    count = np.zeros((P, B, M, R), np.int64)
+    misplaced = 0
+    for p in range(P):
+        for m0 in range(0, M, V4_COLS):
+            cols = min(V4_COLS, M - m0)
+            live = m0 + 4 * t < M
+            col = m0 + 4 * t + j
+            for r0 in range(0, R, rc):
+                # where each slot of the tile is copied to (-1: nowhere)
+                if R == rc:
+                    keep = live & (slot < cols * rc)
+                    pos = (p * M + m0) * R + slot
+                else:
+                    c, rr = slot // rc, slot % rc
+                    keep = live & (c < cols) & (rr < min(rc, R - r0))
+                    pos = (p * M + m0 + c) * R + r0 + rr
+                dest = np.where(keep, pos, -1)
+                for c0 in range(0, B, w_rows):
+                    n = min(w_rows, B - c0)
+                    k = np.arange(-(-n // step) * step)[None, None, None, :]
+                    w_ok = (k < n) & (r0 + r < R)  # staged W
+                    v_ok = live & (k < n)                      # loaded V
+                    x = np.where(v_ok, V3[p, np.minimum(c0 + k, B - 1),
+                                          np.minimum(col, M - 1)], 0.) * \
+                        np.where(w_ok, W[np.minimum(c0 + k, B - 1),
+                                         np.minimum(r0 + r, R - 1)], 0.)
+                    shape = x.shape
+                    d = np.broadcast_to(dest, shape)
+                    np.add.at(out, d[d >= 0], x[d >= 0])
+                    real = np.broadcast_to(v_ok & w_ok, shape)
+                    vb, vm, wb, wr, dd = (np.broadcast_to(a, shape)[real]
+                                          for a in (c0 + k, col, c0 + k,
+                                                    r0 + r, d))
+                    ok = (dd >= 0) & (vb == wb) & \
+                        (vm == dd // R % M) & (wr == dd % R) & \
+                        (dd // (M * R) == p)
+                    misplaced += int((~ok).sum())
+                    np.add.at(count[p], (vb[ok], vm[ok], wr[ok]), 1)
+    return out.reshape(P, M, R), count, misplaced
 
 
 def reset_launch_counts() -> None:
@@ -303,7 +412,12 @@ def mid_contract(V, W, mode: int, layout: str = "rank_minor",
     out = torch.empty(phys, dtype=torch.float32, device=V.device)
     stream = torch.cuda.current_stream(V.device).cuda_stream
     lib = _build.load()
-    if plan_for(V, R, mode, layout, block_cols).path == "mma":
+    p = plan_for(V, R, mode, layout, block_cols)
+    if p.path == "f32v":
+        code = lib.pp_mid_contract_f32v(
+            V.data_ptr(), W.data_ptr(), out.data_ptr(), P, B, M, R,
+            p.rank_chunk, p.w_rows, stream)
+    elif p.path == "mma":
         Wt = _mma.wt_bf16(W)
         code = lib.pp_mid_contract_mma(
             V.data_ptr(), Wt.data_ptr(), Wt.shape[1], out.data_ptr(), P, B,

@@ -3,7 +3,8 @@
 Port of the CP part of ``pairwise_perturbation_tpu/utils/metrics.py``,
 same schema: CP runs emit
 ``[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]``
-(als_CP.cxx:133-134).
+(als_CP.cxx:133-134); bench mode emits ``[timetype],[dtime]`` rows with
+``[DTtime]`` / ``[PPfirst]`` / ``[PPsecond]`` (pp_bench.cxx:297-298).
 
 Wall-clock: diagnostics (gradnorm + residual recomputation) are *excluded*
 from reported ``dtime`` exactly like the reference's
@@ -20,6 +21,7 @@ class PlotFile:
     """CSV writer matching the reference Plot_File behavior."""
 
     CP_HEADER = "[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]"
+    BENCH_HEADER = "[timetype],[dtime]"
 
     def __init__(self, path: Optional[str], header: str = CP_HEADER,
                  echo: bool = True):
@@ -41,6 +43,13 @@ class PlotFile:
             print(f"  [dim]=  {dim}  [iter]=  {it}  [metric]  {metric}"
                   f"  [tol]  {tol}  [pp_update]  {pp_update}"
                   f"  [diffV]  {diffV}  [dtime]  {dtime}")
+
+    def bench_row(self, timetype: str, dtime: float):
+        if self._fh is not None:
+            self._fh.write(f"[{timetype}],{dtime}\n")
+            self._fh.flush()
+        if self.echo:
+            print(f"  [{timetype}]  {dtime}")
 
     def close(self):
         if self._fh is not None:

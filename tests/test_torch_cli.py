@@ -70,7 +70,7 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,step", [
-    (["run"], "A11"), (["pp_bench"], "A12"),
+    (["run"], "A11"), (["pp_bench", "-model", "Tucker"], "A10"),
     (["-model", "Tucker"], "A10"), (["-pp", "2"], "A9"),
     (["-issparse", "1", "-model", "Tucker"], "A13"), (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "A14"), (["-device_loop", "2"], "A14"),
@@ -177,13 +177,21 @@ def test_native_copy_matches_original(shape, rank):
 
 def test_metrics_copy_matches_original(tmp_path, capsys):
     assert tmetrics.PlotFile.CP_HEADER == jmetrics.PlotFile.CP_HEADER
+    assert tmetrics.PlotFile.BENCH_HEADER == jmetrics.PlotFile.BENCH_HEADER
     outs = []
     for mod in (tmetrics, jmetrics):
         path = tmp_path / f"{mod.__name__}.csv"
         plot = mod.PlotFile(str(path))
         plot.row(12, 3, 0.5, 1e-9, 1, 0.25, 0.125)
         plot.close()
-        outs.append((path.read_text(), capsys.readouterr().out))
+        bench = tmp_path / f"{mod.__name__}.bench.csv"
+        plot = mod.PlotFile(str(bench), mod.PlotFile.BENCH_HEADER)
+        for kind, secs in (("DTtime", 0.0125), ("PPfirst", 3e-3),
+                           ("PPsecond", 1.5e-4)):
+            plot.bench_row(kind, secs)
+        plot.close()
+        outs.append((path.read_text(), bench.read_text(),
+                     capsys.readouterr().out))
     assert outs[0] == outs[1]
     clock = tmetrics.SweepClock()
     assert clock.rtt == 0.0

@@ -233,11 +233,13 @@ def test_mid_contract_mma_mapping(P, B, M, R):
 
 # (bf16, M, V's offset from a 16-byte boundary) -> path: the tensor cores
 # take bf16 V with M % 8 == 0 on a 16-byte boundary; bf16 with M odd, M %
-# 8 == 4, 2 or 8 bytes off, and f32 keep the FMA template.
+# 8 == 4, 2 or 8 bytes off keep the FMA template; f32 takes the f32v loop
+# in the rank-minor layout (None below) and the FMA template in the other
+# two.
 MID_PATH_CASES = [((True, 921600, 0), "mma"), ((True, 1000, 0), "mma"),
                   ((True, 1001, 0), "fma"), ((True, 1004, 0), "fma"),
                   ((True, 921600, 2), "fma"), ((True, 921600, 8), "fma"),
-                  ((False, 921600, 0), "fma")]
+                  ((False, 921600, 0), None)]
 
 
 @pytest.mark.parametrize("case,want", MID_PATH_CASES)
@@ -245,12 +247,15 @@ MID_PATH_CASES = [((True, 921600, 0), "mma"), ((True, 1000, 0), "mma"),
                                     "rank_outer"])
 def test_mid_contract_plan_path(case, want, layout):
     """plan() names the path from V's type, M % 8 and V's alignment, in
-    every layout; the mma path runs 32 threads per 64 columns."""
+    every layout; the mma path runs 32 threads per 64 columns, the f32v
+    path 128 threads per 512 columns."""
     bf16, M, offset = case
+    if want is None:
+        want = "f32v" if layout == "rank_minor" else "fma"
     p = mc.plan(3, 128, M, 10, layout, 256, offset, bf16)
-    assert p.path == want == mc.path(M, offset, bf16)
-    assert p.threads == (128 if want == "mma" else 256)
-    assert p.col_tiles == -(-M // 256)
+    assert p.path == want == mc.path(M, offset, bf16, layout)
+    assert p.threads == {"mma": 128, "fma": 256, "f32v": 128}[want]
+    assert p.col_tiles == -(-M // (512 if want == "f32v" else 256))
 
 
 # (P, B, M) of the shared-memory check: the coil view (S3, K6's O1), K6's
@@ -261,10 +266,10 @@ MID_SMEM_SHAPES = [(3, 128, 921600), (384, 128, 7200), (1, 512, 262144)]
 @pytest.mark.parametrize("P,B,M", MID_SMEM_SHAPES)
 @pytest.mark.parametrize("R", [10, 40])
 def test_mid_contract_plan_smem(P, B, M, R):
-    """Every launch's static shared memory fits 48 KB: the fma path's
-    staged W (64 rows x RC) and rank-minor tile, the mma path's rank-minor
-    tile (64 columns x 17 a warp), at every layout and block width, f32
-    and bf16."""
+    """Every launch's shared memory fits 48 KB: the fma path's staged W
+    (64 rows x RC) and rank-minor tile, the mma path's rank-minor tile (64
+    columns x 17 a warp), the f32v path's W chunk or output tile (512
+    columns x RC), at every layout and block width, f32 and bf16."""
     for layout in mc.LAYOUTS:
         for cols in ((256,) if layout == "rank_minor" else mc.BLOCK_COLS):
             for bf16 in (False, True):
@@ -274,6 +279,11 @@ def test_mid_contract_plan_smem(P, B, M, R):
                 if p.path == "mma":
                     assert (p.rank_chunk, p.threads) == (16, cols // 2)
                     assert p.smem == (cols * 17 * 4 if minor else 0)
+                elif p.path == "f32v":
+                    assert minor and not bf16
+                    rc = p.rank_chunk
+                    assert p.smem == 4 * max(
+                        p.w_rows * (-(-rc // 4) * 4), 512 * rc)
                 else:
                     rc = lc.rank_chunk(R)
                     assert p.smem == 4 * (64 * rc + (cols * (rc + 1)
