@@ -73,6 +73,12 @@ traceback and exits nonzero:
    ``config.override(use_kernels_triple=True)``: every PP cache build
    takes its three chain roots from one K6 call (two rank-outer
    mid_contract launches and one last_contract).
+5c. PP-partupdate (``test_als -pp 2``, update percentage 0.5: 2 of the 4
+   modes solved a PP sweep) at the same shape, f32, with the kernels'
+   defaults and under use_kernels_triple (K6 once a cache build); the
+   CSV checked (finite, PP rows, a falling gradnorm); the
+   cp.pp_partupdate_sweep and cp.pp_cache_build medians beside phase 5's
+   cp.pp_sweep.
 6. The sparse CLI: ``test_als -model CP -issparse 1 -pp 1`` on the folded
    Poisson tensor (100^4); checks the CSV and that K7 launched exactly N
    times per exact sweep, N + 1 times per diagnostics row and N +
@@ -92,6 +98,17 @@ traceback and exits nonzero:
    coil-100 shape, rank 10, in this process: each must return 0 (every
    error row under its tolerance), and its rows' launches give the launch
    counts of K5 and S1-S5 (K4' = S1 + S3 + S5).
+
+8. ``run`` (the second-gen optimizers), f32, rank 10. At 512^3 through
+   the CLI: -pp 4 (Simple), whose K1, K2 and K3 launch once a step (in
+   dtime) and once, once and twice a diagnostics row; -pp 1 (MSDT) with
+   use_kernels_first off and on: K4 serves every step whose hold-out is
+   mode 0, only when on. At the coil-100 shape through ``cli.run_cpd``
+   (the body of ``run``; the CLI makes cubic tensors only): -pp 0-3 a
+   few sweeps each, -pp 1 -device_loop 1 (a rotation, 3 sweeps, a step),
+   and -pp 1 under use_kernels_first (K4 for every hold-out of mode 1).
+   Every CSV checked; the step medians (tracing scopes
+   ``<Optimizer>.step``) printed beside the card's name and power limit.
 
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
@@ -1180,38 +1197,50 @@ def print_phase_times(stats, beside=None, names=CP_PHASES):
         print(line)
 
 
-def run_coil_order4(dtype="float32", triple=False, beside=None):
+def run_coil_order4(dtype="float32", triple=False, beside=None,
+                    partial=None):
     """Order-4 CP-PP on a seeded uniform tensor of the coil-100 shape,
-    V stored in ``dtype``, with use_kernels_triple set to ``triple``.
-    Returns (phase stats, K6 launches)."""
+    V stored in ``dtype``, with use_kernels_triple set to ``triple``; with
+    ``partial`` (an update percentage) PP-partupdate (``test_als -pp 2``),
+    whose CSV is checked. Returns (phase stats, K6 launches)."""
     import torch
     from pairwise_perturbation_tpu_torch import config, native
     from pairwise_perturbation_tpu_torch.models import cp
     from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
     gen = torch.Generator(device="cuda").manual_seed(0)
     V = torch.rand(COIL_SHAPE, generator=gen, device="cuda").to(
         getattr(torch, dtype))
     Ws = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
     split, _, _ = native.plan_tree_split_traffic(COIL_SHAPE, 10)
     cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=5,
-                      tree_split=split)
+                      tree_split=split, update_percentage=partial or 1.0)
     tracing.reset()
     _bench.reset_launch_counts()
     tracing.enable()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with config.override(use_kernels_triple=triple):
-        res = cp.als_cp_pp(V, Ws, cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "coil.csv")
+        plot = PlotFile(out, echo=False) if partial else None
+        t0 = time.perf_counter()
+        with config.override(use_kernels_triple=triple):
+            res = cp.als_cp_pp(V, Ws, cfg, plot,
+                               partial_update=partial is not None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if plot is not None:
+            plot.close()
+            with open(out) as fh:
+                rows = list(csv.reader(fh))
     tracing.enable(False)
     counts = _bench.launch_counts()
     launches = counts["triple_roots.triple_roots"]
     stats = tracing.stats()
     gns = [h["gradnorm"] for h in res.history]
     n_pp = sum(1 for h in res.history if h["pp"] == 1)
-    print(f"coil-shape {COIL_SHAPE} {dtype} R=10 split {split} "
+    what = f"-pp 2 update_percentage {partial} " if partial else ""
+    print(f"coil-shape {COIL_SHAPE} {dtype} R=10 split {split} {what}"
           f"use_kernels_triple={triple}: {res.iters} sweeps in {wall:.3f} s, "
           f"{len(gns)} logged rows, {n_pp} PP rows, "
           f"gradnorm {gns[0]:.6e} -> {gns[-1]:.6e}, "
@@ -1220,6 +1249,12 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
         raise AssertionError("non-finite gradnorm or diffV")
     if not gns[-1] < gns[0]:
         raise AssertionError("gradnorm did not decrease")
+    if partial:
+        check_csv(rows, f"coil -pp 2 CSV ({dtype}, triple={triple})")
+        if "cp.pp_sweep" in stats or not stats.get(
+                "cp.pp_partupdate_sweep", (0,))[0]:
+            raise AssertionError("-pp 2 ran no partial-update sweep, or a "
+                                 "full PP sweep")
     if triple:
         n_builds = stats.get("cp.pp_cache_build", (0,))[0]
         print(f"K6 launches {launches}, PP cache builds {n_builds}; every "
@@ -1232,8 +1267,219 @@ def run_coil_order4(dtype="float32", triple=False, beside=None):
                 "last_contract.last_contract"]) != (2 * launches, launches):
             raise AssertionError("K6's inner launches differ from two "
                                  "rank-outer launches and one K5 a call")
-    print_phase_times(stats, beside)
+    names = CP_PHASES
+    if partial:
+        names = ("cp.dt_sweep", "cp.pp_cache_build",
+                 "cp.pp_partupdate_sweep", "cp.diagnostics")
+    print_phase_times(stats, beside, names)
     return stats, launches
+
+
+def run_partupdate(pp1_stats):
+    """Phase 5c: PP-partupdate at the coil shape, f32, update percentage
+    0.5 (2 of 4 modes a sweep), with the kernels' defaults and under
+    use_kernels_triple; its sweep and cache-build medians beside phase
+    5's -pp 1 run (``pp1_stats``). Returns K6's launches."""
+    stats = {}
+    launches = 0
+    for triple in (False, True):
+        stats[triple], n = run_coil_order4("float32", triple=triple,
+                                           partial=0.5)
+        launches += n
+
+    def med(st, name):
+        return 1e3 * st.get(name, (0, 0.0, float("nan")))[2]
+
+    print("coil f32 medians, ms: " + "; ".join(
+        f"triple={t}: cp.pp_partupdate_sweep "
+        f"{med(stats[t], 'cp.pp_partupdate_sweep'):.3f}, cp.pp_cache_build "
+        f"{med(stats[t], 'cp.pp_cache_build'):.3f}" for t in stats)
+        + f"; -pp 1 (phase 5): cp.pp_sweep "
+        f"{med(pp1_stats, 'cp.pp_sweep'):.3f}, cp.pp_cache_build "
+        f"{med(pp1_stats, 'cp.pp_cache_build'):.3f}")
+    return launches
+
+
+RUN_512 = ["run", "-tensor", "r", "-dim", "3", "-size", "512", "-rank",
+           "10"]
+
+
+def check_run_csv(rows, label):
+    """Body rows of a ``run`` CSV: the reference header, finite values, no
+    PP rows, a sweep count that rises and a gradnorm that decreased."""
+    if ",".join(rows[0]) != CSV_HEADER:
+        raise AssertionError(f"{label}: CSV header {rows[0]}")
+    body = [[float(x) for x in r] for r in rows[1:]]
+    if len(body) < 2 or not all(math.isfinite(x) for r in body for x in r):
+        raise AssertionError(f"{label}: CSV too short or holds non-finite "
+                             "values")
+    sweeps = [r[1] for r in body]
+    if any(r[4] != 0 for r in body) or sweeps != sorted(set(sweeps)):
+        raise AssertionError(f"{label}: PP rows or sweeps {sweeps}")
+    print(f"{label}: {len(body)} rows, sweeps {sweeps[0]:g} -> "
+          f"{sweeps[-1]:g}, gradnorm {body[0][2]:.6e} -> {body[-1][2]:.6e}")
+    if not body[-1][2] < body[0][2]:
+        raise AssertionError(f"{label}: gradnorm did not decrease")
+    return body
+
+
+def msdt_holdouts(order, n_steps, macro=False):
+    """The hold-out of every MSDT step of a run from the start (the full
+    rotation order-1, ..., 0, again); a macro step is a whole rotation."""
+    per = order if macro else 1
+    return [(order - 1 - k) % order for k in range(n_steps * per)]
+
+
+def step_scope(stats):
+    """(name, calls, median s) of the run's optimizer step scope."""
+    (name, st), = [(n, v) for n, v in stats.items()
+                   if n.endswith((".step", ".step_cycle"))]
+    return name, st[0], st[2]
+
+
+def msdt_holdout_medians(name, order):
+    """{hold-out: median ms} of an MSDT run's steps (scope ``name``),
+    printed."""
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    times = tracing.samples(name)
+    lefts = msdt_holdouts(order, len(times))
+    med = {h: 1e3 * statistics.median(t for t, l in zip(times, lefts)
+                                      if l == h)
+           for h in sorted(set(lefts))}
+    print(f"  {name} median by hold-out, ms: " + ", ".join(
+        f"{h}: {m:.3f}" for h, m in med.items()))
+    return med
+
+
+def run_cli_run(pp, first, maxiter, *extra):
+    """``run -pp pp`` through the CLI at 512^3 rank 10, f32, under
+    use_kernels_first = ``first``, -profile 1; checks the CSV. Returns
+    (phase stats, every kernel's launches)."""
+    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    label = f"run -pp {pp} 512^3 f32 use_kernels_first={first}"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "run_512.csv")
+        tracing.reset()
+        _bench.reset_launch_counts()
+        with config.override(use_kernels_first=first):
+            rc = cli.main(RUN_512 + ["-pp", str(pp), "-maxiter",
+                                     str(maxiter), "-resprint", "2",
+                                     "-profile", "1", "-quiet", "-filename",
+                                     out, *extra])
+        counts = _bench.launch_counts()
+        with open(out) as fh:
+            rows = list(csv.reader(fh))
+    tracing.enable(False)
+    if rc != 0:
+        raise AssertionError(f"{label}: cli.main returned {rc}")
+    check_run_csv(rows, label)
+    return tracing.stats(), counts
+
+
+def run_512_optimizers():
+    """Phase 8 at 512^3: Simple (K1-K3 once a step, in dtime, and once,
+    once and twice a diagnostics row), then MSDT with use_kernels_first
+    off and on (K4 once a step whose hold-out is mode 0, only when on).
+    Returns ({kernel id: launches}, {label: (scope, median s)})."""
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    stats, counts = run_cli_run(4, False, 8)
+    _, steps, med = step_scope(stats)
+    rows = stats["cp.diagnostics"][0]
+    k = [counts[f"mttkrp3.{m}"] for m in range(3)]
+    print(f"Simple: {steps} steps, {rows} diagnostics rows; K1-K3 "
+          f"launches {k}, step median {1e3 * med:.3f} ms")
+    if k != [steps + rows, steps + rows, steps + 2 * rows]:
+        raise AssertionError("K1-K3 launches differ from one each a Simple "
+                             "step and 1/1/2 a diagnostics row")
+    launches = {f"K{m + 1}": n for m, n in enumerate(k)}
+    medians = {"Simple 512^3": ("CPSimpleOptimizer.step", med)}
+    launches["K4"] = 0
+    for first in (False, True):
+        stats, counts = run_cli_run(1, first, 6)
+        name, steps, med = step_scope(stats)
+        n = counts["mid_contract.rank_minor"]
+        want = sum(1 for h in msdt_holdouts(3, steps) if h == 0) \
+            if first else 0
+        print(f"MSDT use_kernels_first={first}: {steps} steps, K4 launches "
+              f"{n} (expected {want}), step median {1e3 * med:.3f} ms")
+        msdt_holdout_medians(name, 3)
+        if n != want or (first and n == 0):
+            raise AssertionError("K4 launches differ from the MSDT steps "
+                                 "whose hold-out is mode 0")
+        launches["K4"] += n
+        medians[f"MSDT 512^3 first={first}"] = (name, med)
+    if mid_contract.LAUNCHES["rank_major"]:
+        raise AssertionError("K4' launched on the run path")
+    return launches, medians
+
+
+def run_coil_optimizers():
+    """Phase 8 at the coil shape, f32, rank 10, through ``cli.run_cpd``
+    (the body of ``run``; the CLI makes cubic tensors only): DT, MSDT,
+    DT-LR and MSDT-LR a few sweeps each, MSDT with -device_loop 1 (a
+    rotation a step), and MSDT under use_kernels_first, where K4 serves
+    every hold-out of mode 1. Returns (K4 launches, {label: (scope,
+    median s)})."""
+    import torch
+    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    eligible = {m for m in range(3) if mid_contract.mid_contract_eligible(
+        COIL_SHAPE, m, V.dtype, 10)}
+    runs = [(0, False, False, 3), (1, False, False, 3), (2, False, False, 3),
+            (3, False, False, 3), (1, False, True, 6), (1, True, False, 6)]
+    k4 = 0
+    medians = {}
+    for pp, first, macro, maxiter in runs:
+        label = (f"coil {cli.RUN_OPTIMIZERS[pp]}"
+                 + (" -device_loop 1" if macro else "")
+                 + (" use_kernels_first" if first else ""))
+        Ws = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
+        tracing.reset()
+        _bench.reset_launch_counts()
+        tracing.enable()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "run_coil.csv")
+            plot = PlotFile(out, echo=False)
+            try:
+                with config.override(use_kernels_first=first):
+                    cli.run_cpd(V, Ws, pp, tol=0.0, maxiter=maxiter,
+                                resprint=1, macro=macro, plot=plot)
+                torch.cuda.synchronize()
+            finally:
+                plot.close()
+                tracing.enable(False)
+            with open(out) as fh:
+                rows = list(csv.reader(fh))
+        body = check_run_csv(rows, label)
+        stats = tracing.stats()
+        name, steps, med = step_scope(stats)
+        n = _bench.launch_counts()["mid_contract.rank_minor"]
+        want = 0
+        if first:
+            want = sum(1 for h in msdt_holdouts(4, steps, macro)
+                       if h in eligible)
+        print(f"  {name} {steps} calls, median {1e3 * med:.3f} ms; K4 "
+              f"launches {n} (expected {want}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if n != want or (first and n == 0):
+            raise AssertionError(f"{label}: K4 launches differ from the "
+                                 "steps whose hold-out it admits")
+        if pp in (1, 3) and not macro:
+            msdt_holdout_medians(name, 4)
+        if macro and body[1][1] - body[0][1] != 3.0:
+            raise AssertionError(f"{label}: a rotation is not 3 sweeps")
+        k4 += n
+        medians[label] = (name, med)
+    return k4, medians
 
 
 def expected_coo_launches(stats, order):
@@ -1526,6 +1772,13 @@ def main(argv=None) -> int:
     phase("5b. coil-100 shape under use_kernels_triple, f32 and bf16")
     launches["K6"] = sum(run_coil_order4(d, triple=True, beside=off[d])[1]
                          for d in ("float32", "bfloat16"))
+    # launches of the paths phases 5c and 8 drive, kept apart in the line
+    by_phase = {}
+    phase("5c. PP-partupdate (test_als -pp 2, update_percentage 0.5) at the "
+          "coil-100 shape, f32, kernels' defaults then use_kernels_triple")
+    n = run_partupdate(off["float32"])
+    launches["K6"] += n
+    by_phase["K6"] = {"5c": n}
     phase("6. sparse CLI test_als -model CP -issparse 1 -pp 1, "
           "Poisson 100^4 rank 10")
     launches["K7"] = run_sparse_cli()[0]
@@ -1537,6 +1790,19 @@ def main(argv=None) -> int:
     run_sparse_repeat(off)
     phase("7. the ported benchmark scripts at the coil-100 shape, rank 10")
     launches.update(run_scripts())
+    phase("8. run -pp 4 (Simple) and -pp 1 (MSDT, use_kernels_first off and "
+          "on) at 512^3; run -pp 0-3, -device_loop 1 and MSDT with "
+          "use_kernels_first at the coil-100 shape; f32, rank 10")
+    run_launches, medians = run_512_optimizers()
+    k4, coil_medians = run_coil_optimizers()
+    run_launches["K4"] += k4
+    medians.update(coil_medians)
+    for kid, n in run_launches.items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["8"] = n
+    print(f"run step medians, ms ({smi}): " + "; ".join(
+        f"{label}: {scope} {1e3 * med:.3f}"
+        for label, (scope, med) in medians.items()))
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]
@@ -1551,6 +1817,7 @@ def main(argv=None) -> int:
                             sources=[CSRC + src for src in srcs],
                             replaces=replaces,
                             launches=launches[kid],
+                            launches_phases_5c_8=by_phase.get(kid, {}),
                             on_main_path=kid not in OFF_SLICE_PATH,
                             **RESULTS[kid]))
     print(json.dumps({"kernels": kernels}))

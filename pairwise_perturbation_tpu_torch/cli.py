@@ -1,43 +1,63 @@
-"""Command-line driver of the port — ``test_als`` for CP, dense or sparse,
-the counterpart of ``pairwise_perturbation_tpu/cli.py`` (lines 140-348)
-and of the reference's ``./test_ALS`` (test_ALS.cxx); ``pp_bench`` for CP,
-the counterpart of ``cli.cmd_pp_bench`` (lines 468-517) and of the
-reference's ``./pp_bench`` (pp_bench.cxx:277-348).
+"""Command-line entry points of the port — the counterpart of
+``pairwise_perturbation_tpu/cli.py`` and of the reference's binaries:
+
+- ``test_als`` (``./test_ALS``, test_ALS.cxx; JAX cli.py:140-348): CP,
+  dense or sparse. -pp 0 DT-ALS, -pp 1 PP with DT preconditioning, -pp 2
+  PP-partupdate (each PP sweep solves the ``-update_percentage_pp`` share
+  of the modes that moved most), host-driven phases. ``-issparse 1`` runs
+  the COO engine (models/sparse_cp.py) on V's nonzeros instead: plain ALS
+  sweeps with -pp 0, PP with plain-ALS preconditioning with -pp 1.
+- ``run`` (``./run``, run.cxx; JAX cli.py:411-466): the second-gen CPD
+  with -pp 0 DT, 1 MSDT, 2 DT-LR, 3 MSDT-LR, 4 Simple
+  (models/optimizers.py), on dense V. ``-device_loop 1`` steps MSDT (and
+  MSDT-LR, as in the JAX package) a full MSDT rotation per call
+  (``step_cycle``); ``-msdt_min_holdout``,
+  ``-updaterank``, ``-randomsvd`` and ``-lambda`` as in the JAX package;
+  ``-seed`` seeds the factors and the randomized SVD's draws.
+- ``pp_bench`` (``./pp_bench``, pp_bench.cxx:277-348; JAX cli.py:468-517)
+  for CP: ``[timetype],[dtime]`` rows, ``[DTtime]`` (one DT sweep),
+  ``[PPfirst]`` (a PP cache build and the first PP sweep) and
+  ``[PPsecond]`` (the next PP sweep on those caches), ``-maxiter`` of each
+  kind, every one from the same initial factors.
 
     python -m pairwise_perturbation_tpu_torch.cli test_als -model CP \\
         -tensor r -pp 1 -dim 3 -size 200 -rank 10 -maxiter 40 -filename out.csv
+    python -m pairwise_perturbation_tpu_torch.cli run -tensor r -pp 1 \\
+        -dim 3 -size 200 -rank 10 -maxiter 20 -filename run.csv
     python -m pairwise_perturbation_tpu_torch.cli pp_bench -model CP \\
         -tensor r -dim 3 -size 512 -rank 10 -maxiter 3 -filename bench.csv
 
 Runs on ``-device`` (default ``cuda``), in float32, float64 or the
 mixed-precision ``bfloat16`` mode (V stored bf16; factors, Grams and
-solves float32), on the synthetic zoo p/p2/c/r/r2, with -pp 0 (DT-ALS) or
--pp 1 (PP with DT preconditioning, host-driven phases). ``-issparse 1``
-runs the COO engine (models/sparse_cp.py) on V's nonzeros instead: plain
-ALS sweeps with -pp 0, PP with plain-ALS preconditioning with -pp 1. The
-CSV has the reference's schema. ``pp_bench`` writes ``[timetype],[dtime]``
-rows: ``[DTtime]`` (one DT sweep), ``[PPfirst]`` (a PP cache build and the
-first PP sweep) and ``[PPsecond]`` (the next PP sweep on those caches),
-``-maxiter`` of each kind, every one from the same initial factors.
-Unlike the JAX package, the port never reorders V's modes for the TPU's
-tiling (utils/layout.canonicalize), which is an identity for these cubic
-tensors anyway. What is not ported yet is refused with the ROADMAP step
-that brings it.
+solves float32), on the synthetic zoo p/p2/c/r/r2. The CSVs have the
+reference's schema. Unlike the JAX package, the port never reorders V's
+modes for the TPU's tiling (utils/layout.canonicalize), which is an
+identity for these cubic tensors anyway. What is not ported yet is
+refused with the ROADMAP step that brings it.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 
 import numpy as np
 
+RUN_OPTIMIZERS = ("DT", "MSDT", "DT-LR", "MSDT-LR", "Simple")
+
+
 def _unsupported(args, cmd):
     """The first requested feature the port does not have yet, or None."""
     if cmd == "run":
-        return ("'run' is not ported yet (ROADMAP A11); the port has "
-                "test_als and pp_bench")
-    if cmd == "pp_bench":
+        checks = [
+            (bool(args.issparse), "run -issparse 1 is not ported yet "
+             "(ROADMAP A13): the sparse chain top needs sparse.ttm_dense"),
+            (args.pp >= len(RUN_OPTIMIZERS),
+             "run takes -pp 0 (DT), 1 (MSDT), 2 (DT-LR), 3 (MSDT-LR) or "
+             "4 (Simple)"),
+        ]
+    elif cmd == "pp_bench":
         checks = [
             (args.model != "CP", "pp_bench -model Tucker is not ported yet "
              "(ROADMAP A10); the port's pp_bench has -model CP"),
@@ -53,16 +73,16 @@ def _unsupported(args, cmd):
             (args.model != "CP",
              "-model Tucker is not ported yet (ROADMAP A10)"),
             (bool(args.issparse) and args.pp not in (0, 1),
-             "-issparse 1 takes -pp 0 or 1: -pp 2 (PP-partupdate, ROADMAP "
-             "A9) has no sparse engine, in the JAX package either"),
-            (args.pp not in (0, 1),
-             "-pp 2 (PP-partupdate) is not ported yet (ROADMAP A9)"),
+             "-issparse 1 takes -pp 0 or 1: -pp 2 (PP-partupdate) has no "
+             "sparse engine, in the JAX package either"),
         ]
+    if cmd != "run":
+        checks.append(
+            (args.device_loop >= 1,
+             "-device_loop >= 1 is not ported yet for test_als and "
+             "pp_bench (ROADMAP A14); use -device_loop 0"))
     checks += [
         (bool(args.mesh), "-mesh is not ported yet (ROADMAP A15)"),
-        (args.device_loop >= 1,
-         "-device_loop >= 1 is not ported yet (ROADMAP A14); "
-         "use -device_loop 0"),
         (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16)"),
         (args.tensor in ("o1", "o2"),
          f"-tensor {args.tensor}: the dataset loaders are not ported yet "
@@ -153,7 +173,9 @@ def cmd_test_als(args) -> int:
         split = None
     else:
         X = _dense(args, V, device)
-        solve = (cp.als_cp_dt, cp.als_cp_pp)[args.pp]
+        solve = (cp.als_cp_dt, cp.als_cp_pp,
+                 functools.partial(cp.als_cp_pp, partial_update=True))[
+            min(args.pp, 2)]
         split = _planned_split(args, X.shape)
     t0 = time.perf_counter()
     Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
@@ -161,7 +183,9 @@ def cmd_test_als(args) -> int:
     cfg = cp.CPConfig(tol=args.tol * Vnorm, pp_res_tol=args.pp_res_tol,
                       lam=args.lam, ratio_step=args.magni,
                       maxiter=args.maxiter, timelimit=args.timelimit,
-                      resprint=args.resprint, tree_split=split)
+                      resprint=args.resprint,
+                      update_percentage=args.update_percentage_pp,
+                      tree_split=split)
     plot = PlotFile(args.filename, PlotFile.CP_HEADER, echo=not args.quiet)
     try:
         res = solve(X, Ws, cfg, plot)
@@ -170,6 +194,67 @@ def cmd_test_als(args) -> int:
     if not args.quiet:
         print(f"\nIter = {res.iters} Final grad norm {res.gradnorm:E}")
         print(f"experiment took {time.perf_counter() - t0:.6f} seconds")
+    return 0
+
+
+def run_cpd(X, Ws, pp: int, *, tol: float, maxiter: int, resprint: int,
+            timelimit: float = 5e3, lam: float = 0.0, updaterank: int = 1,
+            randomsvd: bool = False, msdt_min_holdout: int = 0,
+            seed: int = 0, macro: bool = False, plot=None):
+    """The body of ``run`` on the tensor ``X`` from the factors ``Ws``
+    (run.cxx; JAX cli.py:435-462): the CPD of the optimizer ``pp`` picks
+    (``RUN_OPTIMIZERS``), its ALS loop to the absolute gradnorm ``tol``;
+    with ``macro``, MSDT steps a full rotation per call. Returns the CPD,
+    whose ``history`` holds the logged rows."""
+    from pairwise_perturbation_tpu_torch.models import optimizers as opt
+    order, R = X.ndim, Ws[0].shape[1]
+    optimizer = {
+        0: lambda: opt.CPDTOptimizer(order, R),
+        1: lambda: opt.CPMSDTOptimizer(order, R,
+                                       min_holdout_size=msdt_min_holdout),
+        2: lambda: opt.CPDTLROptimizer(order, R, updaterank, randomsvd,
+                                       seed=seed),
+        3: lambda: opt.CPMSDTLROptimizer(order, R, updaterank, randomsvd,
+                                         seed=seed,
+                                         min_holdout_size=msdt_min_holdout),
+        4: lambda: opt.CPSimpleOptimizer(order, R),
+    }[pp]()
+    model = opt.CPD(order, list(X.shape), R, optimizer)
+    model.init(X, Ws, lam=lam)
+    model.als(tol=tol, timelimit=timelimit, maxsweep=maxiter,
+              resprint=resprint, plot=plot, macro=macro)
+    return model
+
+
+def cmd_run(args) -> int:
+    """The second-gen CPD on a dense synthetic tensor (run.cxx; JAX
+    cli.py:411-466): -pp picks the optimizer, ``-device_loop`` >= 1 runs
+    MSDT a full rotation per step; the LR optimizers' randomized SVD
+    draws from ``-seed``."""
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+
+    device = _device(args.device)
+    _print_banner(args)
+    V, dtype = _synthetic(args)
+    Vnorm = float(np.linalg.norm(V.ravel()))
+    X = _dense(args, V, device)
+    Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
+                         device=device)
+    plot = PlotFile(args.filename, PlotFile.CP_HEADER, echo=not args.quiet)
+    try:
+        model = run_cpd(X, Ws, args.pp, tol=args.tol * Vnorm,
+                        maxiter=args.maxiter, resprint=args.resprint,
+                        timelimit=args.timelimit, lam=args.lam,
+                        updaterank=args.updaterank,
+                        randomsvd=bool(args.randomsvd),
+                        msdt_min_holdout=args.msdt_min_holdout,
+                        seed=args.seed, macro=bool(args.device_loop),
+                        plot=plot)
+    finally:
+        plot.close()
+    if not args.quiet:
+        print(f"\nFinal gradnorm {model.gradnorm:E}")
     return 0
 
 
@@ -291,7 +376,8 @@ def main(argv=None) -> int:
     config.apply_fp32_pins()
     if args.profile:
         tracing.enable()
-    rc = (cmd_pp_bench if cmd == "pp_bench" else cmd_test_als)(args)
+    rc = {"test_als": cmd_test_als, "run": cmd_run,
+          "pp_bench": cmd_pp_bench}[cmd](args)
     if args.profile:
         print("\n" + tracing.report())
     return rc

@@ -1,11 +1,13 @@
-"""CP-ALS solvers: plain, dimension-tree (DT) and pairwise perturbation
-(PP) — port of the host-driven half of
+"""CP-ALS solvers: plain, dimension-tree (DT), pairwise perturbation (PP)
+and PP with partial updates — port of the host-driven half of
 ``pairwise_perturbation_tpu/models/cp.py`` (lines 50-300, 408-662).
 
 - :func:`als_cp`    <-> ``alsCP`` (als_CP.cxx:20-115)
 - :func:`als_cp_dt` <-> ``alsCP_DT`` (als_CP.cxx:127-320)
 - :func:`als_cp_pp` <-> ``alsCP_PP`` = ``alsCP_DT_sub`` <-> ``alsCP_PP_sub``
-                        state machine (als_CP.cxx:418-833, 1082-1137)
+                        state machine (als_CP.cxx:418-833, 1082-1137);
+                        with ``partial_update``, ``alsCP_PP_partupdate``
+                        (als_CP.cxx:852-1073, 1146-1207)
 
 Each sweep (DT sweep, PP cache build, PP sweep) is eager PyTorch on the
 tensors' device; the DT <-> PP phase machine, restart tolerances and CSV
@@ -50,6 +52,7 @@ class CPConfig:
     timelimit: float = 5e3
     resprint: int = 10
     solver: str = "svd"           # 'svd' (legacy) | 'chol' (second-gen)
+    update_percentage: float = 1.0  # PP-partupdate: share of modes solved
     pp_cache_sweeps: int = 15     # hard cap per PP cache build (als_CP.cxx:667)
     # Gradnorm-growth guard: force a PP restart (back to DT) when the
     # per-sweep gradnorm rises above gn_guard x the phase's running
@@ -154,6 +157,60 @@ def pp_sweep(single, pair, Ws, W_init, dWs, lam, ratio_step, rcond=None,
 def _chol_solve_mod(M, W_init, S, ratio_step):
     dW = ratio_step * (solve.cholesky_solve(M, S) - W_init)
     return W_init + dW, dW
+
+
+def pp_partupdate_sweep(single, pair, Ws, W_init, dWs, dMs, Ms, ms_set,
+                        rel_perturbe, grads, lam, ratio_step,
+                        *, update_size: int, solver: str = "svd"):
+    """One PP partial-update sweep (alsCP_PP_partupdate_sub,
+    als_CP.cxx:852-1073; JAX cp.py:188-254).
+
+    Solves only the ``update_size`` modes with the largest relative
+    perturbation ||dM_i||/||M_i|| (als_CP.cxx:992-1001), propagating each
+    solve's dW into the other modes' dM accumulators at once
+    (als_CP.cxx:1037-1053). The JAX package picks each slot's mode on the
+    device with ``lax.switch``; the port ranks on the host, with one pull
+    of the ranking per sweep. The sort is stable: ``rel_perturbe`` starts
+    at zeros, so the first sweep's ties go to the lower mode index, as in
+    the JAX package. The solve takes the configured cutoff (no ``rcond``),
+    as the JAX package's branch does.
+
+    State: dMs (accumulated corrections), Ms (the last M of each mode),
+    ms_set (a host tuple of bools: which modes have been solved since the
+    phase began) and rel_perturbe. Returns all of it updated, and the
+    per-mode grads (a mode not solved keeps its grad)."""
+    order = len(Ws)
+    Ws, dWs, dMs, Ms = list(Ws), list(dWs), list(dMs), list(Ms)
+    grads, ms_set = list(grads), list(ms_set)
+    ranked = torch.argsort(-rel_perturbe, stable=True).tolist()
+    for b in ranked[:update_size]:
+        M = single[b] + dMs[b]
+        S = contract.hadamard_gram(Ws, skip_mode=b, regul=lam)
+        grads[b] = contract.gradsubprob(M, S, Ws[b])
+        if solver == "svd":
+            Ws[b], dWs[b] = solve.svd_solve_mod(M, W_init[b], S, ratio_step)
+        else:
+            Ws[b], dWs[b] = _chol_solve_mod(M, W_init[b], S, ratio_step)
+        Ms[b] = M
+        for ii in range(order):
+            if ii == b:
+                dMs[ii] = torch.zeros_like(dMs[b])
+            elif ii < b:
+                dMs[ii] = dMs[ii] + contract._einsum(
+                    "Zab,bZ->aZ", pair[(ii, b)], dWs[b])
+            else:
+                dMs[ii] = dMs[ii] + contract._einsum(
+                    "Zab,aZ->bZ", pair[(b, ii)], dWs[b])
+        ms_set[b] = True
+    zero = torch.zeros((), dtype=rel_perturbe.dtype,
+                       device=rel_perturbe.device)
+    rel = torch.stack([
+        (torch.linalg.vector_norm(dMs[i])
+         / torch.clamp(torch.linalg.vector_norm(Ms[i]), min=1e-30)
+         ).to(rel_perturbe.dtype) if ms_set[i] else zero
+        for i in range(order)])
+    Ws = contract.normalize_factors(Ws)
+    return Ws, dWs, dMs, Ms, tuple(ms_set), rel, grads
 
 
 def factor_norm_ratios(Ws, dWs):
@@ -301,11 +358,19 @@ def _dt_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
     return Ws, dWs, "maxiter"
 
 
-def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
-    """PP sweeps. Reference: alsCP_PP_sub (als_CP.cxx:621-833)."""
+def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
+            partial_update: bool = False):
+    """PP sweeps. Reference: alsCP_PP_sub (als_CP.cxx:621-833) /
+    alsCP_PP_partupdate_sub (als_CP.cxx:852-1073)."""
+    order = V.ndim
     init_iter = state["iter"]
     W_init = None
     single = pair = None
+    # partial-update state (als_CP.cxx:886-898): dMs zeroed at the cache
+    # build, the rest made at the phase's first sweep
+    dMs = Ms = ms_set = rel_perturbe = None
+    update_size = max(int(order * cfg.update_percentage), 1) \
+        if partial_update else order
     gn_floor = float("inf")  # running min for the gradnorm-growth guard
     Ws_pre, dWs_pre = Ws, dWs  # pre-sweep state (guard revert target)
     while state["iter"] <= cfg.maxiter:
@@ -341,6 +406,8 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
             dWs = [torch.zeros_like(W) for W in Ws]
             single, pair = tracing.timed("cp.pp_cache_build",
                                          pp_build_caches, V, Ws)
+            if partial_update:
+                dMs = [torch.zeros_like(W) for W in Ws]
         if it % cfg.resprint == 0 or it == cfg.maxiter or it == init_iter:
             gn, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, cfg.lam, clock, plot, it, cfg.tol, 1,
@@ -352,9 +419,25 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
             if dtime > cfg.timelimit:
                 return Ws, dWs, "timelimit"
         Ws_pre, dWs_pre = Ws, dWs
-        Ws, dWs, grads = tracing.timed(
-            "cp.pp_sweep", pp_sweep, single, pair, Ws, W_init, dWs, cfg.lam,
-            cfg.ratio_step, cfg.rcond, solver=cfg.solver)
+        if not partial_update:
+            Ws, dWs, grads = tracing.timed(
+                "cp.pp_sweep", pp_sweep, single, pair, Ws, W_init, dWs,
+                cfg.lam, cfg.ratio_step, cfg.rcond, solver=cfg.solver)
+        else:
+            if Ms is None:
+                Ms = [torch.zeros_like(W) for W in Ws]
+                ms_set = (False,) * order
+                rel_perturbe = torch.zeros(
+                    order, dtype=torch.float32
+                    if Ws[0].dtype == torch.bfloat16 else Ws[0].dtype,
+                    device=Ws[0].device)
+            grads = state["grads"] or [torch.zeros_like(W) for W in Ws]
+            (Ws, dWs, dMs, Ms, ms_set, rel_perturbe,
+             grads) = tracing.timed(
+                "cp.pp_partupdate_sweep", pp_partupdate_sweep,
+                single, pair, Ws, W_init, dWs, dMs, Ms, ms_set,
+                rel_perturbe, grads, cfg.lam, cfg.ratio_step,
+                update_size=update_size, solver=cfg.solver)
         state["grads"] = grads
         state["iter"] = it + 1
     return Ws, dWs, "maxiter"
@@ -363,10 +446,10 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
 def als_cp_pp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
               partial_update: bool = False,
               clock: Optional[SweepClock] = None) -> CPResult:
-    """Outer DT <-> PP loop. Reference: alsCP_PP (als_CP.cxx:1082-1137)."""
-    if partial_update:
-        raise NotImplementedError(
-            "PP-partupdate (-pp 2) is not ported yet (ROADMAP A9)")
+    """Outer DT <-> PP loop. Reference: alsCP_PP (als_CP.cxx:1082-1137) /
+    alsCP_PP_partupdate (als_CP.cxx:1146-1207): with ``partial_update``
+    each PP sweep solves only the ``cfg.update_percentage`` share of the
+    modes that moved most (:func:`pp_partupdate_sweep`)."""
     Ws = list(Ws)
     V_norm_sq = contract.norm_sq(V)
     clock = clock or SweepClock()
@@ -381,7 +464,7 @@ def als_cp_pp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
             if reason in ("converged", "timelimit", "maxiter"):
                 break
         Ws, dWs, reason = _pp_sub(V, Ws, dWs, cfg, plot, clock, state,
-                                  V_norm_sq)
+                                  V_norm_sq, partial_update=partial_update)
         if reason in ("converged", "timelimit", "maxiter") or cfg.bench:
             break
     return CPResult(Ws, state["gradnorm"], state["diffV"], state["iter"],

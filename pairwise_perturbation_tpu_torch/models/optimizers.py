@@ -1,0 +1,529 @@
+"""Second-generation optimizer framework: CPD and its optimizer policies —
+port of ``pairwise_perturbation_tpu/models/optimizers.py``.
+
+- :class:`Decomposition`      <-> src/decomposition.h:8-36
+- :class:`CPD`                <-> src/CP.h / src/CP.cxx (the ``als`` loop)
+- :class:`CPSimpleOptimizer`  <-> src/optimizer/cp_simple_optimizer.{h,cxx}
+- :class:`CPDTOptimizer`      <-> src/optimizer/cp_dt_optimizer.{h,cxx}
+                                  (two-subtree dimension tree, 0.5 sweeps
+                                  a step)
+- :class:`CPMSDTOptimizer`    <-> src/optimizer/cp_msdt_optimizer.{h,cxx}
+                                  (multi-sweep DT, (N-1)/N sweeps a step,
+                                  arXiv:2010.12056)
+- :class:`CPDTLROptimizer`    <-> src/optimizer/cp_dt_lr_optimizer.{h,cxx}
+- :class:`CPMSDTLROptimizer`  <-> src/optimizer/cp_msdt_lr_optimizer.{h,cxx}
+
+Each step is eager PyTorch on V's device; the factor and state rotation
+stays on the host. The JAX package compiles one computation per
+(left_index, positions) signature; the port compiles nothing. Dense V only:
+the sparse chain top needs ``sparse.ttm_dense`` (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pairwise_perturbation_tpu_torch.models import cp
+from pairwise_perturbation_tpu_torch.ops import contract, dimtree, solve
+from pairwise_perturbation_tpu_torch.ops.sparse import SparseTensor
+from pairwise_perturbation_tpu_torch.utils import tracing
+from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile, SweepClock
+
+
+def rotation_indexes(left_index: int, order: int) -> Tuple[int, ...]:
+    """indexes = [left+1 .. order-1, 0 .. left-1]
+    (cp_msdt_optimizer.cxx:update_indexes)."""
+    return tuple(list(range(left_index + 1, order)) + list(range(left_index)))
+
+
+def chain_top(V, W_left, *, left_index: int):
+    """First-level contraction V x W[left_index], axes in indexes order +
+    rank (mttkrp_map_init, cp_msdt_optimizer.cxx:111-144), through
+    :meth:`dimtree.ChainTreeSweep.top` (the mid_contract kernel for an
+    eligible hold-out under ``config.use_kernels_first``)."""
+    order = V.ndim
+    sweep = dimtree.ChainTreeSweep(
+        V, [W_left if i == left_index else None for i in range(order)],
+        rotation_indexes(left_index, order), left_index)
+    return sweep.top()
+
+
+def chain_step(V, top, Ws, lam, *, left_index: int,
+               positions: Tuple[int, ...], solver: str = "chol"):
+    """Process tree positions in order: per-position MTTKRP from the chain
+    tree, S assembly, gradient, solve (CPDTOptimizer::step /
+    CPMSDTOptimizer::step). Returns (Ws_new, grads_by_position)."""
+    indexes = rotation_indexes(left_index, V.ndim)
+    sweep = dimtree.ChainTreeSweep(V, Ws, indexes, left_index, top=top)
+    grads = []
+    for pos in positions:
+        M = sweep.mttkrp(pos)
+        i = indexes[pos]
+        S = contract.hadamard_gram(sweep.factors, skip_mode=i, regul=lam)
+        grads.append(contract.gradsubprob(M, S, sweep.factors[i]))
+        sweep.factors[i] = solve.solve(M, S, method=solver)
+    return sweep.factors, grads
+
+
+def chain_step_lr(V, top, Ws, lam, old_W_lr, X=None, *, left_index: int,
+                  positions: Tuple[int, ...], solver: str, lr_pos: int,
+                  update_rank: int, lr_from_old: bool):
+    """Like :func:`chain_step`, but position ``lr_pos`` is solved as a
+    rank-``update_rank`` *update*: (U, s, VT) of dW = M pinv(S) - A with
+    A = ``old_W_lr`` (MSDT-LR) or the current factor (DT-LR), and
+    W <- A + U s VT (cp_dt_lr_optimizer.cxx:202-215,
+    cp_msdt_lr_optimizer.cxx:246-256). ``X``: the randomized SVD's test
+    matrix, None for the exact truncation. Returns (Ws_new, grads,
+    (U, s, VT))."""
+    indexes = rotation_indexes(left_index, V.ndim)
+    sweep = dimtree.ChainTreeSweep(V, Ws, indexes, left_index, top=top)
+    grads = []
+    lr_usv = None
+    for pos in positions:
+        M = sweep.mttkrp(pos)
+        i = indexes[pos]
+        S = contract.hadamard_gram(sweep.factors, skip_mode=i, regul=lam)
+        grads.append(contract.gradsubprob(M, S, sweep.factors[i]))
+        if pos == lr_pos:
+            A = old_W_lr if lr_from_old else sweep.factors[i]
+            U, s, VT = solve.rankR_update_cholesky(M, A, S, update_rank, X)
+            sweep.factors[i] = A + (U * s) @ VT
+            lr_usv = (U, s, VT)
+        else:
+            sweep.factors[i] = solve.solve(M, S, method=solver)
+    return sweep.factors, grads, lr_usv
+
+
+def lr_update_cache(V, cache, U, s, VT, *, left_index: int):
+    """cache + (V x_left (U s)) x VT: the low-rank refresh of a cached
+    first-level contraction (update_cached_tensor,
+    cp_dt_lr_optimizer.cxx:128-158 / cp_msdt_lr_optimizer.cxx:112-157),
+    O(s^N * update_rank) in place of O(s^N * R)."""
+    order = V.ndim
+    T, rem = contract.contract_mode_kr(V, tuple(range(order)), False,
+                                       U * s, left_index)
+    perm = [rem.index(m) for m in rotation_indexes(left_index, order)]
+    T = T.permute(perm + [len(rem)])
+    return cache + torch.tensordot(T, VT, dims=([T.ndim - 1], [0]))
+
+
+def chain_step_lr_fused(V, cache, U, s, VT, Ws, lam, old_W_lr, X=None, *,
+                        left_index: int, positions: Tuple[int, ...],
+                        solver: str, lr_pos: int, update_rank: int,
+                        lr_from_old: bool):
+    """The low-rank cache refresh, then :func:`chain_step_lr` on it. The
+    JAX package fuses the two into one computation so XLA can stream the
+    refreshed top into the first MTTKRP; eager PyTorch has nothing to
+    fuse, so this is plain composition. Returns (top, Ws_new, grads,
+    usv)."""
+    top = lr_update_cache(V, cache, U, s, VT, left_index=left_index)
+    Ws2, grads, usv = chain_step_lr(
+        V, top, Ws, lam, old_W_lr, X, left_index=left_index,
+        positions=positions, solver=solver, lr_pos=lr_pos,
+        update_rank=update_rank, lr_from_old=lr_from_old)
+    return top, Ws2, grads, usv
+
+
+def msdt_cycle(V, Ws, lam, *, lefts: Tuple[int, ...], solver: str = "chol"):
+    """One full MSDT rotation, the hold-outs ``lefts`` in turn (all
+    ``order`` modes, or the restricted rotation of ``min_holdout_size``):
+    the same as that many CPMSDTOptimizer.step() calls
+    (cp_msdt_optimizer.cxx:173-208). The JAX package fuses the rotation
+    into one device computation; here it is a host loop over the
+    hold-outs."""
+    order = V.ndim
+    grads = None
+    for left in lefts:
+        top = chain_top(V, Ws[left], left_index=left)
+        Ws, grads = chain_step(V, top, Ws, lam, left_index=left,
+                               positions=tuple(range(order - 1)),
+                               solver=solver)
+    return Ws, grads
+
+
+# ---------------------------------------------------------------------------
+# Decomposition / CPD
+# ---------------------------------------------------------------------------
+
+
+class Decomposition:
+    """Base decomposition holding V, the factor list and sizes/ranks
+    (src/decomposition.h:8-36)."""
+
+    def __init__(self, order: int, sizes, ranks):
+        self.order = order
+        self.sizes = [sizes] * order if np.isscalar(sizes) else list(sizes)
+        self.ranks = [ranks] * order if np.isscalar(ranks) else list(ranks)
+        self.V = None
+        self.W: Optional[List] = None
+
+    def init(self, V, W: Sequence):
+        if isinstance(V, SparseTensor):
+            raise NotImplementedError(
+                "the second-gen optimizers on a sparse V are not ported yet: "
+                "the sparse chain top needs sparse.ttm_dense (ROADMAP A13)")
+        assert V.ndim == self.order
+        for i in range(self.order):
+            assert V.shape[i] == self.sizes[i]
+            assert tuple(W[i].shape) == (self.sizes[i], self.ranks[i])
+        self.V = V
+        self.W = list(W)
+
+
+class CPOptimizer:
+    """Base optimizer: holds V, W and lambda (cp_als_optimizer.{h,cxx})."""
+
+    def __init__(self, order: int, rank: int):
+        self.order = order
+        self.rank = rank
+        self.V = None
+        self.W: Optional[List] = None
+        self.lam = 0.0
+        self.grads = None
+
+    def configure(self, V, W: List, lam: float = 0.0):
+        self.V = V
+        self.W = W
+        self.lam = lam
+        self.grads = None
+
+    def _lam(self, dtype) -> float:
+        """lambda rounded to ``dtype``, as the JAX package's steps take
+        it (V's dtype: bf16-stored V rounds it to bf16)."""
+        return float(torch.tensor(self.lam, dtype=torch.float64).to(dtype))
+
+    def step(self) -> float:
+        raise NotImplementedError
+
+
+class CPSimpleOptimizer(CPOptimizer):
+    """One sweep of exact per-mode MTTKRPs (cp_simple_optimizer.cxx:step):
+    ``cp.simple_sweep``, whose MTTKRPs of an order-3 float32 V are the
+    fused kernels (K1-K3) on the card."""
+
+    def step(self) -> float:
+        self.W, self.grads = cp.simple_sweep(
+            self.V, self.W, self._lam(self.W[0].dtype), solver="chol",
+            normalize=False)
+        return 1.0
+
+
+class CPMSDTOptimizer(CPOptimizer):
+    """Multi-sweep dimension tree: rotate left_index by -1 each step and
+    update the other N-1 modes (cp_msdt_optimizer.cxx).
+
+    Opt-in (``min_holdout_size > 0``, the JAX package's extension): hold
+    out only modes of size >= min_holdout_size. Holding out a tiny mode m
+    pays a first-level intermediate of ~|V|*R/s_m elements; every step
+    still updates order-1 modes, only the schedule changes, so this
+    departs from cp_msdt_optimizer.cxx and is off by default.
+    """
+
+    def __init__(self, order: int, rank: int, min_holdout_size: int = 0):
+        super().__init__(order, rank)
+        self.left_index = order  # the first update_indexes gives order-1
+        self.min_holdout_size = min_holdout_size
+        self.holdouts: Optional[Tuple[int, ...]] = None
+
+    def configure(self, V, W: List, lam: float = 0.0):
+        super().configure(V, W, lam)
+        eligible = tuple(m for m in range(self.order)
+                         if V.shape[m] >= self.min_holdout_size)
+        self.holdouts = eligible if eligible else tuple(range(self.order))
+
+    def _next_left(self) -> int:
+        self.left_index = self._peek_next_left()
+        return self.left_index
+
+    def _peek_next_left(self) -> int:
+        """The next hold-out of the (possibly restricted) rotation, without
+        committing it."""
+        order = self.order
+        if self.holdouts is None or len(self.holdouts) == order:
+            return (self.left_index + order - 1) % order
+        below = [m for m in self.holdouts if m < self.left_index]
+        return max(below) if below else max(self.holdouts)
+
+    def _cycle_lefts(self) -> Tuple[int, ...]:
+        """The hold-outs of one full rotation from the current state
+        (left_index is restored; :meth:`step_cycle` commits it)."""
+        saved = self.left_index
+        lefts = tuple(self._next_left()
+                      for _ in range(len(self.holdouts or range(self.order))))
+        self.left_index = saved
+        return lefts
+
+    def step(self) -> float:
+        order = self.order
+        left = self._next_left()
+        top = chain_top(self.V, self.W[left], left_index=left)
+        self.W, self.grads = chain_step(
+            self.V, top, self.W, self._lam(self.V.dtype), left_index=left,
+            positions=tuple(range(order - 1)), solver="chol")
+        return (order - 1) / order
+
+    def step_cycle(self) -> float:
+        """One full rotation per call (``run -device_loop 1``): the same
+        steps as :meth:`step` repeated, left_index ending where the
+        rotation's last step leaves it."""
+        lefts = self._cycle_lefts()
+        self.W, self.grads = msdt_cycle(self.V, self.W,
+                                        self._lam(self.V.dtype), lefts=lefts,
+                                        solver="chol")
+        self.left_index = lefts[-1]
+        return len(lefts) * (self.order - 1) / self.order
+
+
+class CPDTOptimizer(CPOptimizer):
+    """Two-subtree dimension tree: alternates a first subtree updating the
+    modes at positions special_index..N-2 of indexes1 and a second subtree
+    updating positions 0..special_index of indexes2; each step is 0.5
+    sweeps (cp_dt_optimizer.cxx)."""
+
+    def __init__(self, order: int, rank: int):
+        super().__init__(order, rank)
+        self.left_index1 = order - 1
+        self.left_index2 = (self.left_index1 + order - 1) % order
+        self.special_index = 0
+        self.first_subtree = True
+
+    def _positions(self) -> Tuple[int, ...]:
+        n = self.order - 1
+        if self.first_subtree:
+            return tuple(range(self.special_index, n))
+        return tuple(range(0, self.special_index + 1))
+
+    def step(self) -> float:
+        left = self.left_index1 if self.first_subtree else self.left_index2
+        top = chain_top(self.V, self.W[left], left_index=left)
+        self.W, self.grads = chain_step(
+            self.V, top, self.W, self._lam(self.V.dtype), left_index=left,
+            positions=self._positions(), solver="chol")
+        self.first_subtree = not self.first_subtree
+        return 0.5
+
+
+class _RandomSVD:
+    """The randomized SVD's test matrices, drawn from a seeded CPU
+    ``torch.Generator`` and moved to the factors' device (the JAX package
+    splits a ``jax.random`` key per step; torch cannot reproduce those
+    bits). Nothing is drawn for the exact truncation."""
+
+    def __init__(self, randomsvd: bool, seed: int):
+        self.randomsvd = randomsvd
+        self.gen = torch.Generator().manual_seed(int(seed))
+
+    def draw(self, rank: int, update_rank: int, like):
+        if not self.randomsvd:
+            return None
+        return torch.rand((rank, update_rank), generator=self.gen,
+                          dtype=like.dtype).to(like.device)
+
+
+class CPDTLROptimizer(CPDTOptimizer):
+    """DT with a low-rank update of the cached first-level contraction
+    (cp_dt_lr_optimizer.cxx). After warm-up, the big V x W contraction is
+    replaced by cache += V x_left (U s VT), with (U, s, VT) the rank-r
+    factorization of the last factor update."""
+
+    def __init__(self, order: int, rank: int, update_rank: int,
+                 randomsvd: bool = False, num_subiteration: int = 5,
+                 seed: int = 0):
+        super().__init__(order, rank)
+        self.update_rank = update_rank
+        self.randomsvd = randomsvd
+        self.num_subiteration = num_subiteration
+        self.count_subiteration = 0
+        self.low_rank_decomp = False
+        self.cached = {True: None, False: None}   # per-subtree caches
+        self.usv = None
+        self._rsvd = _RandomSVD(randomsvd, seed)
+
+    def _lr_kw(self, left, positions, lr_pos):
+        return dict(left_index=left, positions=positions, solver="chol",
+                    lr_pos=lr_pos, update_rank=self.update_rank)
+
+    def step(self) -> float:
+        order = self.order
+        left = self.left_index1 if self.first_subtree else self.left_index2
+        lam = self._lam(self.V.dtype)
+        positions = self._positions()
+        do_lr = self.count_subiteration >= 1
+        lr_pos = (positions[-1] if self.first_subtree else positions[0]) \
+            if do_lr else -1
+        refresh = self.low_rank_decomp and self.count_subiteration > 1
+        indexes = rotation_indexes(left, order)
+        if refresh:
+            # a refresh step is always an LR step too (count > 1 implies
+            # do_lr)
+            U, s, VT = self.usv
+            X = self._rsvd.draw(self.rank, self.update_rank, self.W[0])
+            top, self.W, self.grads, self.usv = chain_step_lr_fused(
+                self.V, self.cached[self.first_subtree], U, s, VT, self.W,
+                lam, self.W[indexes[lr_pos]], X, lr_from_old=False,
+                **self._lr_kw(left, positions, lr_pos))
+            self.cached[self.first_subtree] = top
+            self.low_rank_decomp = True
+        elif do_lr:
+            top = chain_top(self.V, self.W[left], left_index=left)
+            self.cached[self.first_subtree] = top
+            X = self._rsvd.draw(self.rank, self.update_rank, self.W[0])
+            self.W, self.grads, self.usv = chain_step_lr(
+                self.V, top, self.W, lam, self.W[indexes[lr_pos]], X,
+                lr_from_old=False, **self._lr_kw(left, positions, lr_pos))
+            self.low_rank_decomp = True
+        else:
+            top = chain_top(self.V, self.W[left], left_index=left)
+            self.cached[self.first_subtree] = top
+            self.W, self.grads = chain_step(
+                self.V, top, self.W, lam, left_index=left,
+                positions=positions, solver="chol")
+        if not self.first_subtree:
+            self.count_subiteration += 1
+        if (self.count_subiteration == self.num_subiteration
+                and not self.first_subtree):
+            # rotate special_index and reset the LR state
+            # (cp_dt_lr_optimizer.cxx:219-232)
+            self.special_index = (self.special_index + 1) % (order - 1)
+            self.count_subiteration = 0
+            self.low_rank_decomp = False
+            if self.special_index != 0:
+                self.left_index1 = (self.left_index1 + order - 1) % order
+                self.left_index2 = (self.left_index2 + order - 1) % order
+            else:
+                self.left_index1 = order - 1
+                self.left_index2 = (self.left_index1 + order - 1) % order
+        self.first_subtree = not self.first_subtree
+        return 0.5
+
+
+class CPMSDTLROptimizer(CPMSDTOptimizer):
+    """MSDT with per-mode cached first contractions and their low-rank
+    refresh (cp_msdt_lr_optimizer.cxx)."""
+
+    def __init__(self, order: int, rank: int, update_rank: int,
+                 randomsvd: bool = False, seed: int = 0,
+                 min_holdout_size: int = 0):
+        super().__init__(order, rank, min_holdout_size=min_holdout_size)
+        self.update_rank = update_rank
+        self.randomsvd = randomsvd
+        self.low_rank_decomp = False
+        self.is_cached = [False] * order
+        self.cached_tensors: List = [None] * order
+        self.old_W: List = [None] * order
+        self.usv = None
+        self._rsvd = _RandomSVD(randomsvd, seed)
+
+    def step(self) -> float:
+        order = self.order
+        left = self._next_left()
+        lam = self._lam(self.V.dtype)
+        positions = tuple(range(order - 1))
+        indexes = rotation_indexes(left, order)
+        # The low-rank update targets the NEXT hold-out: the usv made here
+        # refreshes that mode's cached chain top at the start of the next
+        # step, so both must refer to the same mode. In the full rotation
+        # that is indexes[positions[-1]] (cp_msdt_lr_optimizer.cxx:246-256);
+        # under the restricted rotation (min_holdout_size) it can be any
+        # position (JAX optimizers.py:500-512).
+        lr_mode = self._peek_next_left()
+        do_lr = lr_mode in indexes and self.is_cached[lr_mode]
+        refresh = self.low_rank_decomp and self.is_cached[left]
+        lr_kw = dict(left_index=left, positions=positions, solver="chol",
+                     lr_pos=indexes.index(lr_mode) if do_lr else -1,
+                     update_rank=self.update_rank, lr_from_old=True)
+        if refresh and do_lr:
+            U, s, VT = self.usv
+            X = self._rsvd.draw(self.rank, self.update_rank, self.W[0])
+            top, self.W, self.grads, self.usv = chain_step_lr_fused(
+                self.V, self.cached_tensors[left], U, s, VT, self.W, lam,
+                self.old_W[lr_mode], X, **lr_kw)
+            self.cached_tensors[left] = top
+            self.old_W[left] = self.W[left]
+            self.low_rank_decomp = True
+            return (order - 1) / order
+        if refresh:
+            U, s, VT = self.usv
+            top = lr_update_cache(self.V, self.cached_tensors[left], U, s,
+                                  VT, left_index=left)
+        else:
+            top = chain_top(self.V, self.W[left], left_index=left)
+            self.is_cached[left] = True
+        self.cached_tensors[left] = top
+        self.old_W[left] = self.W[left]
+        if do_lr:
+            X = self._rsvd.draw(self.rank, self.update_rank, self.W[0])
+            self.W, self.grads, self.usv = chain_step_lr(
+                self.V, top, self.W, lam, self.old_W[lr_mode], X, **lr_kw)
+            self.low_rank_decomp = True
+        else:
+            self.W, self.grads = chain_step(
+                self.V, top, self.W, lam, left_index=left,
+                positions=positions, solver="chol")
+            self.usv = None
+            self.low_rank_decomp = False
+        return (order - 1) / order
+
+
+class CPD(Decomposition):
+    """CP decomposition over an optimizer policy
+    (src/CP.cxx:111-187)."""
+
+    def __init__(self, order: int, sizes, rank, optimizer: CPOptimizer):
+        super().__init__(order, sizes, rank)
+        self.optimizer = optimizer
+        self.gradnorm = float("inf")
+        self.history: list = []
+
+    def init(self, V, W: Sequence, lam: float = 0.0):
+        super().init(V, W)
+        self.optimizer.configure(self.V, self.W, lam)
+
+    def als(self, tol: float, timelimit: float, maxsweep: int,
+            resprint: int, plot: Optional[PlotFile] = None,
+            macro: bool = False) -> bool:
+        """The ALS loop (src/CP.cxx:111-187). Logs a CSV row (its
+        iteration column is the float count of sweeps) every ``resprint``
+        steps, at the start and from ``maxsweep`` sweeps on; the exact
+        diagnostics run after a sync, in a window excluded from dtime.
+        With ``macro`` and an optimizer that has ``step_cycle`` (MSDT),
+        each step is a full rotation. Each step is a tracing scope
+        ``<Optimizer>.step`` (or ``.step_cycle``).
+
+        The JAX package also excludes steps that block the host beyond
+        50 ms, up to 3 per mode, as compiles; the port compiles nothing,
+        so every step counts toward dtime."""
+        V = self.V
+        V_norm_sq = contract.norm_sq(V)
+        clock = SweepClock()
+        opt = self.optimizer
+        macro = macro and hasattr(opt, "step_cycle")
+        fn = opt.step_cycle if macro else opt.step
+        scope = f"{type(opt).__name__}.{'step_cycle' if macro else 'step'}"
+        iters = 0
+        sweeps = 0.0
+        history = []
+        while int(sweeps) <= maxsweep:
+            if iters % resprint == 0 or sweeps >= maxsweep or sweeps == 0:
+                cp._sync()
+                with clock.exclude():
+                    gn, dV = tracing.timed(
+                        "cp.diagnostics", cp.cp_diagnostics, V_norm_sq, V,
+                        opt.W, opt._lam(opt.W[0].dtype))
+                    self.gradnorm, diffV = float(gn), float(dV)
+                dtime = clock.dtime()
+                if plot is not None:
+                    plot.row(V.shape[0], sweeps, self.gradnorm, tol, 0,
+                             diffV, dtime)
+                history.append(dict(sweeps=sweeps, gradnorm=self.gradnorm,
+                                    diffV=diffV, dtime=dtime))
+                if self.gradnorm < tol or dtime > timelimit:
+                    break
+            sweeps += tracing.timed(scope, fn)
+            self.W = opt.W
+            iters += 1
+        self.history = history
+        return self.gradnorm < tol

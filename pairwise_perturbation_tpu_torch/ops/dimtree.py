@@ -1,12 +1,18 @@
-"""Binary dimension tree for DT-ALS — port of the binary-tree half of
-``pairwise_perturbation_tpu/ops/dimtree.py`` (lines 30-128).
+"""Dimension trees for DT-ALS and the second-gen optimizers — port of
+``pairwise_perturbation_tpu/ops/dimtree.py``.
 
-Recursively halve the mode range; each node holds V contracted with all
-factors outside its range. Reference: ``Construct_Dimension_Tree``
-(common.cxx:225-270) + ``mttkrp_map_DT`` (common.cxx:20-133). Nodes are
-built lazily inside a per-sweep memo, so each sweep sees exactly the
-reference's cache-freshness semantics (a node built early in the sweep is
-*not* rebuilt after later factors update).
+1. **Binary dimension tree** (legacy engine): recursively halve the mode
+   range; each node holds V contracted with all factors outside its range.
+   Reference: ``Construct_Dimension_Tree`` (common.cxx:225-270) +
+   ``mttkrp_map_DT`` (common.cxx:20-133).
+2. **Chain (caterpillar) tree** (second-gen optimizers): after a
+   first-level contraction V x W[left_index], each node drops one
+   position. Reference: ``Construct_Subtree`` / ``Right_Subtree``
+   (cp_dt_optimizer.cxx:67-124).
+
+Nodes are built lazily inside a per-sweep memo, so each sweep sees exactly
+the reference's cache-freshness semantics (a node built early in the sweep
+is *not* rebuilt after later factors update).
 """
 
 from __future__ import annotations
@@ -95,3 +101,95 @@ class BinaryTreeSweep:
     def mttkrp(self, i: int):
         """M_i from the tree: leaf node (i, i) -> matrix (s_i, R)."""
         return self.node(i, i)
+
+
+# ---------------------------------------------------------------------------
+# Chain tree (second-gen DT / MSDT optimizers)
+# ---------------------------------------------------------------------------
+
+
+def chain_tree(n_positions: int):
+    """The caterpillar tree over *positions* 0..n_positions-1: (parent,
+    contract_pos) dicts keyed by position tuples. ``parent[node]`` is the
+    node it is contracted from; ``contract_pos[node]`` is the one position
+    whose factor that step applies (Construct_Subtree / Right_Subtree,
+    cp_dt_optimizer.cxx:67-124)."""
+    parent: Dict[Tuple[int, ...], Tuple[int, ...]] = {}
+    contract_pos: Dict[Tuple[int, ...], int] = {}
+
+    def construct(top: Tuple[int, ...]):
+        right(top)
+        child = top[:-1]
+        parent[child] = top
+        contract_pos[child] = top[-1]
+        if len(child) > 1:
+            construct(child)
+
+    def right(top: Tuple[int, ...]):
+        child = top[:-2] + (top[-1],)
+        parent[child] = top
+        contract_pos[child] = top[-2]
+        if len(child) > 1:
+            right(child)
+
+    construct(tuple(range(n_positions)))
+    return parent, contract_pos
+
+
+class ChainTreeSweep:
+    """Lazy node cache for the chain tree of a DT/MSDT optimizer step.
+
+    ``indexes[pos]`` maps tree positions to mode ids (the rotating
+    assignment of CPMSDTOptimizer::update_indexes). The top node is the
+    first-level contraction V x W[left_index] (mttkrp_map_init,
+    cp_msdt_optimizer.cxx:111-144); every other node contracts one more
+    factor. Node axes: the remaining positions' modes in *position order*,
+    then the rank axis. ``top`` presets the first level (the LR
+    optimizers' cached tensor, cp_dt_lr_optimizer.cxx:95-100).
+    """
+
+    def __init__(self, V, factors: Sequence, indexes: Sequence[int],
+                 left_index: int, top=None):
+        self.V = V
+        self.factors = list(factors)
+        self.indexes = list(indexes)
+        self.left_index = left_index
+        n = V.ndim - 1
+        self.parent, self.contract_pos = chain_tree(n)
+        self._top = tuple(range(n))
+        self._memo: Dict[Tuple[int, ...], object] = {}
+        if top is not None:
+            self._memo[self._top] = top
+
+    def _axes_of(self, node: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(self.indexes[p] for p in node)
+
+    def top(self):
+        """V contracted with W[left_index] through
+        :func:`contract.first_contraction`, so ``use_kernels_first`` sends
+        an eligible hold-out to the mid_contract kernel as the binary
+        tree's top-level child does; its axes (remaining modes ascending,
+        then rank) are permuted to position order, as a view."""
+        if self._top not in self._memo:
+            T, rem = contract.first_contraction(
+                self.V, self.factors[self.left_index], self.left_index)
+            perm = [rem.index(m) for m in self._axes_of(self._top)]
+            self._memo[self._top] = T.permute(perm + [len(rem)])
+        return self._memo[self._top]
+
+    def node(self, node: Tuple[int, ...]):
+        if node == self._top:
+            return self.top()
+        if node not in self._memo:
+            par = self.parent[node]
+            mode = self.indexes[self.contract_pos[node]]
+            # contract_mode_kr only looks axes up by mode id, so position
+            # order serves as well as ascending order
+            self._memo[node], _ = contract.contract_mode_kr(
+                self.node(par), self._axes_of(par), True,
+                self.factors[mode], mode)
+        return self._memo[node]
+
+    def mttkrp(self, pos: int):
+        """M of the mode at tree position ``pos`` (leaf node (pos,))."""
+        return self.node((pos,))

@@ -1,12 +1,20 @@
-"""R x R solves of CP-ALS — port of ``pairwise_perturbation_tpu/ops/solve.py``
-(lines 34-150). The Gram matrices S are tiny (R x R), so they are solved
-on the device with ``torch.linalg``.
+"""R x R solves and the low-rank kit of CP-ALS — port of
+``pairwise_perturbation_tpu/ops/solve.py`` (lines 34-150, 190-279). The
+Gram matrices S are tiny (R x R), so they are solved on the device with
+``torch.linalg``.
 
 - :func:`svd_solve`      <-> ``SVD_solve`` (common.cxx:710-725): W = M pinv(S)
                              via symmetric eigh (S is symmetric PSD).
 - :func:`svd_solve_mod`  <-> ``SVD_solve_mod`` (common.cxx:739-758): damped
                              PP solve.
 - :func:`cholesky_solve` <-> ``cholesky_solve`` (common.cxx:727-737).
+- :func:`randomized_svd` <-> ``randomized_svd`` (common.cxx:691-708); its
+                             uniform test matrix is an argument.
+- :func:`rankR_update_cholesky` / :func:`rankR_update_svd`
+                         <-> ``get_rankR_update_*`` (common.cxx:768-813):
+                             rank-r factorization of the factor update
+                             dW = M pinv(S) - A, for the LR optimizers.
+- :func:`gauss_seidel`   <-> ``Gauss_Seidel`` (common.cxx:840-868).
 
 None of them synchronizes with the host: where the JAX package branches
 with ``lax.cond`` the port selects with ``torch.where``.
@@ -118,3 +126,72 @@ def solve(M, S, method: str = "chol", rcond: Optional[float] = None):
     if method == "auto":
         return auto_solve(M, S, rcond)
     return svd_solve(M, S, rcond)
+
+
+def randomized_svd(A, r: int, X, n_iter: int = 1):
+    """Randomized range-finder truncated SVD (common.cxx:691-708).
+    Returns (U[m, r], s[r], VT[r, n]).
+
+    ``X`` is the (n, r) uniform test matrix. The JAX package draws it from
+    ``jax.random`` inside; torch cannot reproduce those bits, so callers
+    draw it (the optimizers from a seeded CPU ``torch.Generator``) and a
+    parity test can pass in the JAX package's draw."""
+    Q, _ = torch.linalg.qr(X.to(A.dtype))
+    for _ in range(n_iter):
+        # X = A^T A Q  (power iteration on the Gram)
+        Q, _ = torch.linalg.qr(A.T @ (A @ Q))
+    U, s, VT_small = truncated_svd(A @ Q, r)
+    return U, s, VT_small @ Q.T
+
+
+def truncated_svd(A, r: int):
+    """Exact truncated SVD. Tall matrices (m >= 4n, as the LR kit's dW of
+    shape (s_i, R)) take the Gram-eigh route: G = A^T A is n x n and
+    U = A V diag(1/sigma), the same leading factors, as the JAX package
+    computes them; the rest take ``torch.linalg.svd``. Column signs may
+    differ from the JAX package's; (U s) VT does not."""
+    m, n = A.shape
+    if m >= 4 * n:
+        lam, Q = torch.linalg.eigh(A.T @ A)
+        lam, Q = lam.flip(0)[:r], Q.flip(1)[:, :r]
+        floor = torch.finfo(A.dtype).eps * torch.clamp(lam[0], min=1e-30) * n
+        sigma = torch.sqrt(torch.clamp(lam, min=0.0))
+        inv = torch.where(lam > floor,
+                          1.0 / torch.clamp(sigma, min=1e-30),
+                          torch.zeros_like(sigma))
+        return (A @ Q) * inv[None, :], sigma, Q.T
+    U, s, VT = torch.linalg.svd(A, full_matrices=False)
+    return U[:, :r], s[:r], VT[:r, :]
+
+
+def rankR_update_cholesky(M, A, S, r: int, X=None):
+    """Rank-``r`` factorization (U, s, VT) of dW = M pinv(S) - A
+    (``get_rankR_update_cholesky``, common.cxx:768-786), dW computed by a
+    Cholesky solve of M - A S, then truncated: by :func:`randomized_svd`
+    with the test matrix ``X`` when one is given, else exactly."""
+    dW = cholesky_solve(M - A @ S, S)
+    if X is not None:
+        return randomized_svd(dW, r, X, n_iter=1)
+    return truncated_svd(dW, r)
+
+
+def rankR_update_svd(M, A, S, r: int, X=None):
+    """:func:`rankR_update_cholesky` whitened through the eigendecomposition
+    of S instead (common.cxx:788-813)."""
+    dW = (M - A @ S) @ _psd_pinv(S)
+    if X is not None:
+        return randomized_svd(dW, r, X, n_iter=1)
+    return truncated_svd(dW, r)
+
+
+def gauss_seidel(A, F, Gamma, maxits: int):
+    """Gauss-Seidel relaxation for A Gamma = F (common.cxx:840-868):
+    ``maxits`` times A <- A + (F - A Gamma) L^{-T}, with L the lower
+    triangle of Gamma, diagonal included (the JAX package's ``lax.scan``
+    is this loop)."""
+    L = torch.tril(Gamma)
+    for _ in range(maxits):
+        # solve X L^T = F - A Gamma  =>  L X^T = (F - A Gamma)^T
+        Xt = torch.linalg.solve_triangular(L, (F - A @ Gamma).T, upper=False)
+        A = A + Xt.T
+    return A

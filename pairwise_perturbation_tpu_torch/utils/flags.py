@@ -29,7 +29,8 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-tensor", default="p",
                    help="p | p2 | c | r | r2 (o1/o2 datasets not ported)")
     p.add_argument("-pp", type=int, default=0,
-                   help="0 DT, 1 PP (2 PP-partupdate not ported)")
+                   help="test_als: 0 DT, 1 PP, 2 PP-partupdate; "
+                        "run: 0 DT, 1 MSDT, 2 DT-LR, 3 MSDT-LR, 4 Simple")
     p.add_argument("-update_percentage_pp", type=float, default=1.0)
     p.add_argument("-dim", type=int, default=8)
     p.add_argument("-size", type=int, default=10)
@@ -37,7 +38,7 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-updaterank", type=int, default=1)
     p.add_argument("-randomsvd", type=int, default=0)
     p.add_argument("-issparse", type=int, default=0,
-                   help="1: COO sparse engine (test_als -model CP)")
+                   help="1: COO sparse engine (test_als -model CP -pp 0/1)")
     p.add_argument("-resprint", type=int, default=10)
     p.add_argument("-tol", type=float, default=1e-10,
                    help="relative tolerance; multiplied by ||V||")
@@ -63,11 +64,16 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-resume", default="",
                    help="resume from checkpoint: not ported")
     p.add_argument("-device_loop", type=int, default=0,
-                   help="device-resident phase machines: not ported; "
+                   help="run: >= 1 steps MSDT and MSDT-LR (-pp 1, 3) a "
+                        "full MSDT rotation per call (macro steps, as the "
+                        "JAX package's); test_als and pp_bench: the "
+                        "device-resident phase machines are not ported, "
                         "only 0 (host-driven phases) runs")
     p.add_argument("-tucker_subspace", type=int, default=-1)
     p.add_argument("-tucker_pp_skip", type=float, default=0.0)
-    p.add_argument("-msdt_min_holdout", type=int, default=0)
+    p.add_argument("-msdt_min_holdout", type=int, default=0,
+                   help="run MSDT(-LR): hold out only modes of size >= "
+                        "this (0 = reference rotation)")
     p.add_argument("-planner", type=int, default=1,
                    help="1 (default): binary-tree root split chosen by the "
                         "native traffic planner (native/planner.cpp); "

@@ -81,6 +81,12 @@ def stats() -> Dict[str, tuple]:
             for n in _times}
 
 
+def samples(name: str) -> List[float]:
+    """The seconds of each ``timed`` call of scope ``name``, in call
+    order."""
+    return list(_samples.get(name, ()))
+
+
 def reset() -> None:
     _times.clear()
     _counts.clear()

@@ -70,8 +70,9 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,step", [
-    (["run"], "A11"), (["pp_bench", "-model", "Tucker"], "A10"),
-    (["-model", "Tucker"], "A10"), (["-pp", "2"], "A9"),
+    (["run", "-issparse", "1"], "A13"),
+    (["pp_bench", "-model", "Tucker"], "A10"),
+    (["-model", "Tucker"], "A10"), (["run", "-mesh", "4"], "A15"),
     (["-issparse", "1", "-model", "Tucker"], "A13"), (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "A14"), (["-device_loop", "2"], "A14"),
     (["-layouts", "1"], "A16"),
@@ -214,3 +215,8 @@ def test_tracing_scopes():
     assert tracing.stats()["x"][0] == 1 and tracing.stats()["y"][0] == 1
     assert "timer" in tracing.report().splitlines()[0]
     tracing.reset()
+
+
+def test_cli_run_refuses_unknown_optimizer():
+    with pytest.raises(SystemExit, match="run takes -pp 0"):
+        cli.main(["run", "-pp", "5", "-device", "cpu"])

@@ -156,13 +156,6 @@ def test_sweeps_match_jax():
     assert _rel(float(dv_j), float(dv_t)) <= 1e-8
 
 
-def test_partial_update_not_ported():
-    V, R = _order3()
-    tV, tW = interop.from_numpy(V, _init(V, R), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcp.als_cp_pp(tV, tW, tcp.CPConfig(maxiter=2), partial_update=True)
-
-
 def test_init_factors_seeded():
     a = tcp.init_factors((3, 4, 5), 2, seed=7, dtype=torch.float64,
                           device="cpu")

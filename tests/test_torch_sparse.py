@@ -281,8 +281,8 @@ def test_cli_issparse_bf16_values_are_rounded(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,step", [
     (["test_als", "-model", "Tucker"], "A10"),
-    (["run"], "A11"),
-    (["test_als", "-pp", "2"], "A9"),
+    (["run"], "A13"),
+    (["test_als", "-pp", "2"], "no sparse engine"),
     (["test_als", "-mesh", "8"], "A15"),
 ])
 def test_cli_sparse_refusals_name_their_step(argv, step):
