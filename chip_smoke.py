@@ -110,6 +110,33 @@ traceback and exits nonzero:
    Every CSV checked; the step medians (tracing scopes
    ``<Optimizer>.step``) printed beside the card's name and power limit.
 
+9. Tucker (models/tucker.py, models/sparse_tucker.py), which reaches no
+   kernel in either package: every part asserts that no port kernel
+   launched and prints its ``tucker.*`` (``sparse_tucker.*``) scope
+   medians and peak memory beside the card's name and power limit.
+   9a. The coil-100 shape at its rank vector (3, 10, 10, 70), a seeded
+   low-Tucker-rank tensor plus 1% noise: HOSVD three times (mode 3 on
+   the randomized branch); Tucker-PP (pp_res_tol 0.1, AUTO extraction, 20
+   sweeps) with V in f64, f32 and stored in bf16, CSVs checked (finite,
+   PP rows), every run's fit held to HOSVD's by a float64 reconstruction
+   (no CSV's norm identity resolves the sweeps' gain here) and the f32
+   run to the f64 run (factor subspaces, residual); then bench.py's
+   timings: 10 DT sweeps at subspace_iters 0, 2 and AUTO, 5 cache builds
+   and 10 PP sweeps from one build, exact and AUTO.
+   9b. Time-lapse's shape (33, 1344, 1024, 9) and rank vector in the
+   port's own mode order, bench.py's uniform x 255 tensor: HOSVD, 10 DT
+   sweeps under AUTO and 10 with exact eigh.
+   9c. ``test_als -model Tucker`` through the CLI at 200^3 rank 10:
+   tensor r2 at ``-pp 0`` and ``-pp 1`` in f32 and ``-pp 1`` in f64 (all
+   20 sweeps, two PP phases or more), tensor c at ``-pp 1`` in f32 and
+   f64; CSVs checked; ``pp_bench -model Tucker`` at 512^3 rank 10,
+   maxiter 3: header, row kinds, medians.
+   9d. ``test_als -model Tucker -issparse 1 -pp 1`` on phase 6's Poisson
+   100^4 tensor at rank 1, f32 and f64, CSVs checked; sparse Tucker-PP
+   on phase 6b's sparse200_4_nnz1.6M tensor at rank 10, f32 and f64,
+   CSVs checked, then 5 cache builds and 10 PP sweeps timed.
+   ``--phases 9`` runs phases 1, 2 and 9 alone.
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1678,6 +1705,494 @@ def run_sparse_repeat(off_stats):
                     [c for c in range(len(csvs[0][0])) if c != dtime])
 
 
+TUCKER_HEADER = "[dim],[iter],[diffnorm],[tol],[pp_update],[diffV],[dtime]"
+TUCKER_PHASES = ("tucker.hosvd", "tucker.dt_sweep", "tucker.pp_cache_build",
+                 "tucker.pp_sweep", "tucker.diagnostics")
+# The reference's Tucker rank vectors of coil-100 (o1) and time-lapse (o2)
+# (test_ALS.cxx:366-380, as bench.py uses them). Time-lapse keeps its own
+# mode order here: the port does not permute modes for the TPU's tiling.
+COIL_TUCKER_RANKS = (3, 10, 10, 70)
+TIMELAPSE_SHAPE, TIMELAPSE_RANKS = (33, 1344, 1024, 9), (10, 100, 100, 5)
+# The CLI's 200^3 rank-10 runs (test_als -tensor r2, -pp_res_tol 0.3):
+# r2's fit leaves a residual the float32 norm identity resolves. -tol 0
+# asks for every sweep, but the reference's convergence test (diffnorm
+# <= tol) still ends a run whose diffnorm reaches exactly 0.0, which a
+# float32 run can; in float64 the r2 run takes all 20 sweeps, with PP
+# phases between DT phases.
+TUCKER_MAXITER = 20
+TUCKER_CLI = ["test_als", "-model", "Tucker", "-dim", "3", "-size", "200",
+              "-rank", "10", "-maxiter", str(TUCKER_MAXITER), "-resprint",
+              "1", "-pp_res_tol", "0.3", "-tol", "0"]
+TUCKER_BENCH_ARGS = ["pp_bench", "-model", "Tucker", "-tensor", "r", "-dim",
+                     "3", "-size", "512", "-rank", "10", "-maxiter", "3"]
+# Relative margins of float64 comparisons of two fits. A reconstruction
+# residual (direct_residual) is resolved to ~1e-12 of itself at the coil
+# shape. The CSV's diffV = sqrt(||V||^2 - ||core||^2) is resolved to ~1e-11
+# of itself at 200^3 (tensor c's float64 rows spread by 1e-11), but only
+# to ~1e-9 at the coil shape, whose ||V||^2 sums 354M terms.
+F64_RECON_MARGIN, F64_DIFFV_MARGIN = 1e-11, 1e-10
+# float32 against float64 Tucker-PP at the coil shape: the largest
+# principal angle between the factor subspaces (sin) and the residuals'
+# relative difference, both by float64 arithmetic.
+F32_SUBSPACE_TOL, F32_RESIDUAL_TOL = 1e-4, 1e-6
+
+
+def check_tucker_csv(rows, label, pp, fit=True, margin=0.0):
+    """Body rows of a Tucker CSV: the reference header, finite values, PP
+    rows present exactly when ``pp`` (unchecked when None) and, with
+    ``fit``, a diffV at the last row no larger than at the first, times
+    (1 + ``margin``); prints a summary line."""
+    if ",".join(rows[0]) != TUCKER_HEADER:
+        raise AssertionError(f"{label}: CSV header {rows[0]}")
+    body = [[float(x) for x in r] for r in rows[1:]]
+    if not body or not all(math.isfinite(x) for r in body for x in r):
+        raise AssertionError(f"{label}: CSV is empty or holds non-finite "
+                             "values")
+    n_pp = sum(1 for r in body if r[4] == 1)
+    diffV = [r[5] for r in body]
+    print(f"{label}: {len(body)} rows (last iter {body[-1][1]:g}), {n_pp} "
+          f"PP rows in {pp_phases(body)} PP phases, diffV {diffV[0]!r} -> "
+          f"{diffV[-1]!r} (min {min(diffV)!r}, max {max(diffV)!r})")
+    if pp is not None and bool(n_pp) != pp:
+        raise AssertionError(f"{label}: {n_pp} PP rows")
+    if fit and not diffV[-1] <= diffV[0] * (1.0 + margin):
+        raise AssertionError(f"{label}: diffV rose")
+    return body
+
+
+def pp_phases(body):
+    """The number of PP phases in a Tucker CSV's body: runs of PP rows."""
+    flags = [0] + [int(r[4]) for r in body]
+    return sum(1 for a, b in zip(flags, flags[1:]) if (a, b) == (0, 1))
+
+
+def direct_residual(V, Ws):
+    """||V - core x_i W_i|| with core = TTMc(V, W), by reconstruction in
+    float64 (V and the factors upcast): no cancellation, unlike the
+    diagnostics' norm identity, and no float32 rounding."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import contract
+    V = V.double()
+    Ws = [W.double() for W in Ws]
+    core = contract.ttmc(V, Ws)
+    return float(torch.linalg.vector_norm(
+        V - contract.ttmc(core, Ws, transpose=True)))
+
+
+def subspace_sin(A, B):
+    """The sine of the largest principal angle between the column spaces
+    of two factors, in float64: the norm of B's part outside A's span (A
+    re-orthonormalized, so a float32 factor's own rounding enters once,
+    not under a square root)."""
+    import torch
+    Q = torch.linalg.qr(A.double())[0]
+    B = B.double()
+    return float(torch.linalg.matrix_norm(B - Q @ (Q.T @ B), ord=2))
+
+
+def start_tucker_trace():
+    """Reset the tracing scopes, the kernels' launch counts and the peak
+    memory, and turn the scopes on."""
+    import torch
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    tracing.reset()
+    _bench.reset_launch_counts()
+    tracing.enable()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def tucker_report(label, smi, medians=None, names=TUCKER_PHASES):
+    """Print the scope medians (``names``) of the run traced since
+    start_tucker_trace (or ``medians``, {name: s}), its peak memory
+    beside the card's name and power limit, and fail if any port kernel
+    launched: the Tucker path reaches no kernel, in either package."""
+    import torch
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    tracing.enable(False)
+    calls = {}
+    if medians is None:
+        stats = tracing.stats()
+        medians = {n: stats[n][2] for n in names if n in stats}
+        calls = {n: tracing.samples(n) for n in medians}
+
+    def few(n):
+        # a median of up to 4 calls: the calls themselves
+        t = calls.get(n, ())
+        return " (calls " + ", ".join(f"{1e3 * x:.3f}" for x in t) + ")" \
+            if 0 < len(t) <= 4 else ""
+
+    print(f"  {label} ({smi}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, medians: "
+          + "; ".join(f"{n} {1e3 * t:.3f} ms{few(n)}"
+                      for n, t in medians.items()))
+    launched = {k: n for k, n in _bench.launch_counts().items() if n}
+    print(f"  port kernel launches: {launched or 'none'}")
+    if launched:
+        raise AssertionError(f"{label}: a port kernel launched on the "
+                             "Tucker path")
+    return medians
+
+
+def low_tucker_rank_tensor(shape, ranks, seed, noise=0.01):
+    """A seeded core times orthonormal factors on the card, plus Gaussian
+    noise of ``noise`` times the tensor's RMS (as the JAX package's
+    test_tucker_pp_runs_and_matches_dt builds its tensor)."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import contract
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    core = torch.randn(ranks, generator=gen, device="cuda")
+    Ws = [torch.linalg.qr(torch.randn((s, r), generator=gen,
+                                      device="cuda"))[0]
+          for s, r in zip(shape, ranks)]
+    V = contract.ttmc(core, Ws, transpose=True)
+    scale = noise * float(torch.linalg.vector_norm(V)) / math.sqrt(V.numel())
+    V.add_(torch.randn(shape, generator=gen, device="cuda").mul_(scale))
+    return V
+
+
+def timed_dt_sweeps(V, Ws, ranks, iters, n=10):
+    """bench.py's Tucker DT timing (bench.py:442-470): one untimed sweep,
+    then ``n`` chained sweeps (the factors their own sign references)
+    under the tucker.dt_sweep scope. Returns (median s, factors)."""
+    import statistics as st
+    from pairwise_perturbation_tpu_torch.models import tucker
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    Ws, _ = tucker.tucker_dt_sweep(V, list(Ws), list(Ws), ranks=ranks,
+                                   use_sign=True, subspace_iters=iters)
+    before = len(tracing.samples("tucker.dt_sweep"))
+    for _ in range(n):
+        Ws, _ = tracing.timed("tucker.dt_sweep", tucker.tucker_dt_sweep, V,
+                              Ws, Ws, ranks=ranks, use_sign=True,
+                              subspace_iters=iters)
+    return st.median(tracing.samples("tucker.dt_sweep")[before:]), Ws
+
+
+def run_tucker_coil(smi):
+    """Phase 9a: Tucker at the coil-100 shape with its rank vector, on a
+    seeded low-Tucker-rank tensor plus 1% noise. HOSVD three times (mode
+    3, 7200 > HOSVD_EXACT_EIGH_MAX, on the randomized branch); Tucker-PP
+    (pp_res_tol 0.1, AUTO extraction, 20 sweeps) with its CSV checked and
+    its fit held by a float64 reconstruction, V in f64, f32 and stored in
+    bf16, the f32 run held to the f64 run; then bench.py's timings: 10 DT
+    sweeps at subspace_iters 0, 2 and AUTO, 5 cache builds and 10 PP
+    sweeps from one build (exact and AUTO extraction). Returns {label:
+    median s}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import tucker
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+    ranks = COIL_TUCKER_RANKS
+    V = low_tucker_rank_tensor(COIL_SHAPE, ranks, seed=15)
+    vn = float(torch.linalg.vector_norm(V))
+    start_tucker_trace()
+    for _ in range(3):
+        core, Ws = tracing.timed("tucker.hosvd", tucker.hosvd, V, ranks)
+    rel = math.sqrt(max(vn ** 2 - float(torch.linalg.vector_norm(core)) ** 2,
+                        0.0)) / vn
+    print(f"hosvd {COIL_SHAPE} ranks {ranks}: relative residual {rel:.4e} "
+          "(1% noise); calls, ms: " + ", ".join(
+              f"{1e3 * t:.3f}" for t in tracing.samples("tucker.hosvd")))
+    if not rel < 0.05:
+        raise AssertionError("HOSVD missed the tensor's Tucker subspace")
+    out = {"coil hosvd": tucker_report("9a hosvd", smi)["tucker.hosvd"]}
+    factors, resid = {}, {}
+    for dtype in ("float64", "float32", "bfloat16"):
+        label = f"9a Tucker-PP coil {dtype} V"
+        Vd = V.to(getattr(torch, dtype))
+        start_tucker_trace()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "tucker_coil.csv")
+            plot = PlotFile(path, PlotFile.TUCKER_HEADER, echo=False)
+            t0 = time.perf_counter()
+            try:
+                res = tucker.als_tucker_pp(
+                    Vd, ranks, tucker.TuckerConfig(tol=0.0, pp_res_tol=0.1,
+                                                   maxiter=20, resprint=1),
+                    plot)
+                torch.cuda.synchronize()
+            finally:
+                plot.close()
+            wall = time.perf_counter() - t0
+            with open(path) as fh:
+                rows = list(csv.reader(fh))
+        print(f"{label}: {res.iters} sweeps in {wall:.3f} s")
+        # HOSVD fits this tensor to its noise: the sweeps gain ~4e-6 of
+        # the residual from a float32 HOSVD and ~1e-9 from a float64 one.
+        # No CSV resolves that (float32's norm identity moves diffV by 1e-1,
+        # float64's by ~1e-9 here, bf16's clamps to 0), so every run's fit
+        # is held by a float64 reconstruction instead: the run's factors
+        # fit no worse than HOSVD's, up to F64_RECON_MARGIN.
+        check_tucker_csv(rows, label, pp=True, fit=False)
+        start = direct_residual(Vd, tucker.hosvd(Vd, ranks)[1])
+        end = direct_residual(Vd, res.factors)
+        print(f"{label}: ||V - V^|| by float64 reconstruction {start!r} "
+              f"(HOSVD) -> {end!r}; the CSV's last diffV {res.diffV!r}")
+        if not end <= start * (1.0 + F64_RECON_MARGIN):
+            raise AssertionError(f"{label}: the fit got worse")
+        meds = tucker_report(label, smi)
+        out.update({f"coil PP run {dtype}: {n}": t for n, t in meds.items()})
+        factors[dtype], resid[dtype] = res.factors, end
+        del Vd
+    # the float32 run against the float64 run on the same tensor: the same
+    # factor subspaces and the same residual, to the stated tolerances
+    sins = [subspace_sin(a, b) for a, b in zip(factors["float32"],
+                                                factors["float64"])]
+    r32 = resid["float32"]
+    rel = abs(r32 - resid["float64"]) / resid["float64"]
+    print(f"9a coil float32 vs float64 Tucker-PP: largest principal angle "
+          f"sines by mode {', '.join(f'{x:.3e}' for x in sins)} (tol "
+          f"{F32_SUBSPACE_TOL:g}); residuals {r32!r} vs {resid['float64']!r}"
+          f", relative {rel:.3e} (tol {F32_RESIDUAL_TOL:g})")
+    if max(sins) > F32_SUBSPACE_TOL or rel > F32_RESIDUAL_TOL:
+        raise AssertionError("9a: float32 Tucker-PP left the float64 fit")
+    del factors
+    start_tucker_trace()
+    meds = {}
+    for iters in (0, 2, -1):
+        meds[f"tucker.dt_sweep subspace_iters={iters}"], Wt = \
+            timed_dt_sweeps(V, Ws, ranks, iters)
+        if iters == 0:
+            Wdt = Wt
+    for _ in range(5):
+        single, pair = tracing.timed("tucker.pp_cache_build",
+                                     tucker.tucker_build_caches, V, Wdt)
+    meds["tucker.pp_cache_build"] = statistics.median(
+        tracing.samples("tucker.pp_cache_build"))
+    zeros = [torch.zeros_like(w) for w in Wdt]
+    for iters in (0, -1):
+        cur, dc, _, _ = tucker.tucker_pp_sweep(single, pair, list(Wdt), Wdt,
+                                               zeros, ranks=ranks,
+                                               subspace_iters=iters)
+        before = len(tracing.samples("tucker.pp_sweep"))
+        for _ in range(10):
+            cur, dc, _, _ = tracing.timed(
+                "tucker.pp_sweep", tucker.tucker_pp_sweep, single, pair, cur,
+                Wdt, dc, ranks=ranks, subspace_iters=iters)
+        meds[f"tucker.pp_sweep subspace_iters={iters}"] = statistics.median(
+            tracing.samples("tucker.pp_sweep")[before:])
+    out.update({f"coil {n}": t for n, t in meds.items()})
+    tucker_report("9a coil sweeps (10 each; 5 cache builds)", smi, meds)
+    return out
+
+
+def run_tucker_timelapse(smi):
+    """Phase 9b: time-lapse's shape (33, 1344, 1024, 9) and rank vector,
+    in the port's mode order (no TPU layout permutation), on bench.py's
+    uniform x 255 tensor: HOSVD, then 10 DT sweeps under AUTO (bench.py's
+    timelapse_tucker_dt_sweep_seconds_auto) and 10 with exact eigh.
+    Returns {label: median s}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import tucker
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    V = torch.rand(TIMELAPSE_SHAPE, generator=gen, device="cuda").mul_(255.0)
+    start_tucker_trace()
+    core, Ws = tracing.timed("tucker.hosvd", tucker.hosvd, V,
+                             TIMELAPSE_RANKS)
+    meds = {"tucker.hosvd": tracing.samples("tucker.hosvd")[0]}
+    for iters in (-1, 0):
+        meds[f"tucker.dt_sweep subspace_iters={iters}"], _ = \
+            timed_dt_sweeps(V, Ws, TIMELAPSE_RANKS, iters)
+    tucker_report(f"9b time-lapse {TIMELAPSE_SHAPE} ranks {TIMELAPSE_RANKS}"
+                  " (one HOSVD, 10 sweeps each)", smi, meds)
+    return {f"time-lapse {n}": t for n, t in meds.items()}
+
+
+def run_tucker_cli(smi):
+    """Phase 9c: test_als -model Tucker through the CLI at 200^3 rank 10:
+    tensor r2 at -pp 0 and -pp 1 in float32 and at -pp 1 in float64 (all
+    20 sweeps, at least two PP phases), tensor c at -pp 1 in float32 and
+    float64 (HOSVD fits c: its float64 diffV stays flat, so the float32
+    run's moves are the norm identity's resolution); CSVs checked.
+    pp_bench -model Tucker at 512^3 rank 10, maxiter 3: its header, row
+    kinds and medians. Returns {label: median s}."""
+    from pairwise_perturbation_tpu_torch import cli
+    out = {}
+    for tensor, pp, dtype in (("r2", 0, "float32"), ("r2", 1, "float32"),
+                              ("r2", 1, "float64"), ("c", 1, "float32"),
+                              ("c", 1, "float64")):
+        label = (f"9c CLI test_als -model Tucker -tensor {tensor} -pp {pp} "
+                 f"200^3 rank 10 {dtype}")
+        start_tucker_trace()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "tucker_200.csv")
+            rc = cli.main(TUCKER_CLI + ["-tensor", tensor, "-pp", str(pp),
+                                        "-dtype", dtype, "-profile", "1",
+                                        "-quiet", "-filename", path])
+            with open(path) as fh:
+                rows = list(csv.reader(fh))
+        if rc != 0:
+            raise AssertionError(f"{label}: cli.main returned {rc}")
+        # tensor c in float32: the diffV rule is not resolved (see above)
+        body = check_tucker_csv(rows, label, pp=bool(pp),
+                                fit=(tensor, dtype) != ("c", "float32"),
+                                margin=F64_DIFFV_MARGIN if dtype == "float64"
+                                else 0.0)
+        full = body[-1][1] == TUCKER_MAXITER
+        if (tensor, dtype) == ("r2", "float64") and not (
+                full and pp_phases(body) >= 2):
+            raise AssertionError(f"{label}: {len(body)} rows, "
+                                 f"{pp_phases(body)} PP phases")
+        if not full and body[-1][2] != 0.0:
+            raise AssertionError(f"{label}: ended at iter {body[-1][1]:g} "
+                                 f"with diffnorm {body[-1][2]!r}")
+        meds = tucker_report(label, smi)
+        out.update({f"CLI {tensor} -pp {pp} {dtype}: {n}": t
+                    for n, t in meds.items()})
+    start_tucker_trace()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tucker_bench.csv")
+        rc = cli.main(TUCKER_BENCH_ARGS + ["-quiet", "-filename", path])
+        with open(path) as fh:
+            rows = list(csv.reader(fh))
+    kinds = [r[0] for r in rows[1:]]
+    times = [float(r[1]) for r in rows[1:]]
+    if rc != 0 or rows[0] != ["[timetype]", "[dtime]"] or kinds != (
+            ["[DTtime]"] * 3 + ["[PPfirst]", "[PPsecond]"] * 3) or not all(
+                math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"pp_bench -model Tucker: rc {rc}, header "
+                             f"{rows[0]}, rows {kinds}, times {times}")
+    meds = {k: statistics.median(t for kind, t in zip(kinds, times)
+                                 if kind == f"[{k}]") for k in BENCH_KINDS}
+    tucker_report("9c pp_bench -model Tucker 512^3 rank 10 (3 rows each)",
+                  smi, meds)
+    out.update({f"pp_bench 512^3 [{k}]": t for k, t in meds.items()})
+    return out
+
+
+SPARSE_TUCKER_PHASES = ("sparse_tucker.hosvd", "sparse_tucker.sweep",
+                        "sparse_tucker.pp_cache_build",
+                        "sparse_tucker.pp_sweep", "sparse_tucker.diagnostics")
+# Phase 6's folded Poisson tensor (100^4). Its multilinear rank is 2 in
+# every mode, so it is fitted at rank 1 (from rank 2 the fit is exact and
+# diffV is round-off).
+SPARSE_TUCKER_CLI = ["test_als", "-model", "Tucker", "-issparse", "1", "-pp",
+                     "1", "-tensor", "p", "-dim", "8", "-size", "10",
+                     "-rank", "1", "-maxiter", "20", "-resprint", "1",
+                     "-pp_res_tol", "0.1", "-tol", "0"]
+
+
+def run_sparse_tucker_cli(smi):
+    """Phase 9d: test_als -model Tucker -issparse 1 -pp 1 on the Poisson
+    100^4 tensor at rank 1 through the CLI, in float32 and float64, CSVs
+    checked (the diffV rule in float64 only: the sweeps improve HOSVD's
+    fit by ~1e-4, about the float32 norm identity's resolution). Returns
+    {label: median s}."""
+    from pairwise_perturbation_tpu_torch import cli
+    out = {}
+    for dtype in ("float32", "float64"):
+        label = f"9d CLI sparse Tucker -pp 1 Poisson 100^4 rank 1 {dtype}"
+        start_tucker_trace()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sparse_tucker.csv")
+            rc = cli.main(SPARSE_TUCKER_CLI + ["-dtype", dtype, "-profile",
+                                               "1", "-quiet", "-filename",
+                                               path])
+            with open(path) as fh:
+                rows = list(csv.reader(fh))
+        if rc != 0:
+            raise AssertionError(f"{label}: cli.main returned {rc}")
+        check_tucker_csv(rows, label, pp=True, fit=dtype == "float64",
+                         margin=F64_DIFFV_MARGIN)
+        meds = tucker_report(label, smi, names=SPARSE_TUCKER_PHASES)
+        out.update({f"sparse CLI {dtype}: {n}": t for n, t in meds.items()})
+    return out
+
+
+# Sparse Tucker at a real rank: phase 6b's sparse200_4_nnz1.6M tensor
+# (uniform nonzeros, no low multilinear rank) at rank 10 in every mode.
+# Its factors keep drifting, so pp_res_tol 0.3: at 0.1 a run of 20 sweeps
+# at this density may never enter PP.
+SPARSE_TUCKER_RANK, SPARSE_TUCKER_PP_RES_TOL = 10, 0.3
+
+
+def run_sparse_tucker_fixture(smi):
+    """Phase 9d at rank 10: sparse Tucker-PP (als_tucker_pp_sparse, 20
+    sweeps) on phase 6b's fixture in float32 and float64, CSVs checked
+    (finite, diffV falling: at this residual the norm identity resolves
+    the fit in both; PP rows printed, not required); then, from the
+    float32 run's factors, 5 cache builds and 10 PP sweeps from one build,
+    timed. Returns {label: median s}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import sparse_tucker, tucker
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+    ranks = (SPARSE_TUCKER_RANK,) * len(SPARSE_SHAPE)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st32, _ = random_coo(SPARSE_SHAPE, SPARSE_NNZ, 1, gen, seed=0)
+    name = f"sparse200_4_nnz1.6M rank {SPARSE_TUCKER_RANK}"
+    out, Ws = {}, None
+    for dtype in ("float32", "float64"):
+        label = f"9d sparse Tucker-PP {name} {dtype}"
+        st = sparse.SparseTensor(st32.indices,
+                                 st32.values.to(getattr(torch, dtype)),
+                                 st32.shape)
+        start_tucker_trace()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sparse_tucker_fixture.csv")
+            plot = PlotFile(path, PlotFile.TUCKER_HEADER, echo=False)
+            t0 = time.perf_counter()
+            try:
+                res = sparse_tucker.als_tucker_pp_sparse(
+                    st, ranks, tucker.TuckerConfig(
+                        tol=0.0, pp_res_tol=SPARSE_TUCKER_PP_RES_TOL,
+                        maxiter=20, resprint=1), plot)
+                torch.cuda.synchronize()
+            finally:
+                plot.close()
+            wall = time.perf_counter() - t0
+            with open(path) as fh:
+                rows = list(csv.reader(fh))
+        print(f"{label}: {res.iters} sweeps in {wall:.3f} s")
+        check_tucker_csv(rows, label, pp=None, margin=F64_DIFFV_MARGIN
+                         if dtype == "float64" else 0.0)
+        meds = tucker_report(label, smi, names=SPARSE_TUCKER_PHASES)
+        out.update({f"sparse {name} {dtype}: {n}": t
+                    for n, t in meds.items()})
+        Ws = Ws or res.factors
+        del st
+    start_tucker_trace()
+    for _ in range(5):
+        single, pair = tracing.timed(
+            "sparse_tucker.pp_cache_build",
+            sparse_tucker.sparse_tucker_build_caches, st32, Ws)
+    cur, dc, _, _ = tucker.tucker_pp_sweep(
+        single, pair, list(Ws), Ws, [torch.zeros_like(w) for w in Ws],
+        ranks=ranks, subspace_iters=0)
+    for _ in range(10):
+        cur, dc, _, _ = tracing.timed(
+            "sparse_tucker.pp_sweep", tucker.tucker_pp_sweep, single, pair,
+            cur, Ws, dc, ranks=ranks, subspace_iters=0)
+    meds = tucker_report(f"9d {name} float32 (5 cache builds, 10 PP sweeps "
+                         "from one)", smi, names=SPARSE_TUCKER_PHASES)
+    out.update({f"sparse {name} timed: {n}": t for n, t in meds.items()})
+    return out
+
+
+def run_tucker(smi):
+    """Phase 9 (9a-9d); prints every median it measured on one line."""
+    meds = {}
+    phase("9a. Tucker at the coil-100 shape, ranks (3, 10, 10, 70): HOSVD, "
+          "Tucker-PP f64, f32 and bf16 V, timed DT and PP sweeps")
+    meds.update(run_tucker_coil(smi))
+    phase("9b. Tucker at time-lapse's shape (33, 1344, 1024, 9), ranks "
+          "(10, 100, 100, 5), natural mode order: timed DT sweeps")
+    meds.update(run_tucker_timelapse(smi))
+    phase("9c. CLI test_als -model Tucker at 200^3 (r2 -pp 0, -pp 1, -pp 1 "
+          "f64; c -pp 1 f32, f64), pp_bench -model Tucker at 512^3")
+    meds.update(run_tucker_cli(smi))
+    phase("9d. sparse CLI test_als -model Tucker -issparse 1 -pp 1, "
+          "Poisson 100^4 rank 1, f32 and f64; sparse Tucker-PP on "
+          "sparse200_4_nnz1.6M at rank 10, f32 and f64, timed")
+    meds.update(run_sparse_tucker_cli(smi))
+    meds.update(run_sparse_tucker_fixture(smi))
+    print(f"Tucker medians, ms ({smi}): " + "; ".join(
+        f"{k} {1e3 * t:.3f}" for k, t in meds.items()))
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -1715,17 +2230,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
                     help="run only phases 1, 2 and these kernel phases "
-                         f"(comma-separated, of {', '.join(KERNEL_PHASES)})"
+                         f"(comma-separated, of {', '.join(KERNEL_PHASES)},"
+                         " and 9 for Tucker)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
     args = ap.parse_args(argv)
     if args.phases is not None:
         names = args.phases.split(",")
-        unknown = [n for n in names if n not in KERNEL_PHASES]
+        unknown = [n for n in names if n not in KERNEL_PHASES and n != "9"]
         if unknown:
             ap.error(f"unknown phases {unknown}")
-        smi = run_kernel_phases(names)
+        smi = run_kernel_phases([n for n in names if n != "9"])
+        if "9" in names:
+            run_tucker(smi)
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -1803,6 +2321,7 @@ def main(argv=None) -> int:
     print(f"run step medians, ms ({smi}): " + "; ".join(
         f"{label}: {scope} {1e3 * med:.3f}"
         for label, (scope, med) in medians.items()))
+    run_tucker(smi)
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]

@@ -1,12 +1,19 @@
 """Command-line entry points of the port — the counterpart of
 ``pairwise_perturbation_tpu/cli.py`` and of the reference's binaries:
 
-- ``test_als`` (``./test_ALS``, test_ALS.cxx; JAX cli.py:140-348): CP,
-  dense or sparse. -pp 0 DT-ALS, -pp 1 PP with DT preconditioning, -pp 2
+- ``test_als`` (``./test_ALS``, test_ALS.cxx; JAX cli.py:182-409). CP,
+  dense or sparse: -pp 0 DT-ALS, -pp 1 PP with DT preconditioning, -pp 2
   PP-partupdate (each PP sweep solves the ``-update_percentage_pp`` share
   of the modes that moved most), host-driven phases. ``-issparse 1`` runs
   the COO engine (models/sparse_cp.py) on V's nonzeros instead: plain ALS
   sweeps with -pp 0, PP with plain-ALS preconditioning with -pp 1.
+  ``-model Tucker`` (models/tucker.py): -pp 0 DT-ALS from HOSVD, any
+  other -pp Tucker-PP; ``-tucker_subspace`` picks the factor extraction
+  (-1 AUTO, 0 exact eigh, k subspace iterations) and ``-tucker_pp_skip``
+  the quiet-mode skip of PP sweeps; the CSV has ``[diffnorm]`` in place
+  of ``[gradnorm]``. With ``-issparse 1`` (models/sparse_tucker.py):
+  -pp 0 sparse HOOI, -pp 1 sparse Tucker-PP, both from a randomized
+  sparse HOSVD.
 - ``run`` (``./run``, run.cxx; JAX cli.py:411-466): the second-gen CPD
   with -pp 0 DT, 1 MSDT, 2 DT-LR, 3 MSDT-LR, 4 Simple
   (models/optimizers.py), on dense V. ``-device_loop 1`` steps MSDT (and
@@ -14,14 +21,16 @@
   (``step_cycle``); ``-msdt_min_holdout``,
   ``-updaterank``, ``-randomsvd`` and ``-lambda`` as in the JAX package;
   ``-seed`` seeds the factors and the randomized SVD's draws.
-- ``pp_bench`` (``./pp_bench``, pp_bench.cxx:277-348; JAX cli.py:468-517)
-  for CP: ``[timetype],[dtime]`` rows, ``[DTtime]`` (one DT sweep),
-  ``[PPfirst]`` (a PP cache build and the first PP sweep) and
+- ``pp_bench`` (``./pp_bench``, pp_bench.cxx:277-348; JAX cli.py:468-551)
+  for CP or Tucker: ``[timetype],[dtime]`` rows, ``[DTtime]`` (one DT
+  sweep), ``[PPfirst]`` (a PP cache build and the first PP sweep) and
   ``[PPsecond]`` (the next PP sweep on those caches), ``-maxiter`` of each
-  kind, every one from the same initial factors.
+  kind, every one from the same initial factors (Tucker: HOSVD's).
 
     python -m pairwise_perturbation_tpu_torch.cli test_als -model CP \\
         -tensor r -pp 1 -dim 3 -size 200 -rank 10 -maxiter 40 -filename out.csv
+    python -m pairwise_perturbation_tpu_torch.cli test_als -model Tucker \\
+        -tensor r -pp 1 -dim 3 -size 200 -rank 10 -maxiter 20 -filename t.csv
     python -m pairwise_perturbation_tpu_torch.cli run -tensor r -pp 1 \\
         -dim 3 -size 200 -rank 10 -maxiter 20 -filename run.csv
     python -m pairwise_perturbation_tpu_torch.cli pp_bench -model CP \\
@@ -59,19 +68,11 @@ def _unsupported(args, cmd):
         ]
     elif cmd == "pp_bench":
         checks = [
-            (args.model != "CP", "pp_bench -model Tucker is not ported yet "
-             "(ROADMAP A10); the port's pp_bench has -model CP"),
             (bool(args.issparse), "pp_bench has no sparse engine "
              "(-issparse 1), in the JAX package either"),
         ]
     else:
         checks = [
-            (bool(args.issparse) and args.model != "CP",
-             "-model Tucker -issparse 1 (sparse Tucker) is not ported yet: "
-             "it waits for Tucker (ROADMAP A10) and then the Tucker half of "
-             "A13"),
-            (args.model != "CP",
-             "-model Tucker is not ported yet (ROADMAP A10)"),
             (bool(args.issparse) and args.pp not in (0, 1),
              "-issparse 1 takes -pp 0 or 1: -pp 2 (PP-partupdate) has no "
              "sparse engine, in the JAX package either"),
@@ -157,6 +158,61 @@ def _dense(args, V, device):
     return X.to(torch.bfloat16) if args.dtype == "bfloat16" else X
 
 
+def _tucker_ranks(args, order: int):
+    """Tucker ranks: the reference's vectors for the coil-100 (o1) and
+    time-lapse (o2) datasets (test_ALS.cxx:366-380; their loaders wait
+    for ROADMAP A16), else -rank in every mode."""
+    if args.tensor == "o1":
+        return (3, 10, 10, 70)
+    if args.tensor == "o2":
+        return (10, 100, 100, 5)
+    return (args.rank,) * order
+
+
+def _test_als_tucker(args, V, Vnorm, device) -> int:
+    """test_als -model Tucker (JAX cli.py:255-291, 351-409), with the
+    CSV's TUCKER_HEADER. Dense: -pp 0 runs DT-ALS (als_tucker), any other
+    -pp Tucker-PP (als_tucker_pp), both from HOSVD. -issparse 1: -pp 0
+    sparse HOOI, -pp 1 sparse Tucker-PP, from the randomized sparse
+    HOSVD."""
+    from pairwise_perturbation_tpu_torch.models import sparse_tucker, tucker
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+
+    t0 = time.perf_counter()
+    if args.issparse:
+        # the sparse Tucker engine takes no extraction options (JAX
+        # cli.py:383-388): exact eigh, no quiet-mode skip
+        X = _sparse_tensor(args, V, device)
+        cfg = tucker.TuckerConfig(tol=args.tol * Vnorm,
+                                  pp_res_tol=args.pp_res_tol,
+                                  maxiter=args.maxiter,
+                                  timelimit=args.timelimit,
+                                  resprint=args.resprint)
+        solve = (sparse_tucker.als_tucker_sparse,
+                 sparse_tucker.als_tucker_pp_sparse)[args.pp]
+    else:
+        X = _dense(args, V, device)
+        cfg = tucker.TuckerConfig(tol=args.tol * Vnorm,
+                                  pp_res_tol=args.pp_res_tol,
+                                  maxiter=args.maxiter,
+                                  timelimit=args.timelimit,
+                                  resprint=args.resprint,
+                                  subspace_iters=args.tucker_subspace,
+                                  pp_quiet_frac=args.tucker_pp_skip)
+        solve = tucker.als_tucker if args.pp == 0 else tucker.als_tucker_pp
+    plot = PlotFile(args.filename, PlotFile.TUCKER_HEADER,
+                    echo=not args.quiet)
+    try:
+        res = solve(X, _tucker_ranks(args, X.ndim), cfg, plot)
+    finally:
+        plot.close()
+    if not args.quiet:
+        print(f"\nIter = {res.iters} Final Diff norm {res.diffnorm:E}")
+        if not args.issparse:
+            print(f"experiment took {time.perf_counter() - t0:.6f} seconds")
+    return 0
+
+
 def cmd_test_als(args) -> int:
     from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
@@ -167,6 +223,8 @@ def cmd_test_als(args) -> int:
     Vnorm = float(np.linalg.norm(V.ravel()))  # of the f32 values, unrounded
     if not args.quiet:
         print(f"Vnorm= {Vnorm}")
+    if args.model == "Tucker":
+        return _test_als_tucker(args, V, Vnorm, device)
     if args.issparse:
         X = _sparse_tensor(args, V, device)
         solve = (sparse_cp.als_cp_sparse, sparse_cp.als_cp_pp_sparse)[args.pp]
@@ -316,10 +374,59 @@ def pp_bench_cp(V, W0, lam, magni, maxiter, split=None, plot=None):
     return last
 
 
+def pp_bench_tucker(V, ranks, maxiter, plot=None):
+    """The Tucker body of pp_bench (JAX cli.py:520-551), from HOSVD's
+    factors W0: one untimed DT sweep, then ``maxiter`` [DTtime] rows of
+    one DT sweep each (W0 as factors and sign references, exact eigh);
+    one untimed cache build, then ``maxiter`` pairs of rows: [PPfirst] a
+    cache build and the first PP sweep from zero dWs, [PPsecond] the next
+    PP sweep on those caches. Each window ends in a device synchronize;
+    rows go to ``plot`` (a PlotFile, or None). Returns the factors each
+    row kind ended with, at its last row."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import tucker
+
+    def row(kind, seconds):
+        if plot is not None:
+            plot.bench_row(kind, seconds)
+
+    ranks = tuple(ranks)
+    last = {}
+    _, W0 = tucker.hosvd(V, ranks)
+    tucker.tucker_dt_sweep(V, list(W0), W0, ranks=ranks, use_sign=True)
+    _synced(V)
+    for _ in range(maxiter):
+        t0 = time.perf_counter()
+        Ws, _ = tucker.tucker_dt_sweep(V, list(W0), W0, ranks=ranks,
+                                       use_sign=True)
+        _synced(V)
+        row("DTtime", time.perf_counter() - t0)
+        last["DTtime"] = Ws
+    tucker.tucker_build_caches(V, list(W0))
+    _synced(V)
+    for _ in range(maxiter):
+        t0 = time.perf_counter()
+        single, pair = tucker.tucker_build_caches(V, list(W0))
+        W_init = list(W0)
+        dWs = [torch.zeros_like(w) for w in W0]
+        Ws, dWs, _, _ = tucker.tucker_pp_sweep(single, pair, list(W0),
+                                               W_init, dWs, ranks=ranks)
+        _synced(V)
+        t1 = time.perf_counter()
+        row("PPfirst", t1 - t0)
+        Ws2, _, _, _ = tucker.tucker_pp_sweep(single, pair, Ws, W_init, dWs,
+                                              ranks=ranks)
+        _synced(V)
+        row("PPsecond", time.perf_counter() - t1)
+        last["PPfirst"], last["PPsecond"] = Ws, Ws2
+    return last
+
+
 def cmd_pp_bench(args) -> int:
-    """Per-sweep timing of CP (pp_bench.cxx:277-348): [DTtime] rows from
+    """Per-sweep timing (pp_bench.cxx:277-348): [DTtime] rows from
     1-sweep DT runs, then [PPfirst]/[PPsecond] from 1-sweep PP runs, all
-    from identical factors, as the JAX package's ``cmd_pp_bench``."""
+    from identical factors, as the JAX package's ``cmd_pp_bench``: CP
+    from -seed's factors, Tucker from HOSVD's."""
     from pairwise_perturbation_tpu_torch.models import cp
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
@@ -327,13 +434,17 @@ def cmd_pp_bench(args) -> int:
     _print_banner(args)
     V, dtype = _synthetic(args)
     X = _dense(args, V, device)
-    W0 = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
-                         device=device)
-    split = _planned_split(args, X.shape)
     plot = PlotFile(args.filename, PlotFile.BENCH_HEADER,
                     echo=not args.quiet)
     try:
-        pp_bench_cp(X, W0, args.lam, args.magni, args.maxiter, split, plot)
+        if args.model == "Tucker":
+            pp_bench_tucker(X, _tucker_ranks(args, X.ndim), args.maxiter,
+                            plot)
+        else:
+            W0 = cp.init_factors(X.shape, args.rank, seed=args.seed,
+                                 dtype=dtype, device=device)
+            pp_bench_cp(X, W0, args.lam, args.magni, args.maxiter,
+                        _planned_split(args, X.shape), plot)
     finally:
         plot.close()
     return 0

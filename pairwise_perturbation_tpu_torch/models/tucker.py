@@ -1,0 +1,517 @@
+"""Tucker decomposition: HOSVD init, HOOI, dimension-tree ALS and
+pairwise-perturbation ALS with SVD sign-fixing — port of the host-driven
+half of ``pairwise_perturbation_tpu/models/tucker.py`` (lines 1-625).
+
+- :func:`hosvd`         <-> ``hosvd`` / ``get_factor_matrices`` /
+                            ``get_core_tensor`` (als_Tucker.cxx:12-70)
+- :func:`als_tucker`    <-> ``alsTucker`` (HOOI, als_Tucker.cxx:120-176) and
+                            ``alsTucker_DT`` (als_Tucker.cxx:240-424)
+- :func:`als_tucker_pp` <-> ``alsTucker_PP`` = ``alsTucker_DT_sub`` <->
+                            ``alsTucker_PP_sub`` with the tol_init *= 0.9
+                            decay (als_Tucker.cxx:476-962)
+
+A factor update takes the leading r_i left singular vectors of the mode-i
+unfolding of Y = TTMc(V, W, skip=i) through a Gram matrix and its eigh,
+on the smaller side of the unfolding. Column signs are aligned with the
+previous factors so that PP's dW perturbations mean something
+(als_Tucker.cxx:632-643, 874-885). Diagnostics use ||V - core x W||^2 =
+||V||^2 - ||core||^2 (orthonormal W, core = TTMc(V, W)) instead of a
+reconstruction (als_Tucker.cxx:296-311).
+
+Each sweep is eager PyTorch on the tensors' device and the DT <-> PP
+phase machine runs on the host, as in models/cp.py: no compile warm-up,
+no relay round-trip calibration. Where the JAX package branches on the
+device (``lax.cond`` in :func:`tucker_pp_sweep`) the port branches on the
+host, and reads the device only when the branch can go the other way.
+Every ``jax.random`` draw is an argument here (the randomized HOSVD's
+starting bases), drawn by default from seeded CPU ``torch.Generator``s.
+The JAX package's ``mesh_layout`` (ROADMAP A15) and its device-resident
+and fused phase loops (A14) are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pairwise_perturbation_tpu_torch.models import cp as cpm
+from pairwise_perturbation_tpu_torch.ops import contract, dimtree, solve
+from pairwise_perturbation_tpu_torch.utils import tracing
+from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile, SweepClock
+
+
+# After each PP phase the restart tolerance tol_init shrinks by this factor
+# while it is above the floor (als_Tucker.cxx:947-948).
+TOL_INIT_DECAY = 0.9
+TOL_INIT_FLOOR = 5e-3
+
+
+@dataclass
+class TuckerConfig:
+    tol: float = 1e-10
+    pp_res_tol: float = 1e-2
+    maxiter: int = 250
+    timelimit: float = 5e3
+    resprint: int = 1
+    # Factor extraction: -1 = AUTO (warm-started subspace iteration where
+    # the eigh side is large, see _resolve_subspace_iters; exact eigh
+    # otherwise), 0 = always exact (reference semantics), > 0 = that many
+    # subspace iterations.
+    subspace_iters: int = -1
+    # Quiet-mode extraction skip inside PP sweeps (tucker_pp_sweep); 0 =
+    # off, the reference's semantics and the default.
+    pp_quiet_frac: float = 0.0
+
+
+@dataclass
+class TuckerResult:
+    factors: List
+    core: object
+    diffnorm: float
+    diffV: float
+    iters: int
+    converged: bool
+    history: list = field(default_factory=list)
+
+
+class TuckerBinaryTreeSweep:
+    """Lazy binary-tree TTMc cache: node (lo, hi) is V with every mode
+    outside [lo, hi] contracted with its factor (axis positions kept).
+    Mirrors ``ttmc_map_DT`` (als_Tucker.cxx:178-230), top-level nodes
+    built from V."""
+
+    def __init__(self, V, factors: Sequence):
+        self.V = V
+        self.factors = list(factors)
+        self.order = V.ndim
+        self.parent = dimtree.binary_parent_map(self.order)
+        self.priority = contract.contraction_priority(V.shape)
+        self._memo: Dict[Tuple[int, int], object] = {}
+
+    def node(self, lo: int, hi: int):
+        key = (lo, hi)
+        if key in self._memo:
+            return self._memo[key]
+        plo, phi = self.parent[key]
+        T = self.V if (plo, phi) == (0, self.order - 1) \
+            else self.node(plo, phi)
+        to_contract = [m for m in range(plo, phi + 1) if not lo <= m <= hi]
+        for m in contract.order_by_priority(to_contract, self.priority):
+            T = contract.ttmc_contract_mode(T, self.factors[m], m)
+        self._memo[key] = T
+        return T
+
+    def ttmc(self, i: int):
+        """Y_i: every mode but i contracted."""
+        return self.node(i, i)
+
+
+# ---------------------------------------------------------------------------
+# Sweeps
+# ---------------------------------------------------------------------------
+
+
+def _topk_subspace(G, r: int, Q0, iters: int):
+    """Top eigenpairs of the PSD ``G`` by subspace iteration from the
+    start basis ``Q0``, then Rayleigh-Ritz. Returns (W[m, q], lam[q])
+    descending, q = Q0's width (the caller keeps r of them)."""
+    Q, _ = torch.linalg.qr(G @ Q0)
+    for _ in range(max(iters - 1, 0)):
+        Q, _ = torch.linalg.qr(G @ Q)
+    B = Q.T @ (G @ Q)
+    Wk, lam = solve.truncated_eigh(B, B.shape[0])
+    return Q @ Wk, lam
+
+
+# AUTO thresholds (subspace_iters == -1): exact eigh below a Gram side of
+# 256, two warm-started iterations at and above it, with the basis kept
+# overdetermined (2r <= side). PP sweeps perturb the Y their warm basis
+# came from, so they take one iteration from a side of 64.
+AUTO_SUBSPACE_MIN_SIDE = 256
+AUTO_SUBSPACE_ITERS = 2
+PP_AUTO_SUBSPACE_MIN_SIDE = 64
+PP_AUTO_SUBSPACE_ITERS = 1
+
+
+def _resolve_subspace_iters(subspace_iters: int, side: int, r: int,
+                            pp: bool = False) -> int:
+    """The AUTO sentinel (-1) as a per-mode number of iterations: the
+    subspace path for large eigh sides, exact eigh (0) otherwise; ``pp``
+    takes the PP-phase thresholds."""
+    if subspace_iters >= 0:
+        return subspace_iters
+    min_side = PP_AUTO_SUBSPACE_MIN_SIDE if pp else AUTO_SUBSPACE_MIN_SIDE
+    iters = PP_AUTO_SUBSPACE_ITERS if pp else AUTO_SUBSPACE_ITERS
+    if side >= min_side and 2 * r <= side:
+        return iters
+    return 0
+
+
+def _factor_from_Y(Y, i: int, r: int, sign_ref=None, warm=None,
+                   subspace_iters: int = 0, pp: bool = False):
+    """Leading r left singular vectors of the mode-i unfolding A (s_i, m)
+    of Y, from a Gram matrix and its eigh (JAX tucker.py:185-234):
+
+    - r <= m < s_i: the small side, G = A^T A (m x m), U = A W
+      diag(1/sigma), with 1/sigma zeroed below 1e-12 of the largest
+      eigenvalue (near-null directions would otherwise scale rounding
+      noise into garbage columns);
+    - otherwise (r > m included): the mode side, G = A A^T, whose
+      orthonormal completion supplies any columns past m.
+
+    With ``subspace_iters`` (resolved by :func:`_resolve_subspace_iters`)
+    > 0 and a ``warm`` basis the eigh is warm-started subspace iteration.
+    Column signs are fixed, then matched to ``sign_ref`` when given."""
+    s_i = Y.shape[i]
+    m = Y.numel() // s_i
+    side = m if r <= m < s_i else s_i
+    subspace_iters = _resolve_subspace_iters(subspace_iters, side, r, pp)
+    fast = subspace_iters > 0 and warm is not None
+    if r <= m < s_i:
+        A = Y.movedim(i, 0).reshape(s_i, m)
+        G = A.T @ A
+        if fast and r < m:
+            W, lam = _topk_subspace(G, r, A.T @ warm, subspace_iters)
+        else:
+            W, lam = solve.truncated_eigh(G, r)
+        floor = 1e-12 * torch.clamp(lam[0], min=1e-30)
+        inv_sigma = torch.where(lam > floor,
+                                torch.rsqrt(torch.maximum(lam, floor)),
+                                torch.zeros_like(lam))
+        U = (A @ W) * inv_sigma[None, :]
+    else:
+        G = contract.mode_gram(Y, i)
+        if fast and r < s_i:
+            U, _ = _topk_subspace(G, r, warm, subspace_iters)
+        else:
+            U, _ = solve.truncated_eigh(G, r)
+    U = solve.fix_sign_columns(U)
+    if sign_ref is not None:
+        U = solve.sign_match(U, sign_ref)
+    return U
+
+
+def tucker_dt_sweep(V, Ws, sign_refs, *, ranks: Tuple[int, ...],
+                    use_sign: bool, subspace_iters: int = 0):
+    """One DT Tucker sweep: per mode the tree's TTMc, Gram, eigh and sign
+    fix; the core from the last mode's Y (als_Tucker.cxx:342-408,
+    568-645). ``sign_refs`` are the warm bases (and the sign references
+    with ``use_sign``). Returns (Ws_new, core)."""
+    order = V.ndim
+    sweep = TuckerBinaryTreeSweep(V, Ws)
+    Y_end = None
+    for i in range(order):
+        Y = sweep.ttmc(i)
+        if i == order - 1:
+            Y_end = Y
+        ref = sign_refs[i] if use_sign else None
+        sweep.factors[i] = _factor_from_Y(Y, i, ranks[i], ref,
+                                          warm=sign_refs[i],
+                                          subspace_iters=subspace_iters)
+    Ws = sweep.factors
+    return Ws, contract.ttmc_contract_mode(Y_end, Ws[-1], order - 1)
+
+
+def tucker_hooi_sweep(V, Ws, *, ranks: Tuple[int, ...]):
+    """One plain HOOI sweep (alsTucker body, als_Tucker.cxx:148-163): a
+    full TTMc per mode. Returns (Ws_new, core)."""
+    Ws = list(Ws)
+    for i in range(V.ndim):
+        Ws[i] = _factor_from_Y(contract.ttmc(V, Ws, skip_mode=i), i,
+                               ranks[i])
+    return Ws, contract.ttmc(V, Ws, skip_mode=-1)
+
+
+def tucker_build_caches(V, Ws):
+    """Tucker PP caches (als_Tucker.cxx:744-760)."""
+    return contract.build_ttmc_caches(V, Ws)
+
+
+def tucker_pp_sweep(single, pair, Ws, W_init, dWs, quiet_tol: float = 0.0,
+                    age: int = 0, *, ranks: Tuple[int, ...],
+                    subspace_iters: int = 0):
+    """One PP Tucker sweep (als_Tucker.cxx:823-891): per mode the
+    corrected TTMc from the caches, the factor update (AUTO resolved with
+    the PP thresholds, warm-started from ``W_init``), the sign fix
+    against ``W_init`` and the cumulative dW. Returns (Ws_new, dWs_new,
+    core, stationary).
+
+    Quiet-mode skip: with ``quiet_tol`` > 0 and ``age`` > 0 (not the
+    first sweep after a cache build), a mode whose other factors have all
+    drifted less than ``quiet_tol`` (relative norm, at the sweep's start)
+    since the build keeps its factor and computes no TTMc or extraction;
+    the last mode's TTMc is always computed, for the core. ``stationary``
+    (a Python bool) says every mode was skipped. The JAX package decides
+    this with ``lax.cond`` on the device; here it is a host branch, and
+    the drift vector is read (once) only when a mode can be quiet."""
+    order = len(Ws)
+    Ws, dWs = list(Ws), list(dWs)
+    quiet = [False] * order
+    if quiet_tol > 0 and age > 0:
+        rel = torch.stack([
+            torch.linalg.vector_norm(d)
+            / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
+            for d, w in zip(dWs, Ws)]).cpu().numpy()
+        tol = rel.dtype.type(quiet_tol)
+        for i in range(order):
+            quiet[i] = bool(np.max(np.where(np.arange(order) == i, 0, rel))
+                            < tol)
+    Y_end = None
+    for i in range(order):
+        if i == order - 1 or not quiet[i]:
+            Y = contract.pp_correct_ttmc(single[i], pair, dWs, i)
+            if i == order - 1:
+                Y_end = Y
+        if not quiet[i]:
+            Ws[i] = _factor_from_Y(Y, i, ranks[i], W_init[i], warm=W_init[i],
+                                   subspace_iters=subspace_iters, pp=True)
+        dWs[i] = Ws[i] - W_init[i]
+    core = contract.ttmc_contract_mode(Y_end, Ws[-1], order - 1)
+    return Ws, dWs, core, all(quiet)
+
+
+def tucker_diagnostics(V_norm_sq, V, Ws, core_prev_norm):
+    """(core, core norm, diffnorm, diffV), diffV^2 = ||V||^2 - ||core||^2
+    (orthonormal factors)."""
+    core = contract.ttmc(V, Ws, skip_mode=-1)
+    cn = torch.linalg.vector_norm(core)
+    diffnorm = torch.abs(cn - core_prev_norm)
+    diffV = torch.sqrt(torch.clamp(V_norm_sq - cn * cn, min=0.0))
+    return core, cn, diffnorm, diffV
+
+
+# ---------------------------------------------------------------------------
+# HOSVD
+# ---------------------------------------------------------------------------
+
+
+# Exact eigh up to this Gram side; above it a randomized, 2x oversampled
+# subspace iteration (4 iterations), from which HOOI self-corrects.
+HOSVD_EXACT_EIGH_MAX = 4096
+# The randomized start basis of mode i is drawn from seed HOSVD_SEED + i,
+# as the JAX package keys it jax.random.PRNGKey(17 + i).
+HOSVD_SEED = 17
+
+
+def hosvd_draw(shape, dtype, mode: int):
+    """The port's (s_i, q) standard-normal start basis of mode ``mode``,
+    from a CPU ``torch.Generator`` seeded with HOSVD_SEED + mode (the
+    same numbers on every device)."""
+    gen = torch.Generator().manual_seed(HOSVD_SEED + mode)
+    return torch.randn(shape, generator=gen, dtype=dtype)
+
+
+def hosvd(V, ranks: Sequence[int], Q0s: Optional[Sequence] = None):
+    """HOSVD initialization (als_Tucker.cxx:66-70; JAX tucker.py:371-394).
+    Returns (core, factors).
+
+    Mode i's factor is the top r_i eigenvectors of its Gram matrix: by
+    eigh where s_i <= HOSVD_EXACT_EIGH_MAX or 2 r_i >= s_i, else by
+    :func:`_topk_subspace` (4 iterations) from an (s_i, 2 r_i) normal
+    start basis, ``Q0s[i]`` when given (a parity test passes the JAX
+    package's draw), else :func:`hosvd_draw`'s."""
+    ranks = tuple(int(r) for r in ranks)
+    Ws = []
+    for i in range(V.ndim):
+        G = contract.mode_gram(V, i)
+        s_i = V.shape[i]
+        q = min(2 * ranks[i], s_i)
+        if s_i > HOSVD_EXACT_EIGH_MAX and q < s_i:
+            Q0 = Q0s[i] if Q0s is not None else hosvd_draw((s_i, q),
+                                                           G.dtype, i)
+            U, _ = _topk_subspace(G, ranks[i], Q0.to(G.device, G.dtype),
+                                  iters=4)
+            U = U[:, :ranks[i]]
+        else:
+            U, _ = solve.truncated_eigh(G, ranks[i])
+        Ws.append(solve.fix_sign_columns(U))
+    return contract.ttmc(V, Ws, skip_mode=-1), Ws
+
+
+# ---------------------------------------------------------------------------
+# Drivers
+# ---------------------------------------------------------------------------
+
+
+def _diag_and_log(V_norm_sq, V, Ws, core_prev_norm, clock, plot, it, tol,
+                  pp_flag, history):
+    """Exact diagnostics in an excluded window, one CSV row. Queued sweep
+    work is synced before the window opens, so it counts toward dtime."""
+    cpm._sync()
+    with clock.exclude():
+        core, cn, diffnorm, diffV = tracing.timed(
+            "tucker.diagnostics", tucker_diagnostics,
+            V_norm_sq, V, Ws, core_prev_norm)
+        cn, diffnorm, diffV = float(cn), float(diffnorm), float(diffV)
+    dtime = clock.dtime()
+    if plot is not None:
+        plot.row(V.shape[0], it, diffnorm, tol, pp_flag, diffV, dtime)
+    history.append(dict(iter=it, diffnorm=diffnorm, diffV=diffV, dtime=dtime,
+                        pp=pp_flag))
+    return core, cn, diffnorm, diffV, dtime
+
+
+def _logged(it: int, cfg: TuckerConfig) -> bool:
+    """Whether iteration ``it`` logs a diagnostics row."""
+    return (it % cfg.resprint == 0 and it != 0) or it == 1 \
+        or it == cfg.maxiter
+
+
+def _init(V, ranks, Ws):
+    """(core, factors): HOSVD (timed) when ``Ws`` is None, else the given
+    factors and their core."""
+    if Ws is None:
+        return tracing.timed("tucker.hosvd", hosvd, V, ranks)
+    Ws = list(Ws)
+    return contract.ttmc(V, Ws, skip_mode=-1), Ws
+
+
+def als_tucker(V, ranks, cfg: TuckerConfig,
+               plot: Optional[PlotFile] = None,
+               Ws: Optional[List] = None, use_tree: bool = True,
+               clock: Optional[SweepClock] = None) -> TuckerResult:
+    """Tucker ALS from HOSVD (test_ALS.cxx:386-395): DT sweeps with
+    ``use_tree`` (alsTucker_DT, als_Tucker.cxx:240-424), plain HOOI
+    sweeps without (alsTucker, als_Tucker.cxx:120-176)."""
+    ranks = tuple(int(r) for r in ranks)
+    V_norm_sq = contract.norm_sq(V)
+    core, Ws = _init(V, ranks, Ws)
+    clock = clock or SweepClock()
+    history: list = []
+    core_prev_norm = torch.linalg.vector_norm(core)
+    diffnorm, diffV = float("inf"), float("inf")
+    it = 0
+    converged = False
+    while it <= cfg.maxiter:
+        if _logged(it, cfg):
+            core, core_prev_norm, diffnorm, diffV, dtime = _diag_and_log(
+                V_norm_sq, V, Ws, core_prev_norm, clock, plot, it, cfg.tol, 0,
+                history)
+            if diffnorm < cfg.tol:
+                converged = True
+                break
+            if dtime > cfg.timelimit:
+                break
+        if use_tree:
+            Ws, core = tracing.timed(
+                "tucker.dt_sweep", tucker_dt_sweep, V, Ws, Ws, ranks=ranks,
+                use_sign=False, subspace_iters=cfg.subspace_iters)
+        else:
+            Ws, core = tracing.timed("tucker.hooi_sweep", tucker_hooi_sweep,
+                                     V, Ws, ranks=ranks)
+        it += 1
+    return TuckerResult(Ws, core, diffnorm, diffV, it, converged, history)
+
+
+def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
+    """alsTucker_DT_sub (als_Tucker.cxx:476-669). The phase starts from a
+    zero W_prev, which is both the first sweep's sign reference (a zero
+    reference negates every column, solve.sign_match) and its warm basis
+    (under AUTO, a side of 256 or more starts from qr(G @ 0)), as in the
+    JAX package (tucker.py:479, 497-498)."""
+    order = V.ndim
+    W_prev = [torch.zeros_like(W) for W in Ws]
+    while state["iter"] <= cfg.maxiter:
+        it = state["iter"]
+        if _logged(it, cfg):
+            core, cn, diffnorm, diffV, dtime = _diag_and_log(
+                V_norm_sq, V, Ws, state["core_prev_norm"], clock, plot, it,
+                cfg.tol, 0, state["history"])
+            state.update(core=core, core_prev_norm=cn, diffnorm=diffnorm,
+                         diffV=diffV)
+            if diffnorm < cfg.tol:
+                return Ws, dWs, "converged"
+            if dtime > cfg.timelimit:
+                return Ws, dWs, "timelimit"
+        Ws_new, core = tracing.timed(
+            "tucker.dt_sweep", tucker_dt_sweep, V, Ws, W_prev, ranks=ranks,
+            use_sign=True, subspace_iters=cfg.subspace_iters)
+        state["core"] = core
+        dWs = [W - Wp for W, Wp in zip(Ws_new, W_prev)]
+        W_prev = list(Ws_new)
+        Ws = Ws_new
+        ratios = cpm.factor_norm_ratios(Ws, dWs).cpu().numpy()
+        state["iter"] = it + 1
+        if int(np.sum(np.abs(ratios) < state["tol_init"])) == order:
+            return Ws, dWs, "quiet"
+    return Ws, dWs, "maxiter"
+
+
+def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
+    """alsTucker_PP_sub (als_Tucker.cxx:679-896): a cache build at the
+    phase's first sweep, PP sweeps until a factor drifts past tol_init
+    (restart), the quiet-skip stationarity exit, convergence or the
+    limits."""
+    init_iter = state["iter"]
+    W_init = single = pair = None
+    build_it = init_iter
+    while state["iter"] <= cfg.maxiter:
+        it = state["iter"]
+        ratios = cpm.factor_norm_ratios(Ws, dWs).cpu().numpy()
+        num_dw_break = int(np.sum(np.abs(ratios) > state["tol_init"]))
+        if it == init_iter or num_dw_break > 0:
+            if num_dw_break > 0:
+                return Ws, dWs, "restart"
+            W_init = list(Ws)
+            dWs = [torch.zeros_like(W) for W in Ws]
+            build_it = it
+            single, pair = tracing.timed("tucker.pp_cache_build",
+                                         tucker_build_caches, V, Ws)
+        if _logged(it, cfg) or it == init_iter:
+            core, cn, diffnorm, diffV, dtime = _diag_and_log(
+                V_norm_sq, V, Ws, state["core_prev_norm"], clock, plot, it,
+                cfg.tol, 1, state["history"])
+            state.update(core=core, core_prev_norm=cn, diffnorm=diffnorm,
+                         diffV=diffV)
+            if diffnorm < cfg.tol:
+                return Ws, dWs, "converged"
+            if dtime > cfg.timelimit:
+                return Ws, dWs, "timelimit"
+            if it == cfg.maxiter:
+                return Ws, dWs, "maxiter"
+        Ws, dWs, core, stationary = tracing.timed(
+            "tucker.pp_sweep", tucker_pp_sweep, single, pair, Ws, W_init,
+            dWs, cfg.pp_quiet_frac * state["tol_init"], it - build_it,
+            ranks=ranks, subspace_iters=cfg.subspace_iters)
+        state["core"] = core
+        state["iter"] = it + 1
+        if cfg.pp_quiet_frac and stationary:
+            # every mode skipped: this cache's PP fixed point is reached
+            return Ws, dWs, "restart"
+    return Ws, dWs, "maxiter"
+
+
+def als_tucker_pp(V, ranks, cfg: TuckerConfig,
+                  plot: Optional[PlotFile] = None,
+                  Ws: Optional[List] = None,
+                  clock: Optional[SweepClock] = None) -> TuckerResult:
+    """The outer Tucker DT <-> PP loop with the tol_init decay (x0.9 while
+    above the 5e-3 floor) after each PP phase (alsTucker_PP,
+    als_Tucker.cxx:906-962)."""
+    ranks = tuple(int(r) for r in ranks)
+    V_norm_sq = contract.norm_sq(V)
+    core, Ws = _init(V, ranks, Ws)
+    clock = clock or SweepClock()
+    state = dict(iter=0, core=core,
+                 core_prev_norm=torch.linalg.vector_norm(core),
+                 diffnorm=float("inf"), diffV=float("inf"),
+                 tol_init=cfg.pp_res_tol, history=[])
+    dWs = [torch.zeros_like(W) for W in Ws]
+    reason = None
+    while state["diffnorm"] > cfg.tol and state["iter"] <= cfg.maxiter:
+        Ws, dWs, reason = _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot,
+                                         clock, state, V_norm_sq)
+        if reason in ("converged", "timelimit", "maxiter"):
+            break
+        Ws, dWs, reason = _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock,
+                                         state, V_norm_sq)
+        if reason in ("converged", "timelimit", "maxiter"):
+            break
+        if state["tol_init"] > TOL_INIT_FLOOR:
+            state["tol_init"] *= TOL_INIT_DECAY
+    return TuckerResult(Ws, state["core"], state["diffnorm"], state["diffV"],
+                        state["iter"], reason == "converged",
+                        state["history"])

@@ -1,4 +1,4 @@
-"""Tensor-contraction primitives for CP-ALS — port of the CP half of
+"""Tensor-contraction primitives for CP and Tucker ALS — port of
 ``pairwise_perturbation_tpu/ops/contract.py``.
 
 - :func:`mttkrp`            <-> ``KhatriRao_contract`` (common.cxx:931-997)
@@ -13,6 +13,9 @@
 - :func:`cp_residual_norm`  <-> the diffV diagnostic (als_CP.cxx:474-479)
                                 via the norm identity
 - :func:`normalize_factors` <-> ``Normalize`` (common.cxx:644-689)
+- :func:`ttmc` / :func:`ttmc_contract_mode` <-> ``TTMc`` (als_Tucker.cxx:76-110)
+- :func:`build_ttmc_caches` <-> ``Build_ttmc_map`` (als_Tucker.cxx:426-466)
+- :func:`mode_gram`         <-> ``unroll_tensor_contraction`` (common.cxx:205-223)
 
 Functions are plain and eager on the tensors' own device. Where the JAX
 package writes one multi-operand einsum and lets opt_einsum choose the
@@ -33,9 +36,10 @@ import torch
 
 from pairwise_perturbation_tpu_torch import config
 
-# Mode axes use lowercase letters; the rank axis is uppercase.
+# Mode axes use lowercase letters; rank axes are uppercase.
 _MODES = string.ascii_lowercase
 _RANK = "Z"
+_RANK2 = "Y"
 
 
 def _einsum(spec, *ops):
@@ -371,3 +375,106 @@ def normalize_factors(factors: Sequence):
     norms = [torch.linalg.vector_norm(W) for W in factors]
     target = torch.prod(torch.stack(norms)) ** (1.0 / len(factors))
     return [W * (target / n) for W, n in zip(factors, norms)]
+
+
+# ---------------------------------------------------------------------------
+# Tucker primitives
+# ---------------------------------------------------------------------------
+
+
+def ttmc_contract_mode(T, factor, axis: int, transpose: bool = False):
+    """Contract one mode of ``T`` with a factor, keeping axis positions:
+    ``factor`` is (s, r) and the axis of length s becomes length r (the
+    reverse with ``transpose``). One step of ``TTMc``
+    (als_Tucker.cxx:95-108). With bf16 ``T`` (V itself) the factor is
+    rounded to bf16 too, by :func:`_einsum`'s rule."""
+    letters = _MODES[:T.ndim]
+    f_spec = (letters[axis] + _RANK) if not transpose \
+        else (_RANK + letters[axis])
+    out_spec = letters[:axis] + _RANK + letters[axis + 1:]
+    return _einsum(f"{letters},{f_spec}->{out_spec}", T, factor)
+
+
+def ttmc(V, factors: Sequence, skip_mode: int = -1, transpose: bool = False):
+    """Tensor-times-matrix chain over every mode except ``skip_mode``
+    (-1 contracts them all: the core). With ``transpose`` the factors map
+    rank -> size (reconstruction, als_Tucker.cxx:303).
+
+    One factor at a time in :func:`contraction_priority` order, where the
+    JAX package writes one einsum. That einsum rounds every factor to
+    bf16 when V is bf16 (contract.py:54-78), so here every factor is
+    rounded before the chain, as :func:`mttkrp` does; the dimension-tree
+    and cache chains (:func:`ttmc_contract_mode` step by step) round only
+    the first."""
+    if V.dtype == torch.bfloat16:
+        factors = [W.to(torch.bfloat16).float() for W in factors]
+    T = V
+    modes = (m for m in range(V.ndim) if m != skip_mode)
+    for m in order_by_priority(modes, contraction_priority(V.shape)):
+        T = ttmc_contract_mode(T, factors[m], m, transpose)
+    return T
+
+
+def build_ttmc_caches(V, factors: Sequence):
+    """Tucker PP caches: pair tensors (modes i, j uncontracted) and single
+    tensors (mode i uncontracted), axis positions preserved (contracted
+    axes rank-sized). Every pair and then every single, as
+    ``Build_ttmc_map`` (als_Tucker.cxx:744-760), each a chain in
+    :func:`contraction_priority` order memoized on its contracted prefix
+    (JAX contract.py:632-663)."""
+    order = V.ndim
+    priority = contraction_priority(V.shape)
+    memo: Dict[Tuple[int, ...], object] = {(): V}
+
+    def get(key: Tuple[int, ...]):
+        if key not in memo:
+            memo[key] = ttmc_contract_mode(get(key[:-1]), factors[key[-1]],
+                                           key[-1])
+        return memo[key]
+
+    pair = {}
+    for i in range(order):
+        for j in range(i + 1, order):
+            pair[(i, j)] = get(order_by_priority(
+                (m for m in range(order) if m not in (i, j)), priority))
+    single = {i: get(order_by_priority(
+        (m for m in range(order) if m != i), priority))
+        for i in range(order)}
+    return single, pair
+
+
+def pp_correct_ttmc(single_i, pair, dWs: Sequence, i: int):
+    """First-order PP-corrected TTMc of mode ``i``:
+    Y~_i = Y_i + sum_{j != i} cache_{ij} x_j dW_j (als_Tucker.cxx:835-859)."""
+    Y = single_i
+    for j in range(len(dWs)):
+        if j != i:
+            Y = Y + ttmc_contract_mode(pair[(min(i, j), max(i, j))], dWs[j],
+                                       j)
+    return Y
+
+
+def mode_gram(T, axis: int):
+    """Gram matrix of the mode-``axis`` unfolding, T_(i) T_(i)^T
+    (``unroll_tensor_contraction``, common.cxx:205-223)."""
+    letters = _MODES[:T.ndim]
+    a_spec = letters[:axis] + _RANK + letters[axis + 1:]
+    b_spec = letters[:axis] + _RANK2 + letters[axis + 1:]
+    return _einsum(f"{a_spec},{b_spec}->{_RANK}{_RANK2}", T, T)
+
+
+def tucker_residual_norm(V_norm_sq, core_exact, core):
+    """|| V - core x_i W_i || for orthonormal W by the norm identity
+    ||V||^2 - 2 <TTMc(V, W), core> + ||core||^2 (replaces the
+    reconstruction at als_Tucker.cxx:296-311); ``core_exact`` is
+    TTMc(V, W, -1) at the current factors."""
+    inner = torch.sum(core_exact * core)
+    core_sq = torch.sum(core * core)
+    return torch.sqrt(torch.clamp(V_norm_sq - 2.0 * inner + core_sq,
+                                  min=0.0))
+
+
+def fold_unfold(X, shape):
+    """Reshape in row-major element order (``fold_unfold``,
+    common.cxx:870-880)."""
+    return X.reshape(shape)

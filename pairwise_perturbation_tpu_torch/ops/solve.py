@@ -1,6 +1,6 @@
-"""R x R solves and the low-rank kit of CP-ALS — port of
-``pairwise_perturbation_tpu/ops/solve.py`` (lines 34-150, 190-279). The
-Gram matrices S are tiny (R x R), so they are solved on the device with
+"""R x R solves, the low-rank kit of CP-ALS and Tucker's eigenvector
+helpers — port of ``pairwise_perturbation_tpu/ops/solve.py``. The Gram
+matrices S are tiny (R x R), so they are solved on the device with
 ``torch.linalg``.
 
 - :func:`svd_solve`      <-> ``SVD_solve`` (common.cxx:710-725): W = M pinv(S)
@@ -15,6 +15,10 @@ Gram matrices S are tiny (R x R), so they are solved on the device with
                              rank-r factorization of the factor update
                              dW = M pinv(S) - A, for the LR optimizers.
 - :func:`gauss_seidel`   <-> ``Gauss_Seidel`` (common.cxx:840-868).
+- :func:`truncated_eigh` / :func:`fix_sign_columns` / :func:`sign_match`
+                         <-> the leading singular vectors of a Tucker
+                             unfolding and their column signs
+                             (als_Tucker.cxx:12-23, 632-643).
 
 None of them synchronizes with the host: where the JAX package branches
 with ``lax.cond`` the port selects with ``torch.where``.
@@ -126,6 +130,33 @@ def solve(M, S, method: str = "chol", rcond: Optional[float] = None):
     if method == "auto":
         return auto_solve(M, S, rcond)
     return svd_solve(M, S, rcond)
+
+
+def truncated_eigh(G, k: int):
+    """Top-``k`` eigenpairs of a symmetric PSD matrix, descending:
+    (U[s, k], lam[k]). ``G`` is symmetrized first, as ``jnp.linalg.eigh``
+    does by default; ``torch.linalg.eigh`` alone would read one
+    triangle."""
+    lam, Q = torch.linalg.eigh(0.5 * (G + G.mT))
+    return Q.flip(1)[:, :k], lam.flip(0)[:k]
+
+
+def fix_sign_columns(U):
+    """Deterministic column signs: each column's largest-|.| entry is made
+    positive (the first such entry on a tie, as ``jnp.argmax`` and
+    ``torch.argmax`` both pick), a zero column is left as it is."""
+    idx = torch.argmax(torch.abs(U), dim=0)
+    signs = torch.sign(U.gather(0, idx[None, :]))
+    return U * torch.where(signs == 0, torch.ones_like(signs), signs)
+
+
+def sign_match(U, W_ref):
+    """Flip U's columns to agree with W_ref:
+    U diag(sign(diag(U^T W_ref))), where a zero inner product counts as
+    negative (``jnp.where(d > 0, 1, -1)``): a zero ``W_ref``, as the first
+    DT sweep of a Tucker phase passes, negates every column."""
+    d = torch.sum(U * W_ref, dim=0)
+    return U * torch.where(d > 0, 1.0, -1.0).to(U.dtype)
 
 
 def randomized_svd(A, r: int, X, n_iter: int = 1):

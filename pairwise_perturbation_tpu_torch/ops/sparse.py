@@ -1,5 +1,5 @@
-"""Sparse (COO) tensor operations for CP-ALS — port of the CP half of
-``pairwise_perturbation_tpu/ops/sparse.py`` (lines 36-230, 389-405).
+"""Sparse (COO) tensor operations for CP and Tucker ALS — port of
+``pairwise_perturbation_tpu/ops/sparse.py``.
 
 - storage is COO: ``indices[nnz, N]`` (int32, as the JAX package stores
   it) and ``values[nnz]``, on the tensors' device;
@@ -27,6 +27,12 @@ by its plan, with no atomics, so a cache build repeats bit for bit. Its
 products per nonzero run in mode order (v * W_0 * W_1 ...), where the
 JAX build multiplies prefix * mid * suffix; the two round differently,
 within the tests' float32 tolerance.
+
+Sparse Tucker (:func:`ttm_dense` and what builds on it) contracts one
+mode of the nonzeros into a dense tensor with a fused-index
+``index_add_`` (the JAX package's ``segment_sum``; its fused indices are
+int32 there, int64 here) and finishes the chain densely; no kernel
+serves it, in either package.
 
 Determinism: ``index_add_`` on CUDA adds with float atomics, so the plain
 route (kernels off, or a dtype other than float32) varies from run to run
@@ -276,3 +282,127 @@ def cp_residual_norm(V_norm_sq, st: SparseTensor, Ws: Sequence):
     """||V - [[W]]|| via the norm identity with a fresh sparse MTTKRP."""
     M_last = mttkrp(st, Ws, st.ndim - 1)
     return contract.cp_residual_norm(V_norm_sq, M_last, list(Ws))
+
+
+# ---------------------------------------------------------------------------
+# Sparse Tucker (-issparse 1 -model Tucker)
+#
+# One mode of the nonzeros is contracted with its factor by a fused-index
+# scatter-add, into a DENSE tensor with that mode reduced to its rank (the
+# intermediate the dense engine's own chain makes after one step); the
+# rest of the chain is dense. The first mode is the one that shrinks the
+# tensor most (s_m / r_m).
+# ---------------------------------------------------------------------------
+
+
+def _fused_index(st: SparseTensor, modes: Sequence[int]):
+    """Row-major fused index (int64) of the nonzeros over ``modes``."""
+    fused = torch.zeros(st.nnz, dtype=torch.int64, device=st.indices.device)
+    for m in modes:
+        fused = fused * st.shape[m] + st.indices[:, m].long()
+    return fused
+
+
+def ttm_dense(st: SparseTensor, W, mode: int, rank_last: bool = False):
+    """V x_mode W^T as a DENSE tensor: ``mode``'s axis reduced to W's rank
+    in place (or, with ``rank_last``, the remaining modes ascending and
+    the rank axis last: the dimension-tree first-level layout). One
+    gather and one fused-index ``index_add_`` (JAX sparse.py:248-272)."""
+    others = [m for m in range(st.ndim) if m != mode]
+    vals = st.values[:, None] * _gather_rows(W, st.indices[:, mode])
+    n_seg = int(np.prod([st.shape[m] for m in others]))
+    flat = _scatter_rows(vals, _fused_index(st, others), n_seg)
+    out = flat.reshape(tuple(st.shape[m] for m in others) + (W.shape[1],))
+    return out if rank_last else out.movedim(-1, mode)
+
+
+def _best_contract_mode(st: SparseTensor, ranks, keep) -> int:
+    """The mode outside ``keep`` with the largest reduction s_m / r_m (the
+    first on a tie)."""
+    cands = [m for m in range(st.ndim) if m not in keep]
+    return max(cands, key=lambda m: st.shape[m] / max(ranks[m], 1))
+
+
+def _dense_rest(T, Ws: Sequence, skip: Sequence[int]):
+    """The dense TTMc chain over every mode not in ``skip``, ascending."""
+    for m in range(T.ndim):
+        if m not in skip:
+            T = contract.ttmc_contract_mode(T, Ws[m], m)
+    return T
+
+
+def ttmc(st: SparseTensor, Ws: Sequence, skip_mode: int = -1):
+    """Sparse TTMc over every mode except ``skip_mode``: one sparse TTM on
+    the best-reducing mode, then the dense chain (contract.ttmc's
+    semantics, als_Tucker.cxx:76-110 with V sparse)."""
+    keep = () if skip_mode < 0 else (skip_mode,)
+    m0 = _best_contract_mode(st, [W.shape[1] for W in Ws], keep)
+    return _dense_rest(ttm_dense(st, Ws[m0], m0), Ws, keep + (m0,))
+
+
+def build_ttmc_caches(st: SparseTensor, Ws: Sequence):
+    """Tucker PP caches from the sparse tensor, in contract.build_ttmc_caches'
+    layouts (kept modes full, contracted modes rank-sized), so the PP
+    sweep is the dense engine's. Each cache densifies through one sparse
+    TTM (the best-reducing mode outside its kept set), memoized across the
+    caches of the build, and finishes densely (Build_ttmc_map,
+    als_Tucker.cxx:426-466)."""
+    ranks = [W.shape[1] for W in Ws]
+    memo = {}
+
+    def cache(keep):
+        m0 = _best_contract_mode(st, ranks, keep)
+        if m0 not in memo:
+            memo[m0] = ttm_dense(st, Ws[m0], m0)
+        return _dense_rest(memo[m0], Ws, keep + (m0,))
+
+    order = st.ndim
+    single = {i: cache((i,)) for i in range(order)}
+    pair = {(i, j): cache((i, j))
+            for i in range(order) for j in range(i + 1, order)}
+    return single, pair
+
+
+def _columns(st: SparseTensor, mode: int):
+    """(inverse, count): each nonzero's column of the mode-``mode``
+    unfolding, compacted to the populated columns in ascending fused
+    order (int64 fused index, ``torch.unique``), and their count."""
+    fused = _fused_index(st, [m for m in range(st.ndim) if m != mode])
+    uniq, inv = torch.unique(fused, sorted=True, return_inverse=True)
+    return inv, max(int(uniq.numel()), 1)
+
+
+def sketch_rows(st: SparseTensor, mode: int, k: int, seed: int):
+    """The port's per-nonzero rows of the sketch matrix Omega (uniform in
+    [-1, 1)) for mode ``mode``: one row per populated column of the
+    unfolding, drawn from a CPU ``torch.Generator`` seeded with ``seed``
+    and gathered to the nonzeros, so nonzeros that share a column share
+    their row and no (prod of other modes, k) Omega is formed. The JAX
+    package hashes the column's index tuple instead (a fold_in chain); its
+    rows can be passed to :func:`mode_subspace_sketch` in place of these."""
+    inv, n_cols = _columns(st, mode)
+    gen = torch.Generator().manual_seed(int(seed))
+    omega = torch.rand((n_cols, k), generator=gen, dtype=st.values.dtype)
+    return (2.0 * omega - 1.0).to(st.values.device).index_select(0, inv)
+
+
+def mode_subspace_sketch(st: SparseTensor, mode: int, omega_rows):
+    """Randomized range sketch B = unfold(V) Omega of the mode-``mode``
+    unfolding, computed on the nonzeros: ``omega_rows`` holds each
+    nonzero's row of Omega (nnz, k) (:func:`sketch_rows`, or the JAX
+    package's draw). QR of B spans the leading subspace (the sparse
+    replacement of the Gram + eigh HOSVD, als_Tucker.cxx:12-23)."""
+    return _scatter_rows(st.values[:, None] * omega_rows,
+                         st.indices[:, mode], st.shape[mode])
+
+
+def mode_power_iter(st: SparseTensor, mode: int, U):
+    """One (A A^T) U pass of the mode unfolding A on the nonzeros: A^T U
+    over the populated columns only (compacted, int64 fused index), then
+    A (A^T U); two scatter-adds (JAX sparse.py:356-386)."""
+    inv, n_cols = _columns(st, mode)
+    idx = st.indices[:, mode]
+    P = _scatter_rows(st.values[:, None] * _gather_rows(U, idx), inv,
+                      n_cols)
+    return _scatter_rows(st.values[:, None] * _gather_rows(P, inv), idx,
+                         st.shape[mode])

@@ -1,9 +1,9 @@
 """CSV metrics + wall-clock accounting with the reference's exact schema.
 
-Port of the CP part of ``pairwise_perturbation_tpu/utils/metrics.py``,
-same schema: CP runs emit
-``[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]``
-(als_CP.cxx:133-134); bench mode emits ``[timetype],[dtime]`` rows with
+Port of ``pairwise_perturbation_tpu/utils/metrics.py``, same schema: CP
+runs emit ``[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]``
+(als_CP.cxx:133-134); Tucker substitutes ``[diffnorm]``
+(als_Tucker.cxx:246); bench mode emits ``[timetype],[dtime]`` rows with
 ``[DTtime]`` / ``[PPfirst]`` / ``[PPsecond]`` (pp_bench.cxx:297-298).
 
 Wall-clock: diagnostics (gradnorm + residual recomputation) are *excluded*
@@ -21,6 +21,7 @@ class PlotFile:
     """CSV writer matching the reference Plot_File behavior."""
 
     CP_HEADER = "[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]"
+    TUCKER_HEADER = "[dim],[iter],[diffnorm],[tol],[pp_update],[diffV],[dtime]"
     BENCH_HEADER = "[timetype],[dtime]"
 
     def __init__(self, path: Optional[str], header: str = CP_HEADER,

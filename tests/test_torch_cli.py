@@ -71,9 +71,11 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,step", [
     (["run", "-issparse", "1"], "A13"),
-    (["pp_bench", "-model", "Tucker"], "A10"),
-    (["-model", "Tucker"], "A10"), (["run", "-mesh", "4"], "A15"),
-    (["-issparse", "1", "-model", "Tucker"], "A13"), (["-mesh", "4"], "A15"),
+    (["pp_bench", "-model", "Tucker", "-device_loop", "1"], "A14"),
+    (["-model", "Tucker", "-checkpoint", "ck"], "A16"),
+    (["run", "-mesh", "4"], "A15"),
+    (["-issparse", "1", "-model", "Tucker", "-device_loop", "1"], "A14"),
+    (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "A14"), (["-device_loop", "2"], "A14"),
     (["-layouts", "1"], "A16"),
     (["-tensor", "o1"], "A16"), (["-tensor", "o2"], "A16"),
@@ -179,6 +181,8 @@ def test_native_copy_matches_original(shape, rank):
 def test_metrics_copy_matches_original(tmp_path, capsys):
     assert tmetrics.PlotFile.CP_HEADER == jmetrics.PlotFile.CP_HEADER
     assert tmetrics.PlotFile.BENCH_HEADER == jmetrics.PlotFile.BENCH_HEADER
+    assert tmetrics.PlotFile.TUCKER_HEADER == \
+        jmetrics.PlotFile.TUCKER_HEADER
     outs = []
     for mod in (tmetrics, jmetrics):
         path = tmp_path / f"{mod.__name__}.csv"
