@@ -137,6 +137,34 @@ traceback and exits nonzero:
    CSVs checked, then 5 cache builds and 10 PP sweeps timed.
    ``--phases 9`` runs phases 1, 2 and 9 alone.
 
+10. ``run -issparse 1``, the dataset loaders, checkpoints and device
+   traces, f32; every time beside the card's name and power limit.
+   10a. ``run -issparse 1`` through the CLI on phase 6's Poisson 100^4
+   tensor at rank 4 (RUN_SPARSE_P says why not 10): -pp 0 to 4, then
+   -pp 1 -device_loop 1; every CSV checked; K7 launched 4 times a Simple
+   step, 5 times a diagnostics row of every optimizer and never in a DT,
+   MSDT or LR step (their chain tops are index_add_).
+   10b. ``cli.run_cpd`` on phase 6b's sparse200_4_nnz1.6M tensor, rank
+   10, all five optimizers, step medians and peak memory; Simple with
+   use_kernels on and off (its first three steps' factors held to the
+   same steps in float64: K7's to REL_TOL, the float32 index_add_'s,
+   which sums rows of ~8,000 nonzeros in arbitrary order, to 10
+   REL_TOL).
+   10c. A seeded uniform float64 binary in coil-100's file shape (7200,
+   128, 128, 3), 2.83 GB, written by utils/io.py in a temporary directory
+   (free space printed): load_coil100 gives it with its axes reversed
+   (load time printed); ``test_als -tensor o1 -pp 1 -checkpoint`` under
+   use_kernels_triple (K6 once a cache build); ``-resume`` from that
+   checkpoint starts from its factors (first row = their gradnorm, 1e-5).
+   10d. The same in time-lapse's file shape (9, 1024, 1344, 33), 3.27 GB,
+   after 10c's file is deleted: ``test_als -model Tucker -tensor o2 -pp 0
+   -checkpoint``, whose factors are (33, 10), (1344, 100), (1024, 100),
+   (9, 5) and core (10, 100, 100, 5): the natural mode order.
+   10e. ``test_als`` at 200^3 -pp 1 with ``-profile 1 -trace_dir``: the
+   torch.profiler trace names mttkrp3.cu's kernels (K1-K3 run in the
+   diagnostics) and the cli.test_als range; without -profile no trace.
+   ``--phases 10`` runs phases 1, 2 and 10 alone.
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -2193,6 +2221,395 @@ def run_tucker(smi):
         f"{k} {1e3 * t:.3f}" for k, t in meds.items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: run -issparse 1, the dataset loaders, checkpoints, device traces
+# ---------------------------------------------------------------------------
+
+# Rank 4: the folded Poisson tensor's mode unfoldings have a small rank,
+# so at rank 8 or more the factors' Grams go singular after one step and
+# the Cholesky-based optimizers give NaN from the second row on, in the
+# JAX package as in the port (f32 and f64); at rank 5 MSDT-LR's gradnorm
+# rises over 6 sweeps. Phase 10b runs rank 10 on the fixture.
+RUN_SPARSE_P = ["run", "-tensor", "p", "-dim", "8", "-size", "10", "-rank",
+                "4", "-issparse", "1"]
+# One seeded uniform [0, 1) float64 binary in each dataset's file shape
+# (utils/io.py): coil-100 (o1, 2.83 GB) and time-lapse (o2, 3.27 GB).
+O1_FILE_SHAPE = (7200, 128, 128, 3)
+O2_FILE_SHAPE = (9, 1024, 1344, 33)
+
+
+def k7_expected(steps, rows, simple, order=4):
+    """K7 launches of a ``run`` on a float32 COO tensor: ``order`` a
+    Simple step (sparse_simple_sweep's MTTKRPs), none in a DT, MSDT or LR
+    step (their chain tops are index_add_), order + 1 a diagnostics
+    row."""
+    return order * steps * simple + (order + 1) * rows
+
+
+def run_sparse_optimizers_cli():
+    """10a: ``run -issparse 1`` through cli.main on phase 6's Poisson
+    100^4 tensor (82,000 nonzeros), rank 4, f32: -pp 0 to 4, then -pp 1
+    -device_loop 1; every CSV checked and K7's launches counted. Returns
+    (K7 launches, {label: (scope, median s)})."""
+    from pairwise_perturbation_tpu_torch import cli
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    total, medians = 0, {}
+    runs = [(pp, []) for pp in range(5)] + [(1, ["-device_loop", "1"])]
+    for pp, extra in runs:
+        label = (f"run -issparse 1 -pp {pp} ({cli.RUN_OPTIMIZERS[pp]}) "
+                 + " ".join(extra)).strip()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "run_sparse.csv")
+            tracing.reset()
+            coo_mttkrp.reset_launch_counts()
+            rc = cli.main(RUN_SPARSE_P + ["-pp", str(pp), "-maxiter", "6",
+                                          "-resprint", "2", "-profile", "1",
+                                          "-quiet", "-filename", out, *extra])
+            launches = coo_mttkrp.LAUNCHES["coo_mttkrp"]
+            with open(out) as fh:
+                rows = list(csv.reader(fh))
+        tracing.enable(False)
+        if rc != 0:
+            raise AssertionError(f"{label}: cli.main returned {rc}")
+        check_run_csv(rows, label)
+        stats = tracing.stats()
+        name, steps, med = step_scope(stats)
+        n_rows = stats["cp.diagnostics"][0]
+        want = k7_expected(steps, n_rows, pp == 4)
+        print(f"  {name} {steps} calls, median {1e3 * med:.3f} ms; "
+              f"{n_rows} diagnostics rows; K7 launches {launches} "
+              f"(expected {want})")
+        if launches != want or n_rows != len(rows) - 1:
+            raise AssertionError(f"{label}: K7 launches differ from 4 a "
+                                 "Simple step and 5 a diagnostics row")
+        total += launches
+        medians[f"Poisson 100^4 {label[len('run -issparse 1 '):]}"] = \
+            (name, med)
+    return total, medians
+
+
+def first_steps(st, Ws, use_kernels, n=3):
+    """The factors after each of Simple's first ``n`` steps on ``st`` from
+    ``Ws``, with config.use_kernels as given."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import optimizers as opt
+    o = opt.CPSimpleOptimizer(st.ndim, Ws[0].shape[1])
+    o.configure(st, [w.clone() for w in Ws], 0.0)
+    out = []
+    with config.override(use_kernels=use_kernels):
+        for _ in range(n):
+            o.step()
+            out.append([w.clone() for w in o.W])
+    torch.cuda.synchronize()
+    return out
+
+
+def run_sparse_optimizers_fixture():
+    """10b: cli.run_cpd (the body of ``run``) on phase 6b's
+    sparse200_4_nnz1.6M tensor, rank 10, f32, all five optimizers, each
+    step's median (``<Optimizer>.step`` scopes) and peak memory printed;
+    Simple with use_kernels on and off, whose first three steps' factors
+    agree with the same steps in float64: to REL_TOL with K7, to 10
+    REL_TOL with the float32 index_add_. Returns (K7 launches, {label:
+    (scope, median s)})."""
+    import torch
+    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+    st = sparse_fixture()
+    W0 = cp.init_factors(SPARSE_SHAPE, 10, seed=0, device="cuda")
+    # Both float32 routes against the same steps in float64: a float32
+    # index_add_ sums ~8,000 nonzeros into each row in arbitrary order and
+    # ends ~2e-4 off (on an H100, 1.6-2.7e-4 against K7's 0.9-1.2e-5), so
+    # the two routes are held to float64, not to each other.
+    ref = first_steps(sparse.SparseTensor(st.indices, st.values.double(),
+                                          st.shape),
+                      [w.double() for w in W0], False)
+    for use_kernels in (True, False):
+        for k, (a, b) in enumerate(zip(first_steps(st, W0, use_kernels),
+                                       ref)):
+            rel = max(float((x.double() - y).abs().max() / y.abs().max())
+                      for x, y in zip(a, b))
+            route = "K7" if use_kernels else "index_add_"
+            print(f"Simple step {k + 1} with {route}: factors rel {rel:.3e}"
+                  " to the float64 steps")
+            if not rel <= (REL_TOL if use_kernels else 10 * REL_TOL):
+                raise AssertionError(f"Simple's steps with {route} differ "
+                                     "from the float64 steps")
+    total, medians = 0, {}
+    runs = [(pp, True) for pp in range(4)] + [(4, True), (4, False)]
+    for pp, use_kernels in runs:
+        label = (f"sparse200_4 {cli.RUN_OPTIMIZERS[pp]}"
+                 + ("" if use_kernels else " use_kernels=False"))
+        tracing.reset()
+        coo_mttkrp.reset_launch_counts()
+        tracing.enable()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "run_fixture.csv")
+            plot = PlotFile(out, echo=False)
+            try:
+                with config.override(use_kernels=use_kernels):
+                    cli.run_cpd(st, [w.clone() for w in W0], pp, tol=0.0,
+                                maxiter=4, resprint=100, plot=plot)
+                torch.cuda.synchronize()
+            finally:
+                plot.close()
+                tracing.enable(False)
+            with open(out) as fh:
+                rows = list(csv.reader(fh))
+        check_run_csv(rows, label)
+        stats = tracing.stats()
+        name, steps, med = step_scope(stats)
+        launches = coo_mttkrp.LAUNCHES["coo_mttkrp"]
+        want = k7_expected(steps, stats["cp.diagnostics"][0], pp == 4) \
+            if use_kernels else 0
+        print(f"  {name} {steps} calls, median {1e3 * med:.3f} ms; K7 "
+              f"launches {launches} (expected {want}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != want:
+            raise AssertionError(f"{label}: K7 launches differ")
+        total += launches
+        medians[label] = (name, med)
+    del st
+    torch.cuda.empty_cache()
+    return total, medians
+
+
+def seeded_binary(path, file_shape, seed):
+    """Write a seeded uniform [0, 1) float64 array of ``file_shape`` with
+    the port's write_dense_binary, after printing the free space there;
+    returns the array on the card."""
+    import shutil
+    import torch
+    from pairwise_perturbation_tpu_torch.utils import io
+    nbytes = 8 * math.prod(file_shape)
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    print(f"{path}: {nbytes / 1e9:.2f} GB to write, {free / 1e9:.1f} GB "
+          "free there")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    arr = torch.rand(file_shape, generator=gen, device="cuda",
+                     dtype=torch.float64)
+    t0 = time.perf_counter()
+    io.write_dense_binary(path, arr.cpu().numpy())
+    print(f"  written in {time.perf_counter() - t0:.3f} s")
+    return arr
+
+
+def cli_csv(argv, out):
+    """cli.main on ``argv`` with -quiet and -filename ``out``; returns the
+    CSV rows."""
+    from pairwise_perturbation_tpu_torch import cli
+    rc = cli.main(argv + ["-quiet", "-filename", out])
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv)}: cli.main returned {rc}")
+    with open(out) as fh:
+        return list(csv.reader(fh))
+
+
+def run_o1(tmp):
+    """10c: test_als -tensor o1 on a seeded coil-100-shaped binary: the
+    loader's axes, CP-PP with -checkpoint under use_kernels_triple (K6
+    once a cache build), then -resume from that checkpoint. Returns (K6
+    launches, {label: seconds})."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch import config, native
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops import contract
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import io, tracing
+    path = os.path.join(tmp, "coil-100.bin")
+    arr = seeded_binary(path, O1_FILE_SHAPE, seed=10)
+    t0 = time.perf_counter()
+    V = io.load_coil100(path)
+    load_s = time.perf_counter() - t0
+    Vd = torch.from_numpy(V).cuda()
+    if V.shape != COIL_SHAPE or not torch.equal(
+            Vd, arr.permute(3, 2, 1, 0).float()):
+        raise AssertionError("load_coil100 is not the file's array with "
+                             "its axes reversed")
+    del arr, V
+    # its two parts: the file read and conversion, the axis reversal
+    t0 = time.perf_counter()
+    raw = io.read_dense_binary(path, O1_FILE_SHAPE)
+    read_s = time.perf_counter() - t0
+    np.ascontiguousarray(raw.transpose(3, 2, 1, 0))
+    reverse_s = time.perf_counter() - t0 - read_s
+    print(f"load_coil100 (f64 file -> f32, native loader "
+          f"{'built' if native.available() else 'absent'}): {load_s:.3f} s "
+          f"for {COIL_SHAPE}; read_dense_binary alone {read_s:.3f} s, the "
+          f"axis reversal {reverse_s:.3f} s")
+    del raw
+    ck = os.path.join(tmp, "o1_ck")
+    argv = ["test_als", "-model", "CP", "-tensor", "o1", "-tensorfile", path,
+            "-rank", "10", "-pp", "1", "-pp_res_tol", "0.1", "-resprint",
+            "1", "-profile", "1"]
+    tracing.reset()
+    _bench.reset_launch_counts()
+    with config.override(use_kernels_triple=True):
+        rows = cli_csv(argv + ["-maxiter", "12", "-checkpoint", ck],
+                       os.path.join(tmp, "o1.csv"))
+    tracing.enable(False)
+    check_csv(rows, "test_als -tensor o1 -pp 1 use_kernels_triple")
+    k6 = _bench.launch_counts()["triple_roots.triple_roots"]
+    stats = tracing.stats()
+    builds = stats.get("cp.pp_cache_build", (0,))[0]
+    print(f"K6 launches {k6}, PP cache builds {builds}")
+    if not k6 == builds > 0:
+        raise AssertionError("K6 launches differ from the o1 cache builds")
+    ckpt = io.load_checkpoint(ck)
+    Ws = [torch.from_numpy(f).cuda() for f in ckpt["factors"]]
+    if [tuple(w.shape) for w in Ws] != [(s, 10) for s in COIL_SHAPE] or \
+            ckpt["meta"] != dict(model="CP", tensor="o1"):
+        raise AssertionError(f"o1 checkpoint: {[w.shape for w in Ws]}, "
+                             f"{ckpt['meta']}")
+    gn, _ = cp.cp_diagnostics(contract.norm_sq(Vd), Vd, Ws, 0.0)
+    gn = float(gn)
+    del Vd
+    torch.cuda.empty_cache()
+    resumed = cli_csv(argv + ["-maxiter", "2", "-resume", ck + ".npz"],
+                      os.path.join(tmp, "o1_resumed.csv"))
+    tracing.enable(False)
+    first, last = float(resumed[1][2]), float(rows[-1][2])
+    print(f"resumed from iteration {ckpt['iteration']}: first row "
+          f"gradnorm {first:.9e}, the checkpoint's factors' {gn:.9e} "
+          f"(rel {abs(first - gn) / gn:.3e}); the first run's last row "
+          f"(one sweep before the checkpoint) {last:.9e}")
+    if not abs(first - gn) <= 1e-5 * gn or resumed[1][1] != "0":
+        raise AssertionError("the resumed run does not start from the "
+                             "checkpoint's factors")
+    os.remove(path)
+    return k6, {"o1 load_coil100": load_s, "o1 read_dense_binary": read_s,
+                "o1 axis reversal": reverse_s,
+                **{f"o1 {n}": stats[n][2] for n in CP_PHASES if n in stats}}
+
+
+def run_o2(tmp):
+    """10d: test_als -model Tucker -tensor o2 -pp 0 on a seeded
+    time-lapse-shaped binary, -checkpoint: the factors and core in the
+    natural mode order, no kernel launched. Returns {label: seconds}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import io, tracing
+    path = os.path.join(tmp, "time-lapse.bin")
+    seeded_binary(path, O2_FILE_SHAPE, seed=11)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    V = io.load_time_lapse(path)
+    load_s = time.perf_counter() - t0
+    print(f"load_time_lapse: {load_s:.3f} s, {V.shape}")
+    del V
+    ck = os.path.join(tmp, "o2_ck")
+    tracing.reset()
+    before = _bench.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows = cli_csv(["test_als", "-model", "Tucker", "-tensor", "o2",
+                    "-tensorfile", path, "-pp", "0", "-maxiter", "2",
+                    "-resprint", "1", "-profile", "1", "-checkpoint", ck],
+                   os.path.join(tmp, "o2.csv"))
+    tracing.enable(False)
+    body = [[float(x) for x in r] for r in rows[1:]]
+    if rows[0] != TUCKER_HEADER.split(",") or len(body) < 2 or not all(
+            math.isfinite(x) for r in body for x in r):
+        raise AssertionError(f"o2 Tucker CSV: {rows}")
+    if _bench.launch_counts() != before:
+        raise AssertionError("a port kernel launched on the o2 Tucker run")
+    ckpt = io.load_checkpoint(ck)
+    shapes = [f.shape for f in ckpt["factors"]]
+    want = [(33, 10), (1344, 100), (1024, 100), (9, 5)]
+    print(f"o2 Tucker checkpoint: factors {shapes}, core "
+          f"{ckpt['core'].shape}, meta {ckpt['meta']}; {len(body)} rows, "
+          f"diffV {body[0][5]:.6e} -> {body[-1][5]:.6e}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if shapes != want or ckpt["core"].shape != (10, 100, 100, 5) or \
+            ckpt["meta"] != dict(model="Tucker", tensor="o2"):
+        raise AssertionError("o2 checkpoint not in the natural mode order")
+    os.remove(path)
+    stats = tracing.stats()
+    return {"o2 load_time_lapse": load_s,
+            **{f"o2 {n}": stats[n][2] for n in TUCKER_PHASES if n in stats}}
+
+
+def run_trace(tmp, smi):
+    """10e: test_als at 200^3 rank 10 -pp 1 with -profile 1 -trace_dir:
+    the trace names mttkrp3.cu's kernels (K1-K3 run in the diagnostics);
+    the same run without -profile writes nothing. Returns K1-K3's
+    launches {"K1": n, ...}."""
+    from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    argv = ["test_als", "-tensor", "r", "-dim", "3", "-size", "200",
+            "-rank", "10", "-pp", "1", "-maxiter", "6", "-resprint", "2",
+            "-pp_res_tol", "0.1"]
+    quiet = os.path.join(tmp, "no_profile")
+    cli_csv(argv + ["-trace_dir", quiet], os.path.join(tmp, "t0.csv"))
+    if os.path.exists(quiet) and os.listdir(quiet):
+        raise AssertionError("-trace_dir without -profile wrote a trace")
+    tdir = os.path.join(tmp, "traces")
+    mttkrp3.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_csv(argv + ["-profile", "1", "-trace_dir", tdir],
+            os.path.join(tmp, "t1.csv"))
+    wall = time.perf_counter() - t0
+    tracing.enable(False)
+    launches = {f"K{m + 1}": n for m, n in mttkrp3.LAUNCHES.items()}
+    files = os.listdir(tdir)
+    if len(files) != 1:
+        raise AssertionError(f"-trace_dir holds {files}")
+    with open(os.path.join(tdir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    ours = sorted(k for k in kernels if "mttkrp3_" in k)
+    print(f"trace {files[0]}: {len(events)} events, "
+          f"{os.path.getsize(os.path.join(tdir, files[0])) / 1e6:.1f} MB, "
+          f"run {wall:.3f} s ({smi}); {len(kernels)} kernel names, of "
+          "mttkrp3.cu: "
+          + "; ".join(k[:60] for k in ours) + f"; launches {launches}")
+    need = ("mttkrp3_rows_kernel", "mttkrp3_minor_partial_kernel")
+    if not all(any(n in k for k in ours) for n in need) or \
+            min(launches.values()) <= 0 or not any(
+                e.get("name") == "cli.test_als" for e in events):
+        raise AssertionError("the trace lacks mttkrp3.cu's kernels or the "
+                             "cli.test_als range")
+    return launches
+
+
+def run_phase10(smi):
+    """Phase 10 (10a-10e); returns ({kernel id: launches}, medians)."""
+    launches, meds = {}, {}
+    phase("10a. run -issparse 1 -pp 0..4 and -pp 1 -device_loop 1 on the "
+          "Poisson 100^4 tensor, rank 4, f32")
+    launches["K7"], m = run_sparse_optimizers_cli()
+    meds.update(m)
+    phase("10b. cli.run_cpd on sparse200_4_nnz1.6M, rank 10, f32, five "
+          "optimizers; Simple with use_kernels on and off")
+    n, m = run_sparse_optimizers_fixture()
+    launches["K7"] += n
+    meds.update(m)
+    print(f"run -issparse 1 step medians, ms ({smi}): " + "; ".join(
+        f"{label}: {scope} {1e3 * med:.3f}"
+        for label, (scope, med) in meds.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("10c. test_als -tensor o1 from a seeded coil-100-shaped "
+              "binary: load, -pp 1 -checkpoint under use_kernels_triple, "
+              "-resume")
+        launches["K6"], times = run_o1(tmp)
+        phase("10d. test_als -model Tucker -tensor o2 -pp 0 -checkpoint "
+              "from a seeded time-lapse-shaped binary")
+        times.update(run_o2(tmp))
+        print(f"dataset medians, ms ({smi}): " + "; ".join(
+            f"{k} {1e3 * t:.3f}" for k, t in times.items()))
+        phase("10e. test_als 200^3 -pp 1 -profile 1 -trace_dir: a "
+              "torch.profiler trace naming mttkrp3.cu's kernels")
+        launches.update(run_trace(tmp, smi))
+    return launches
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -2231,19 +2648,23 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="run only phases 1, 2 and these kernel phases "
                          f"(comma-separated, of {', '.join(KERNEL_PHASES)},"
-                         " and 9 for Tucker)"
+                         " 9 for Tucker and 10 for run -issparse 1, the "
+                         "datasets, checkpoints and traces)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
     args = ap.parse_args(argv)
     if args.phases is not None:
         names = args.phases.split(",")
-        unknown = [n for n in names if n not in KERNEL_PHASES and n != "9"]
+        unknown = [n for n in names
+                   if n not in KERNEL_PHASES and n not in ("9", "10")]
         if unknown:
             ap.error(f"unknown phases {unknown}")
-        smi = run_kernel_phases([n for n in names if n != "9"])
+        smi = run_kernel_phases([n for n in names if n in KERNEL_PHASES])
         if "9" in names:
             run_tucker(smi)
+        if "10" in names:
+            print(f"phase 10 launches: {run_phase10(smi)}")
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -2290,7 +2711,8 @@ def main(argv=None) -> int:
     phase("5b. coil-100 shape under use_kernels_triple, f32 and bf16")
     launches["K6"] = sum(run_coil_order4(d, triple=True, beside=off[d])[1]
                          for d in ("float32", "bfloat16"))
-    # launches of the paths phases 5c and 8 drive, kept apart in the line
+    # launches of the paths phases 5c, 8 and 10 drive, kept apart in the
+    # line
     by_phase = {}
     phase("5c. PP-partupdate (test_als -pp 2, update_percentage 0.5) at the "
           "coil-100 shape, f32, kernels' defaults then use_kernels_triple")
@@ -2322,6 +2744,9 @@ def main(argv=None) -> int:
         f"{label}: {scope} {1e3 * med:.3f}"
         for label, (scope, med) in medians.items()))
     run_tucker(smi)
+    for kid, n in run_phase10(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["10"] = n
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]
@@ -2336,7 +2761,7 @@ def main(argv=None) -> int:
                             sources=[CSRC + src for src in srcs],
                             replaces=replaces,
                             launches=launches[kid],
-                            launches_phases_5c_8=by_phase.get(kid, {}),
+                            launches_by_phase=by_phase.get(kid, {}),
                             on_main_path=kid not in OFF_SLICE_PATH,
                             **RESULTS[kid]))
     print(json.dumps({"kernels": kernels}))

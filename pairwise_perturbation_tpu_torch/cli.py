@@ -16,7 +16,9 @@
   sparse HOSVD.
 - ``run`` (``./run``, run.cxx; JAX cli.py:411-466): the second-gen CPD
   with -pp 0 DT, 1 MSDT, 2 DT-LR, 3 MSDT-LR, 4 Simple
-  (models/optimizers.py), on dense V. ``-device_loop 1`` steps MSDT (and
+  (models/optimizers.py), on dense V or, with ``-issparse 1``, on the COO
+  of V's nonzeros (sparse chain tops; Simple sweeps through the COO
+  MTTKRP). ``-device_loop 1`` steps MSDT (and
   MSDT-LR, as in the JAX package) a full MSDT rotation per call
   (``step_cycle``); ``-msdt_min_holdout``,
   ``-updaterank``, ``-randomsvd`` and ``-lambda`` as in the JAX package;
@@ -38,16 +40,29 @@
 
 Runs on ``-device`` (default ``cuda``), in float32, float64 or the
 mixed-precision ``bfloat16`` mode (V stored bf16; factors, Grams and
-solves float32), on the synthetic zoo p/p2/c/r/r2. The CSVs have the
-reference's schema. Unlike the JAX package, the port never reorders V's
-modes for the TPU's tiling (utils/layout.canonicalize), which is an
-identity for these cubic tensors anyway. What is not ported yet is
+solves float32), on the synthetic zoo p/p2/c/r/r2 or on the coil-100
+(``-tensor o1``) and time-lapse (``-tensor o2``) binaries, read from
+``-tensorfile`` (default coil-100.bin / time-lapse.bin) by utils/io.py.
+The CSVs have the reference's schema.
+
+Mode order: the port keeps V's natural (CTF) mode order. The JAX package
+permutes modes for the TPU's (8, 128) tiles (its utils/layout.py), which
+is the identity for coil-100 and every synthetic tensor, but (0, 3, 1, 2)
+for time-lapse; its checkpoints are written back in the natural order, so
+``-checkpoint`` files of either package load in the other.
+
+``-checkpoint PATH`` writes the final factors of test_als (and Tucker's
+core) to PATH.npz; ``-resume PATH`` starts dense CP test_als from a
+checkpoint's factors, the only path where the JAX package reads it.
+``-profile 1 -trace_dir DIR`` also writes a torch.profiler trace of the
+command to DIR (utils/tracing.device_trace). What is not ported yet is
 refused with the ROADMAP step that brings it.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import sys
 import time
 
@@ -57,11 +72,11 @@ RUN_OPTIMIZERS = ("DT", "MSDT", "DT-LR", "MSDT-LR", "Simple")
 
 
 def _unsupported(args, cmd):
-    """The first requested feature the port does not have yet, or None."""
+    """The first requested feature the port does not have yet, or that
+    the JAX package ignores, or None."""
+    resumes = cmd == "test_als" and args.model == "CP" and not args.issparse
     if cmd == "run":
         checks = [
-            (bool(args.issparse), "run -issparse 1 is not ported yet "
-             "(ROADMAP A13): the sparse chain top needs sparse.ttm_dense"),
             (args.pp >= len(RUN_OPTIMIZERS),
              "run takes -pp 0 (DT), 1 (MSDT), 2 (DT-LR), 3 (MSDT-LR) or "
              "4 (Simple)"),
@@ -84,14 +99,14 @@ def _unsupported(args, cmd):
              "pp_bench (ROADMAP A14); use -device_loop 0"))
     checks += [
         (bool(args.mesh), "-mesh is not ported yet (ROADMAP A15)"),
-        (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16)"),
-        (args.tensor in ("o1", "o2"),
-         f"-tensor {args.tensor}: the dataset loaders are not ported yet "
-         "(ROADMAP A16)"),
-        (bool(args.checkpoint or args.resume),
-         "-checkpoint/-resume are not ported yet (ROADMAP A16)"),
-        (bool(args.trace_dir),
-         "-trace_dir (device traces) is not ported yet (ROADMAP A16)"),
+        (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16): "
+         "its mode-minor copies of V serve the TPU's tiling"),
+        (bool(args.resume) and not resumes,
+         "-resume seeds only dense CP test_als: the JAX package reads no "
+         "checkpoint on this path either"),
+        (bool(args.checkpoint) and cmd != "test_als",
+         f"-checkpoint: {cmd} writes no checkpoint, in the JAX package "
+         "either"),
     ]
     for bad, msg in checks:
         if bad:
@@ -137,18 +152,78 @@ def _device(name: str):
     return dev
 
 
-def _synthetic(args):
-    """The synthetic tensor of -tensor/-dim/-size/-rank as numpy, and the
-    factor dtype (-dtype bfloat16 stores only V in bf16, JAX
-    cli.py:24-38)."""
+def _load_tensor(args):
+    """V as numpy, in float64 under -dtype float64 and else float32, and
+    the factor dtype (-dtype bfloat16 stores only V in bf16, JAX
+    cli.py:24-38): -tensor o1/o2 read from -tensorfile (default
+    coil-100.bin / time-lapse.bin, JAX cli.py:43-44) in their natural
+    (CTF) mode order, any other -tensor the synthetic tensor of
+    -dim/-size/-rank."""
     import torch
-    from pairwise_perturbation_tpu_torch.utils import synth
+    from pairwise_perturbation_tpu_torch.utils import io, synth
     np_dtype = np.float64 if args.dtype == "float64" else np.float32
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
-    V = synth.make_tensor(args.tensor, args.dim, args.size, args.rank,
-                          args.colmin, args.colmax, args.rationoise,
-                          seed=args.seed, dtype=np_dtype)
+    if args.tensor == "o1":
+        V = io.load_coil100(_dataset_path(args, "coil-100.bin",
+                                          io.COIL100_FILE_SHAPE),
+                            out_dtype=np_dtype)
+    elif args.tensor == "o2":
+        V = io.load_time_lapse(_dataset_path(args, "time-lapse.bin",
+                                             io.TIME_LAPSE_FILE_SHAPE),
+                               out_dtype=np_dtype)
+    else:
+        V = synth.make_tensor(args.tensor, args.dim, args.size, args.rank,
+                              args.colmin, args.colmax, args.rationoise,
+                              seed=args.seed, dtype=np_dtype)
     return V, dtype
+
+
+def _dataset_path(args, default, file_shape):
+    """-tensorfile, or ``default`` (JAX cli.py:43-44), once it is known to
+    hold a float64 array of ``file_shape``."""
+    path = args.tensorfile if args.tensorfile != "test" else default
+    nbytes = 8 * int(np.prod(file_shape))
+    if not os.path.isfile(path) or os.path.getsize(path) != nbytes:
+        raise SystemExit(
+            f"-tensor {args.tensor}: {path} is not a float64 binary of the "
+            f"dataset's shape {tuple(file_shape)} ({nbytes} bytes); name "
+            "one with -tensorfile")
+    return path
+
+
+def _save_checkpoint(args, res, model, core=None):
+    """-checkpoint: the result's factors (and Tucker's core), in natural
+    mode order, with the JAX CLI's meta (cli.py:247-252, 283-289,
+    339-345, 399-405)."""
+    if not args.checkpoint:
+        return
+    from pairwise_perturbation_tpu_torch.utils import io
+    meta = dict(model=model, tensor=args.tensor)
+    if args.issparse:
+        meta["sparse"] = True
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    io.save_checkpoint(args.checkpoint, [host(w) for w in res.factors],
+                       res.iters, core=None if core is None else host(core),
+                       meta=meta)
+
+
+def _resumed_factors(args, shape, dtype, device):
+    """-resume: a checkpoint's factors in the run's factor dtype (JAX
+    cli.py:206-215), checked against V's mode sizes."""
+    import torch
+    from pairwise_perturbation_tpu_torch.utils import io
+    ck = io.load_checkpoint(args.resume)
+    sizes = [f.shape[0] for f in ck["factors"]]
+    if sizes != list(shape):
+        raise SystemExit(f"-resume {args.resume}: factors of mode sizes "
+                         f"{sizes}, but V has shape {list(shape)}")
+    if not args.quiet:
+        print(f"resumed {len(sizes)} factors from {args.resume} "
+              f"(iteration {ck['iteration']})")
+    return [torch.from_numpy(f).to(dtype).to(device) for f in ck["factors"]]
 
 
 def _dense(args, V, device):
@@ -160,8 +235,8 @@ def _dense(args, V, device):
 
 def _tucker_ranks(args, order: int):
     """Tucker ranks: the reference's vectors for the coil-100 (o1) and
-    time-lapse (o2) datasets (test_ALS.cxx:366-380; their loaders wait
-    for ROADMAP A16), else -rank in every mode."""
+    time-lapse (o2) datasets in their natural mode order
+    (test_ALS.cxx:366-380), else -rank in every mode."""
     if args.tensor == "o1":
         return (3, 10, 10, 70)
     if args.tensor == "o2":
@@ -206,6 +281,7 @@ def _test_als_tucker(args, V, Vnorm, device) -> int:
         res = solve(X, _tucker_ranks(args, X.ndim), cfg, plot)
     finally:
         plot.close()
+    _save_checkpoint(args, res, "Tucker", core=res.core)
     if not args.quiet:
         print(f"\nIter = {res.iters} Final Diff norm {res.diffnorm:E}")
         if not args.issparse:
@@ -214,15 +290,21 @@ def _test_als_tucker(args, V, Vnorm, device) -> int:
 
 
 def cmd_test_als(args) -> int:
+    import torch
     from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
     device = _device(args.device)
     _print_banner(args)
-    V, dtype = _synthetic(args)
+    V, dtype = _load_tensor(args)
     Vnorm = float(np.linalg.norm(V.ravel()))  # of the f32 values, unrounded
     if not args.quiet:
         print(f"Vnorm= {Vnorm}")
+    if args.issparse and args.dtype == "bfloat16":
+        # test_als stores V in bf16 before the COO is built (JAX
+        # cli.py:197-198, 308-310): the COO holds V's bf16-rounded values
+        # in float32, as the JAX package stores them
+        V = torch.from_numpy(V).to(torch.bfloat16).float().numpy()
     if args.model == "Tucker":
         return _test_als_tucker(args, V, Vnorm, device)
     if args.issparse:
@@ -236,8 +318,11 @@ def cmd_test_als(args) -> int:
             min(args.pp, 2)]
         split = _planned_split(args, X.shape)
     t0 = time.perf_counter()
-    Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
-                         device=device)
+    if args.resume:
+        Ws = _resumed_factors(args, X.shape, dtype, device)
+    else:
+        Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
+                             device=device)
     cfg = cp.CPConfig(tol=args.tol * Vnorm, pp_res_tol=args.pp_res_tol,
                       lam=args.lam, ratio_step=args.magni,
                       maxiter=args.maxiter, timelimit=args.timelimit,
@@ -249,6 +334,7 @@ def cmd_test_als(args) -> int:
         res = solve(X, Ws, cfg, plot)
     finally:
         plot.close()
+    _save_checkpoint(args, res, "CP")
     if not args.quiet:
         print(f"\nIter = {res.iters} Final grad norm {res.gradnorm:E}")
         print(f"experiment took {time.perf_counter() - t0:.6f} seconds")
@@ -259,8 +345,9 @@ def run_cpd(X, Ws, pp: int, *, tol: float, maxiter: int, resprint: int,
             timelimit: float = 5e3, lam: float = 0.0, updaterank: int = 1,
             randomsvd: bool = False, msdt_min_holdout: int = 0,
             seed: int = 0, macro: bool = False, plot=None):
-    """The body of ``run`` on the tensor ``X`` from the factors ``Ws``
-    (run.cxx; JAX cli.py:435-462): the CPD of the optimizer ``pp`` picks
+    """The body of ``run`` on the tensor ``X`` (dense, or a COO
+    ``SparseTensor``) from the factors ``Ws`` (run.cxx; JAX
+    cli.py:435-462): the CPD of the optimizer ``pp`` picks
     (``RUN_OPTIMIZERS``), its ALS loop to the absolute gradnorm ``tol``;
     with ``macro``, MSDT steps a full rotation per call. Returns the CPD,
     whose ``history`` holds the logged rows."""
@@ -285,18 +372,21 @@ def run_cpd(X, Ws, pp: int, *, tol: float, maxiter: int, resprint: int,
 
 
 def cmd_run(args) -> int:
-    """The second-gen CPD on a dense synthetic tensor (run.cxx; JAX
-    cli.py:411-466): -pp picks the optimizer, ``-device_loop`` >= 1 runs
-    MSDT a full rotation per step; the LR optimizers' randomized SVD
-    draws from ``-seed``."""
+    """The second-gen CPD (run.cxx; JAX cli.py:411-466) on dense V or,
+    with -issparse 1, on the COO of V's nonzeros: -pp picks the
+    optimizer, ``-device_loop`` >= 1 runs MSDT a full rotation per step;
+    the LR optimizers' randomized SVD draws from ``-seed``."""
     from pairwise_perturbation_tpu_torch.models import cp
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
     device = _device(args.device)
     _print_banner(args)
-    V, dtype = _synthetic(args)
+    V, dtype = _load_tensor(args)
     Vnorm = float(np.linalg.norm(V.ravel()))
-    X = _dense(args, V, device)
+    # run builds the COO from the float32 values, unrounded under
+    # -dtype bfloat16 (JAX cli.py:429-438), unlike test_als
+    X = _sparse_tensor(args, V, device) if args.issparse \
+        else _dense(args, V, device)
     Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
                          device=device)
     plot = PlotFile(args.filename, PlotFile.CP_HEADER, echo=not args.quiet)
@@ -432,7 +522,7 @@ def cmd_pp_bench(args) -> int:
 
     device = _device(args.device)
     _print_banner(args)
-    V, dtype = _synthetic(args)
+    V, dtype = _load_tensor(args)
     X = _dense(args, V, device)
     plot = PlotFile(args.filename, PlotFile.BENCH_HEADER,
                     echo=not args.quiet)
@@ -451,16 +541,11 @@ def cmd_pp_bench(args) -> int:
 
 
 def _sparse_tensor(args, V, device):
-    """-issparse 1: the COO of V's nonzeros for the sparse engine
-    (models/sparse_cp.py), as the JAX package's _cmd_test_als_sparse
-    (cli.py:297-348) builds it. With -dtype bfloat16 the COO values are
-    V's bf16-rounded values stored in float32, as the JAX package stores
-    them."""
-    import torch
+    """-issparse 1: the COO of the nonzeros of the host array V, as the
+    JAX package's _cmd_test_als_sparse (cli.py:297-348) and cmd_run
+    (:429-441) build it, and its nnz/density line."""
     from pairwise_perturbation_tpu_torch.ops import sparse
 
-    if args.dtype == "bfloat16":
-        V = torch.from_numpy(V).to(torch.bfloat16).float().numpy()
     st = sparse.from_dense(V, device=device)
     density = st.nnz / float(np.prod(st.shape))
     if not args.quiet:
@@ -487,8 +572,17 @@ def main(argv=None) -> int:
     config.apply_fp32_pins()
     if args.profile:
         tracing.enable()
-    rc = {"test_als": cmd_test_als, "run": cmd_run,
-          "pp_bench": cmd_pp_bench}[cmd](args)
+    run = {"test_als": cmd_test_als, "run": cmd_run,
+           "pp_bench": cmd_pp_bench}[cmd]
+    if args.profile and args.trace_dir:
+        # a device trace only under -profile 1, as in JAX cli.py:611-625
+        with tracing.device_trace(args.trace_dir) as path:
+            with tracing.annotate(f"cli.{cmd}"):
+                rc = run(args)
+        if not args.quiet:
+            print(f"device trace written to {path}")
+    else:
+        rc = run(args)
     if args.profile:
         print("\n" + tracing.report())
     return rc

@@ -15,8 +15,12 @@ port of ``pairwise_perturbation_tpu/models/optimizers.py``.
 
 Each step is eager PyTorch on V's device; the factor and state rotation
 stays on the host. The JAX package compiles one computation per
-(left_index, positions) signature; the port compiles nothing. Dense V only:
-the sparse chain top needs ``sparse.ttm_dense`` (ROADMAP A13).
+(left_index, positions) signature; the port compiles nothing. V may be a
+COO :class:`~pairwise_perturbation_tpu_torch.ops.sparse.SparseTensor`
+(``run -issparse 1``, run.cxx:137-140): its chain tops are one
+fused-index ``index_add_`` (``sparse.ttm_dense``), the rest of each chain
+is dense, and Simple's sweep and the diagnostics are the sparse engine's
+(models/sparse_cp.py).
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pairwise_perturbation_tpu_torch.models import cp
+from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
 from pairwise_perturbation_tpu_torch.ops import contract, dimtree, solve
-from pairwise_perturbation_tpu_torch.ops.sparse import SparseTensor
+from pairwise_perturbation_tpu_torch.ops import sparse
 from pairwise_perturbation_tpu_torch.utils import tracing
 from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile, SweepClock
 
@@ -39,12 +43,25 @@ def rotation_indexes(left_index: int, order: int) -> Tuple[int, ...]:
     return tuple(list(range(left_index + 1, order)) + list(range(left_index)))
 
 
+def _sparse_top(st, W, left_index: int):
+    """V x_left W for a COO V: ``sparse.ttm_dense`` (remaining modes
+    ascending, then rank) permuted to indexes order + rank, as a view."""
+    order = st.ndim
+    T = sparse.ttm_dense(st, W, left_index, rank_last=True)
+    ascending = [m for m in range(order) if m != left_index]
+    perm = [ascending.index(m) for m in rotation_indexes(left_index, order)]
+    return T.permute(perm + [len(ascending)])
+
+
 def chain_top(V, W_left, *, left_index: int):
     """First-level contraction V x W[left_index], axes in indexes order +
     rank (mttkrp_map_init, cp_msdt_optimizer.cxx:111-144), through
     :meth:`dimtree.ChainTreeSweep.top` (the mid_contract kernel for an
-    eligible hold-out under ``config.use_kernels_first``)."""
+    eligible hold-out under ``config.use_kernels_first``); for a COO V,
+    one fused-index ``index_add_`` over the nonzeros."""
     order = V.ndim
+    if isinstance(V, sparse.SparseTensor):
+        return _sparse_top(V, W_left, left_index)
     sweep = dimtree.ChainTreeSweep(
         V, [W_left if i == left_index else None for i in range(order)],
         rotation_indexes(left_index, order), left_index)
@@ -101,12 +118,16 @@ def lr_update_cache(V, cache, U, s, VT, *, left_index: int):
     """cache + (V x_left (U s)) x VT: the low-rank refresh of a cached
     first-level contraction (update_cached_tensor,
     cp_dt_lr_optimizer.cxx:128-158 / cp_msdt_lr_optimizer.cxx:112-157),
-    O(s^N * update_rank) in place of O(s^N * R)."""
-    order = V.ndim
-    T, rem = contract.contract_mode_kr(V, tuple(range(order)), False,
-                                       U * s, left_index)
-    perm = [rem.index(m) for m in rotation_indexes(left_index, order)]
-    T = T.permute(perm + [len(rem)])
+    O(s^N * update_rank) in place of O(s^N * R). For a COO V, the x_left
+    contraction is one fused-index ``index_add_`` over the nonzeros."""
+    if isinstance(V, sparse.SparseTensor):
+        T = _sparse_top(V, U * s, left_index)
+    else:
+        order = V.ndim
+        T, rem = contract.contract_mode_kr(V, tuple(range(order)), False,
+                                           U * s, left_index)
+        perm = [rem.index(m) for m in rotation_indexes(left_index, order)]
+        T = T.permute(perm + [len(rem)])
     return cache + torch.tensordot(T, VT, dims=([T.ndim - 1], [0]))
 
 
@@ -161,10 +182,6 @@ class Decomposition:
         self.W: Optional[List] = None
 
     def init(self, V, W: Sequence):
-        if isinstance(V, SparseTensor):
-            raise NotImplementedError(
-                "the second-gen optimizers on a sparse V are not ported yet: "
-                "the sparse chain top needs sparse.ttm_dense (ROADMAP A13)")
         assert V.ndim == self.order
         for i in range(self.order):
             assert V.shape[i] == self.sizes[i]
@@ -202,9 +219,17 @@ class CPOptimizer:
 class CPSimpleOptimizer(CPOptimizer):
     """One sweep of exact per-mode MTTKRPs (cp_simple_optimizer.cxx:step):
     ``cp.simple_sweep``, whose MTTKRPs of an order-3 float32 V are the
-    fused kernels (K1-K3) on the card."""
+    fused kernels (K1-K3) on the card; for a COO V
+    ``sparse_cp.sparse_simple_sweep``, whose MTTKRPs of float32 values
+    are the COO kernel (K7), and no gradients."""
 
     def step(self) -> float:
+        if isinstance(self.V, sparse.SparseTensor):
+            self.W = sparse_cp.sparse_simple_sweep(
+                self.V, self.W, self._lam(self.W[0].dtype), solver="chol",
+                normalize=False)
+            self.grads = None
+            return 1.0
         self.W, self.grads = cp.simple_sweep(
             self.V, self.W, self._lam(self.W[0].dtype), solver="chol",
             normalize=False)
@@ -495,9 +520,14 @@ class CPD(Decomposition):
 
         The JAX package also excludes steps that block the host beyond
         50 ms, up to 3 per mode, as compiles; the port compiles nothing,
-        so every step counts toward dtime."""
+        so every step counts toward dtime. A COO V takes the sparse
+        engine's norm and diagnostics (models/sparse_cp.py)."""
         V = self.V
-        V_norm_sq = contract.norm_sq(V)
+        if isinstance(V, sparse.SparseTensor):
+            V_norm_sq, diagnostics = (sparse.norm_sq(V),
+                                      sparse_cp.sparse_diagnostics)
+        else:
+            V_norm_sq, diagnostics = contract.norm_sq(V), cp.cp_diagnostics
         clock = SweepClock()
         opt = self.optimizer
         macro = macro and hasattr(opt, "step_cycle")
@@ -511,7 +541,7 @@ class CPD(Decomposition):
                 cp._sync()
                 with clock.exclude():
                     gn, dV = tracing.timed(
-                        "cp.diagnostics", cp.cp_diagnostics, V_norm_sq, V,
+                        "cp.diagnostics", diagnostics, V_norm_sq, V,
                         opt.W, opt._lam(opt.W[0].dtype))
                     self.gradnorm, diffV = float(gn), float(dV)
                 dtime = clock.dtime()

@@ -147,7 +147,8 @@ def mttkrp(st: SparseTensor, Ws: Sequence, mode: int):
     kernel module (K7), which launches its CUDA kernel for a CUDA tensor
     (or raises) and runs its plain version for a CPU one; everything else
     takes the plain gather + ``index_add_`` (the JAX package's 'segment'
-    route; its 'onehot' route is not ported, ROADMAP A13)."""
+    route; its 'onehot' route, one-hot matmuls for the TPU's matrix
+    unit, is not ported)."""
     if _kernel_route(st):
         from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
         return coo_mttkrp.coo_mttkrp(st, _contiguous(Ws), mode)

@@ -11,8 +11,9 @@ The reference parses single-dash long options with a hand-rolled scan
 
 plus the JAX package's additions (-dtype, -mesh, -seed, -checkpoint,
 -resume, -device_loop, -layouts, -profile, -trace_dir, ...) and -device.
-Flags whose code is not ported yet are accepted by the parser and
-refused by the CLI with the ROADMAP step that brings them.
+Flags whose code is not ported yet (-mesh, -device_loop >= 1 of
+test_als and pp_bench, -layouts 1) are accepted by the parser and refused
+by the CLI with the ROADMAP step that brings them.
 Defaults and clamping follow test_ALS.cxx:64-196 / run.cxx:67-214.
 """
 
@@ -27,7 +28,8 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-model", default="CP", choices=["CP", "Tucker"])
     p.add_argument("-tensor", default="p",
-                   help="p | p2 | c | r | r2 (o1/o2 datasets not ported)")
+                   help="p | p2 | c | r | r2 | o1 (coil-100) | o2 "
+                        "(time-lapse), the last two read from -tensorfile")
     p.add_argument("-pp", type=int, default=0,
                    help="test_als: 0 DT, 1 PP, 2 PP-partupdate; "
                         "run: 0 DT, 1 MSDT, 2 DT-LR, 3 MSDT-LR, 4 Simple")
@@ -38,7 +40,8 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-updaterank", type=int, default=1)
     p.add_argument("-randomsvd", type=int, default=0)
     p.add_argument("-issparse", type=int, default=0,
-                   help="1: COO sparse engine (test_als -model CP -pp 0/1)")
+                   help="1: COO sparse engine (test_als -model CP or Tucker "
+                        "-pp 0/1; run, every optimizer)")
     p.add_argument("-resprint", type=int, default=10)
     p.add_argument("-tol", type=float, default=1e-10,
                    help="relative tolerance; multiplied by ||V||")
@@ -60,9 +63,11 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-mesh", default="", help="device mesh: not ported")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("-checkpoint", default="",
-                   help="factor checkpoints: not ported")
+                   help="test_als: write the final factors (and Tucker's "
+                        "core) to this path + .npz")
     p.add_argument("-resume", default="",
-                   help="resume from checkpoint: not ported")
+                   help="dense CP test_als: start from this checkpoint's "
+                        "factors")
     p.add_argument("-device_loop", type=int, default=0,
                    help="run: >= 1 steps MSDT and MSDT-LR (-pp 1, 3) a "
                         "full MSDT rotation per call (macro steps, as the "
@@ -87,7 +92,8 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
                    help="1: per-phase host timer scopes (synchronized; adds "
                         "overhead) + tracing report at exit")
     p.add_argument("-trace_dir", default="",
-                   help="device traces: not ported")
+                   help="with -profile 1: write a torch.profiler trace "
+                        "(Chrome-trace JSON) of the command here")
     p.add_argument("-device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     return p

@@ -1,17 +1,23 @@
-"""Named host-side timer scopes — port of the JAX package's
-``utils/tracing.py`` (``timer``, ``timed``, ``report``), which replaces
-CTF's ``Timer`` / ``Timer_epoch`` scopes (common.cxx:136-137).
+"""Named host-side timer scopes and device traces — port of the JAX
+package's ``utils/tracing.py`` (``timer``, ``timed``, ``report``,
+``device_trace``, ``annotate``), which replaces CTF's ``Timer`` /
+``Timer_epoch`` scopes (common.cxx:136-137).
 
 Usage:
 
     with timer("SVD_solve"):
         ...
     print(report())
+
+    with device_trace("traces/"):     # torch.profiler, Chrome-trace JSON
+        with annotate("sweep"):       # a named range in that trace
+            run_sweep()
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
 import time
 from collections import defaultdict
@@ -91,3 +97,41 @@ def reset() -> None:
     _times.clear()
     _counts.clear()
     _samples.clear()
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str) -> Iterator[str]:
+    """``torch.profiler`` over the region: host activity, and the card's
+    kernels and copies when a card is present. On exit the trace is
+    written to ``logdir`` (made if missing) as Chrome-trace JSON,
+    ``trace.<pid>.<ms>.json``, which chrome://tracing and Perfetto open.
+    Yields the file's path."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(
+        logdir, f"trace.{os.getpid()}.{int(time.time() * 1e3)}.json")
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield path
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range in :func:`device_trace`'s trace and, on a card, an
+    NVTX range."""
+    with torch.profiler.record_function(name):
+        if not torch.cuda.is_available():
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()

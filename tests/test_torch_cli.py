@@ -70,17 +70,20 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,step", [
-    (["run", "-issparse", "1"], "A13"),
+    (["run", "-issparse", "1", "-resume", "ck.npz"], "reads no checkpoint"),
     (["pp_bench", "-model", "Tucker", "-device_loop", "1"], "A14"),
-    (["-model", "Tucker", "-checkpoint", "ck"], "A16"),
+    (["-issparse", "1", "-model", "Tucker", "-resume", "ck.npz"],
+     "reads no checkpoint"),
     (["run", "-mesh", "4"], "A15"),
     (["-issparse", "1", "-model", "Tucker", "-device_loop", "1"], "A14"),
     (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "A14"), (["-device_loop", "2"], "A14"),
     (["-layouts", "1"], "A16"),
-    (["-tensor", "o1"], "A16"), (["-tensor", "o2"], "A16"),
-    (["-checkpoint", "ck"], "A16"), (["-resume", "ck.npz"], "A16"),
-    (["-trace_dir", "tr"], "A16"),
+    (["pp_bench", "-resume", "ck.npz"], "reads no checkpoint"),
+    (["-issparse", "1", "-resume", "ck.npz"], "reads no checkpoint"),
+    (["run", "-checkpoint", "ck"], "writes no checkpoint"),
+    (["run", "-resume", "ck.npz"], "reads no checkpoint"),
+    (["pp_bench", "-checkpoint", "ck"], "writes no checkpoint"),
 ])
 def test_cli_refuses_unported_features(argv, step):
     if argv[0] in ("run", "pp_bench"):

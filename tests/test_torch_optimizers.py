@@ -25,6 +25,7 @@ from pairwise_perturbation_tpu.models import cp as jcp
 from pairwise_perturbation_tpu.models import optimizers as jopt
 from pairwise_perturbation_tpu.ops import dimtree as jdt
 from pairwise_perturbation_tpu.ops import solve as jsolve
+from pairwise_perturbation_tpu.ops import sparse as jsp
 from pairwise_perturbation_tpu_torch import cli, config
 from pairwise_perturbation_tpu_torch.models import cp as tcp
 from pairwise_perturbation_tpu_torch.models import optimizers as topt
@@ -294,12 +295,23 @@ def test_randomsvd_draws_are_seeded():
     assert not all(torch.equal(x, y) for x, y in zip(a, c))
 
 
-def test_cpd_refuses_sparse_tensor():
+def test_cpd_als_on_sparse_tensor_matches_jax():
+    """CPD takes a COO tensor (run -issparse 1): MSDT's logged sweeps,
+    gradnorms and diffVs (the sparse diagnostics) of the JAX package's
+    loop, to rel 1e-8."""
     V, W0 = _problem((4, 5, 6))
-    st = sparse.from_dense(V, device="cpu")
-    model = topt.CPD(3, list(V.shape), 3, topt.CPMSDTOptimizer(3, 3))
-    with pytest.raises(NotImplementedError, match="A13"):
-        model.init(st, [_t(w) for w in W0])
+    V = V * (np.random.default_rng(1).random(V.shape) < 0.5)
+    jm = jopt.CPD(3, list(V.shape), 3, jopt.CPMSDTOptimizer(3, 3))
+    jm.init(jsp.from_dense(V), [jnp.asarray(w) for w in W0])
+    tm = topt.CPD(3, list(V.shape), 3, topt.CPMSDTOptimizer(3, 3))
+    tm.init(sparse.from_dense(V, device="cpu"), [_t(w) for w in W0])
+    jm.als(tol=0.0, timelimit=1e4, maxsweep=5, resprint=2)
+    tm.als(tol=0.0, timelimit=1e4, maxsweep=5, resprint=2)
+    assert [h["sweeps"] for h in tm.history] == \
+        [h["sweeps"] for h in jm.history]
+    for a, b in zip(tm.history, jm.history):
+        for k in ("gradnorm", "diffV"):
+            assert abs(a[k] - b[k]) <= 1e-8 * abs(b[k]), (a, b)
 
 
 @pytest.mark.parametrize("name", ["simple", "msdt", "dtlr"])

@@ -281,7 +281,7 @@ def test_cli_issparse_bf16_values_are_rounded(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,step", [
     (["test_als", "-model", "Tucker", "-pp", "2"], "no sparse engine"),
-    (["run"], "A13"),
+    (["pp_bench"], "no sparse engine"),
     (["test_als", "-pp", "2"], "no sparse engine"),
     (["test_als", "-mesh", "8"], "A15"),
 ])
