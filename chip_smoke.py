@@ -165,6 +165,33 @@ traceback and exits nonzero:
    diagnostics) and the cli.test_als range; without -profile no trace.
    ``--phases 10`` runs phases 1, 2 and 10 alone.
 
+11. The parallel layer's nnz-sharded half under torchrun
+   (scripts/multiprocess_worker.py), two ranks sharing the card over
+   gloo; every cluster has its own time limit; every time beside the
+   card's name and power limit.
+   11a. One cluster on phase 6b's fixture at rank 10, f32 and f64: the
+   five sharded sparse functions bit for bit equal on both ranks and
+   held to one process (f32 REL_TOL, K7 on each shard; f64 1e-10);
+   sparse CP-PP and Tucker-PP with mesh=, 10 sweeps, held to one-rank
+   runs in this process (the same logged rows and decisions; factors
+   within MESH_FACTOR_TOL, f32 Tucker by its diffV), medians beside one
+   rank's with the time in all_reduce; each rank's K7 launches equal the
+   phase machine's. A second cluster repeats the f32 K7 results bit for
+   bit (C6 on the card).
+   11b. Plain sparse ALS with mesh= at NELL-2's shape and nnz, rank 10,
+   maxiter 3: medians and peak memory per rank, K7 counted.
+   11c. ``test_als -model Tucker -issparse 1 -pp 1 -mesh 2`` at rank 1
+   (phase 9d's run) in f32 and f64 through cli.main in the second
+   cluster, CSVs checked; ``torchrun -m pairwise_perturbation_tpu_torch.cli
+   test_als -issparse 1 -pp 1 -mesh 2`` on phase 6's tensor, CSV checked,
+   row 0's gradnorm held to phase 6's (later rows printed: that run's
+   Grams are near singular).
+   11d. A world of one on NCCL (``--nproc_per_node 1``, ``-mesh 1``): its
+   CSV equals phase 6's bit for bit but for [dtime].
+   11e. sharded_mttkrp at 200^3 f32 in the first cluster, K1-K3 once on
+   each rank's block, held to one process.
+   ``--phases 11`` runs phases 1, 2 and 11 alone.
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -2610,6 +2637,398 @@ def run_phase10(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the parallel layer's nnz-sharded half, 2 ranks under torchrun
+# ---------------------------------------------------------------------------
+
+# One H100: the two ranks share cuda:0 over gloo, which stages every
+# all_reduce through the host. Each cluster gets a time limit of its own.
+MESH_RANKS = 2
+CLUSTER_S = 300
+# The sharded engines' runs at the fixture: CP-PP as phase 6b-6c runs it,
+# Tucker-PP as phase 9d does (its PP rows printed, not required); 10
+# sweeps each, every one logged.
+MESH_CP_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
+MESH_TK_CFG = dict(tol=0.0, pp_res_tol=SPARSE_TUCKER_PP_RES_TOL, maxiter=10,
+                   resprint=1)
+# Sharded against one-rank factors after 10 sweeps (relative max-norm for
+# CP, the largest principal angle's sine for Tucker): float64 round-off
+# grown through the solves, and float32's through 10 sweeps of solves.
+MESH_FACTOR_TOL = {"float64": 1e-8, "float32": 1e-3}
+# Tucker at rank 10 on uniform nonzeros: the rank-10 subspaces are not
+# determined in float32 (one rank's float32 factors are at a sine of 1.0
+# from its float64 ones), and its DT <-> PP decisions vary from run to run
+# even on one rank (index_add_ adds in no fixed order on the card), so
+# float32 Tucker is held by its fit: the same logged iterations, every
+# diffV within this relative distance of one rank's.
+MESH_TUCKER_F32_DIFFV = 1e-5
+# float64 functions against one process (index_add_ in both, summed in
+# another order).
+MESH_F64_TOL = 1e-10
+MESH_PHASES = SPARSE_PHASES + ("mesh.all_reduce",)
+
+
+def run_mesh_cluster(nproc, argv, label):
+    """torchrun --standalone with ``nproc`` ranks (the worker's launcher:
+    one thread a rank, SIGTERM then kill at CLUSTER_S); raises on a
+    nonzero exit. Returns the output."""
+    from pairwise_perturbation_tpu_torch.scripts import multiprocess_worker
+    t0 = time.perf_counter()
+    rc, out = multiprocess_worker.run_cluster(nproc, argv, CLUSTER_S)
+    print(f"{label}: {nproc} ranks, exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s (start-up included)")
+    if rc != 0:
+        raise AssertionError(f"{label}: torchrun exited {rc}\n{out[-6000:]}")
+    return out
+
+
+def worker_results(outdir, n=MESH_RANKS):
+    import numpy as np
+    return [dict(np.load(os.path.join(outdir, f"result_{r}.npz")))
+            for r in range(n)]
+
+
+def mesh_inputs(path, st, Ws, Ts, nell2, V, Wd):
+    """The worker's inputs: the fixture's COO (K7 runs on each rank's
+    shard), CP and Tucker factors, the engines' configurations, NELL-2's
+    COO (plain ALS) and a dense 200^3 tensor (sharded_mttkrp)."""
+    import numpy as np
+    d = dict(indices=st.indices.cpu().numpy(), values=st.values.cpu().numpy(),
+             shape=np.asarray(st.shape), cp_cfg=json.dumps(MESH_CP_CFG),
+             tk_cfg=json.dumps(MESH_TK_CFG),
+             tk_ranks=np.asarray([SPARSE_TUCKER_RANK] * st.ndim),
+             als_indices=nell2.indices.cpu().numpy(),
+             als_values=nell2.values.cpu().numpy(),
+             als_shape=np.asarray(nell2.shape), als_rank=10,
+             als_cfg=json.dumps(dict(tol=0.0, maxiter=3, resprint=3)),
+             V=V.cpu().numpy(), mesh_shape=np.asarray([MESH_RANKS]))
+    for name, fs in (("cp_W", Ws), ("tk_W", Ts), ("d_W", Wd)):
+        for i, W in enumerate(fs):
+            d[f"{name}{i}"] = W.cpu().numpy()
+    np.savez(path, **d)
+
+
+def check_ranks_equal(results, label, keys=None):
+    """Every rank's digest of every result (or of ``keys``) is rank 0's."""
+    import numpy as np
+    ref = results[0]
+    keys = keys or [k for k in ref if k.startswith("sha/")]
+    for res in results[1:]:
+        bad = [k for k in keys if not np.array_equal(res[k], ref[k])]
+        if bad:
+            raise AssertionError(f"{label}: ranks differ in {bad[:5]}")
+    print(f"{label}: {len(keys)} results bit for bit equal on "
+          f"{len(results)} ranks")
+
+
+def held_errs(res, prefix, tol, label):
+    """Raise unless every ``err/<prefix>...`` (the worker's distance from
+    one process) is within ``tol``; return the largest."""
+    errs = {k[4:]: float(v) for k, v in res.items()
+            if k.startswith("err/" + prefix)}
+    if not errs:
+        raise AssertionError(f"{label}: no results under {prefix}")
+    worst = max(errs, key=errs.get)
+    print(f"{label}: {len(errs)} results, largest relative distance from "
+          f"one process {errs[worst]:.3e} ({worst})")
+    if not errs[worst] <= tol:
+        raise AssertionError(f"{label}: {worst} {errs[worst]:.3e} > {tol}")
+    return errs[worst]
+
+
+def scope_line(stats, names=MESH_PHASES):
+    """Medians in ms (count) of the scopes ``names`` in ``stats``."""
+    return ", ".join(f"{n} {1e3 * stats[n][2]:.3f} ({stats[n][0]})"
+                     for n in names if n in stats)
+
+
+def one_rank_run(engine, st, W0, dtype, ranks=None):
+    """The unsharded engine on the fixture (this process), from the same
+    factors (CP) or its own sketch HOSVD (Tucker); returns (result, scope
+    stats, wall s)."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
+    from pairwise_perturbation_tpu_torch.models import sparse_tucker, tucker
+    from pairwise_perturbation_tpu_torch.ops import sparse
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    std = sparse.SparseTensor(st.indices, st.values.to(dtype), st.shape)
+    tracing.reset()
+    tracing.enable()
+    t0 = time.perf_counter()
+    if engine == "cp":
+        res = sparse_cp.als_cp_pp_sparse(std, [W.to(dtype) for W in W0],
+                                         cp.CPConfig(**MESH_CP_CFG))
+    else:
+        res = sparse_tucker.als_tucker_pp_sparse(
+            std, ranks, tucker.TuckerConfig(**MESH_TK_CFG))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracing.enable(False)
+    return res, tracing.stats(), wall
+
+
+def factor_distance(A, B, tucker):
+    """The largest over the modes of the relative max-norm difference
+    (CP) or of the principal angle's sine (Tucker) between two runs'
+    factors (host arrays or tensors)."""
+    import torch
+    errs = []
+    for a, b in zip(A, B):
+        a = torch.as_tensor(a).cuda().double()
+        b = torch.as_tensor(b).cuda().double()
+        errs.append(subspace_sin(a, b) if tucker
+                    else float((a - b).abs().max() / a.abs().max()))
+    return max(errs)
+
+
+def held_engine(label, res_rank0, tag, d, one, stats_one, wall_one, smi,
+                tucker=False, yardstick=None):
+    """A sharded engine run (rank 0's history and factors; every rank's
+    are bitwise equal, checked apart) against the one-rank run: the same
+    logged rows and DT <-> PP decisions (CP: PP rows present), factors
+    within MESH_FACTOR_TOL (float32 Tucker: the same logged iterations and
+    diffV within MESH_TUCKER_F32_DIFFV)
+    (beside ``yardstick``, the one-rank float64 run's factors, for
+    float32); medians printed side by side. Returns (the rank's scope
+    stats, the failure or None)."""
+    hist = res_rank0[f"{tag}_hist/{d}"]
+    want = [(h["iter"], h["pp"]) for h in one.history]
+    got = [(int(r[0]), int(r[3])) for r in hist]
+    n_pp = sum(p for _, p in got)
+    mine = [res_rank0[f"{tag}_W/{d}/{i}"] for i in range(len(one.factors))]
+    err = factor_distance(one.factors, mine, tucker)
+    by_fit = tucker and d == "float32"
+    fit = max(abs(r[2] - h["diffV"]) / h["diffV"]
+              for r, h in zip(hist, one.history))
+    line = (f"{label}: {len(got)} rows ({n_pp} PP), factors against one "
+            f"rank: largest {'sine' if tucker else 'rel. difference'} "
+            f"{err:.3e} ({'printed' if by_fit else 'tol'} "
+            f"{MESH_FACTOR_TOL[d]}); diffV rel. difference {fit:.3e}"
+            + (f" (tol {MESH_TUCKER_F32_DIFFV})" if by_fit else ""))
+    if yardstick is not None:
+        line += (f"; against one rank's float64 run: 2 ranks "
+                 f"{factor_distance(yardstick, mine, tucker):.3e}, 1 rank "
+                 f"{factor_distance(yardstick, one.factors, tucker):.3e}")
+    print(line)
+    stats = json.loads(str(res_rank0[f"{tag}_stats/{d}"]))
+    wall = float(res_rank0[f"{tag}_wall/{d}"])
+    red = stats.get("mesh.all_reduce", (0, 0.0))
+    names = SPARSE_TUCKER_PHASES if tucker else SPARSE_PHASES
+    print(f"  2 ranks ({smi}): wall {wall:.3f} s, all_reduce {red[0]} calls "
+          f"{red[1]:.3f} s ({100 * red[1] / wall:.1f}% of the wall); "
+          f"medians ms: {scope_line(stats, names + ('mesh.all_reduce',))}")
+    print(f"  1 rank: wall {wall_one:.3f} s; medians ms: "
+          f"{scope_line(stats_one, names)}")
+    if by_fit and [i for i, _ in got] != [i for i, _ in want]:
+        return stats, f"{label}: logged iterations {got}, one rank's {want}"
+    if got != want:
+        msg = f"{label}: logged (iter, pp) {got}, one rank's {want}"
+        if not by_fit:
+            return stats, msg
+        print(f"  decisions differ (not held in float32 Tucker): {msg}")
+    if n_pp == 0 and not tucker:
+        return stats, f"{label}: no PP rows"
+    if by_fit and not fit <= MESH_TUCKER_F32_DIFFV:
+        return stats, f"{label}: diffV off one rank's"
+    if not by_fit and not err <= MESH_FACTOR_TOL[d]:
+        return stats, f"{label}: factors off one rank's"
+    return stats, None
+
+
+def run_mesh_engines(st, W0, results, smi):
+    """11a's engine half: CP-PP (from ``W0``) and Tucker-PP with mesh=,
+    f64 then f32, held to one-rank runs in this process; the K7 launches
+    of each rank's CP f32 run against the phase machine. Every comparison
+    is printed before the first failure raises. Returns the K7
+    launches."""
+    import torch
+    k7, failures, f64 = 0, [], {}
+    for dtype in ("float64", "float32"):
+        tdt = getattr(torch, dtype)
+        for tag, tucker in (("cp", False), ("tk", True)):
+            one, stats_one, wall_one = one_rank_run(
+                "tucker" if tucker else "cp", st, W0, tdt,
+                (SPARSE_TUCKER_RANK,) * 4)
+            name = "Tucker-PP" if tucker else "CP-PP"
+            _, bad = held_engine(
+                f"11a sparse {name} mesh=2 {dtype}", results[0], tag, dtype,
+                one, stats_one, wall_one, smi, tucker, f64.get(tag))
+            failures += [bad] if bad else []
+            f64.setdefault(tag, [W.double() for W in one.factors])
+            for key in (f"{tag}_W/{dtype}/0", f"{tag}_hist/{dtype}"):
+                check_ranks_equal(results, f"11a {key}", [f"sha/{key}"])
+        for r, res in enumerate(results):
+            n = int(res[f"cp_k7/{dtype}"])
+            want = expected_coo_launches(json.loads(str(
+                res[f"cp_stats/{dtype}"])), 4) if dtype == "float32" else 0
+            if n != want:
+                failures.append(f"11a CP {dtype} rank {r}: K7 launches {n}, "
+                                f"expected {want}")
+            k7 += n
+            if int(res[f"tk_k7/{dtype}"]):
+                failures.append("11a: a kernel launched on sparse Tucker")
+        print(f"  K7 launches per rank (CP {dtype}): "
+              f"{[int(r[f'cp_k7/{dtype}']) for r in results]}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return k7
+
+
+def run_phase11(smi):
+    """Phase 11 (11a-11e); returns {kernel id: launches}."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.scripts.multiprocess_worker import \
+        WORKER
+    t_phase = time.perf_counter()
+    launches = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    st = sparse_fixture()
+    Ts = [torch.linalg.qr(torch.randn((s, SPARSE_TUCKER_RANK), generator=gen,
+                                      device="cuda", dtype=torch.float64))[0]
+          for s in SPARSE_SHAPE]
+    Ws = cp.init_factors(SPARSE_SHAPE, 10, seed=0, dtype=torch.float64,
+                         device="cuda")
+    nell2, _ = random_coo(NELL2_SHAPE, NELL2_NNZ, 1, gen, seed=0)
+    V = torch.rand(MAIN_SHAPE[:3], generator=gen, device="cuda")
+    Wd = [torch.rand((s, MAIN_SHAPE[3]), generator=gen, device="cuda")
+          for s in MAIN_SHAPE[:3]]
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "in.npz")
+        mesh_inputs(inputs, st, Ws, Ts, nell2, V, Wd)
+        del nell2
+        torch.cuda.empty_cache()
+        phase("11a. sharded sparse functions and engines at "
+              "sparse200_4_nnz1.6M, rank 10, f32 and f64, 2 ranks over gloo "
+              "on one card (with 11b and 11e in the same cluster)")
+        run_mesh_cluster(MESH_RANKS, WORKER + [
+            "--inputs", inputs, "--outdir", os.path.join(tmp, "a"),
+            "--tasks", "functions,cp,tucker,als,dense"], "cluster A")
+        a = worker_results(os.path.join(tmp, "a"))
+        if {str(r["backend"]) for r in a} != {"gloo"}:
+            raise AssertionError("two ranks on one card must use gloo")
+        funcs = [k for k in a[0] if k.startswith("sha/") and k.split("/")[1]
+                 in ("norm_sq", "mttkrp", "single", "pair", "ttmc", "tsingle",
+                     "tpair", "gradnorm")]
+        check_ranks_equal(a, "11a sharded functions", funcs)
+        held_errs(a[0], "mttkrp/float32", REL_TOL,
+                  "11a sharded_sparse_mttkrp (K7) f32")
+        for pre in ("single/float32", "pair/float32", "ttmc/float32",
+                    "tsingle/float32", "tpair/float32", "gradnorm/float32"):
+            held_errs(a[0], pre, REL_TOL, f"11a {pre}")
+        for pre in ("mttkrp/float64", "single/float64", "pair/float64",
+                    "ttmc/float64", "tsingle/float64", "tpair/float64",
+                    "gradnorm/float64", "norm_sq/float64"):
+            held_errs(a[0], pre, MESH_F64_TOL, f"11a {pre}")
+        launches["K7"] = run_mesh_engines(st, Ws, a, smi)
+        phase("11b. plain sparse ALS with mesh= at NELL-2's shape and nnz, "
+              "rank 10, maxiter 3, 2 ranks")
+        for r, res in enumerate(a):
+            stats = json.loads(str(res["als_stats"]))
+            want = expected_coo_launches(stats, 3)
+            n = int(res["als_k7"])
+            red = stats.get("mesh.all_reduce", (0, 0.0))
+            hist = res["als_hist"]
+            print(f"11b rank {r} ({smi}): {int(res['als_nnz'])} nonzeros, "
+                  f"wall {float(res['als_wall']):.3f} s, all_reduce "
+                  f"{red[0]} calls {red[1]:.3f} s, peak memory "
+                  f"{int(res['als_peak_bytes']) / 2**30:.2f} GiB, K7 {n} "
+                  f"(expected {want}); gradnorm {hist[0, 1]:.6e} -> "
+                  f"{hist[-1, 1]:.6e}; medians ms: {scope_line(stats)}")
+            if n != want or not hist[-1, 1] < hist[0, 1]:
+                raise AssertionError(f"11b rank {r}: K7 launches {n} (want "
+                                     f"{want}) or gradnorm did not fall")
+            launches["K7"] += n
+        phase("11e. sharded_mttkrp at 200^3 f32 over 2 ranks (K1-K3 on each "
+              "block)")
+        held_errs(a[0], "smttkrp", REL_TOL, "11e sharded_mttkrp rank 0")
+        held_errs(a[1], "smttkrp", REL_TOL, "11e sharded_mttkrp rank 1")
+        for r, res in enumerate(a):
+            blk = json.loads(str(res["block_launches"]))
+            n = [blk[f"mttkrp3.{m}"] for m in range(3)]
+            print(f"11e rank {r} block {res['spans'].tolist()}: K1-K3 "
+                  f"launches {n}")
+            if n != [1, 1, 1]:
+                raise AssertionError(f"11e rank {r}: K1-K3 launches {n}")
+            for m in range(3):
+                launches[f"K{m + 1}"] = launches.get(f"K{m + 1}", 0) + 1
+        del a
+        phase("11a (repeat) and 11c: a second cluster: the f32 functions "
+              "again, bit for bit; test_als -model Tucker -issparse 1 -pp 1 "
+              "-mesh 2 at rank 1, f32 and f64, through cli.main in the "
+              "world")
+        tk_csv = {d: os.path.join(tmp, f"tk_{d}.csv")
+                  for d in ("float32", "float64")}
+        argv = [SPARSE_TUCKER_CLI + ["-dtype", d, "-mesh", "2", "-quiet",
+                                     "-filename", tk_csv[d]]
+                for d in tk_csv]
+        b_in = os.path.join(tmp, "b.npz")
+        with np.load(inputs) as data:
+            np.savez(b_in, cli_argv=json.dumps(argv), **{
+                k: data[k] for k in data.files
+                if k in ("indices", "values", "shape") or
+                k.startswith("cp_W")})
+        run_mesh_cluster(MESH_RANKS, WORKER + [
+            "--inputs", b_in, "--outdir", os.path.join(tmp, "b"),
+            "--tasks", "functions,cli", "--dtypes", "float32"], "cluster B")
+        b = worker_results(os.path.join(tmp, "b"))
+        a0 = worker_results(os.path.join(tmp, "a"), 1)[0]
+        k7_keys = [k for k in b[0] if k.startswith("sha/") and
+                   k.split("/")[1] in ("mttkrp", "single", "pair",
+                                       "gradnorm", "norm_sq")]
+        check_ranks_equal([a0, b[0], b[1]], "11a K7 results, cluster A "
+                          "rank 0 against both ranks of cluster B", k7_keys)
+        if [int(x) for x in b[0]["cli_rc"]] != [0, 0]:
+            raise AssertionError(f"11c: cli.main returned {b[0]['cli_rc']}")
+        for d, path in tk_csv.items():
+            with open(path) as fh:
+                rows = list(csv.reader(fh))
+            check_tucker_csv(rows, f"11c CLI sparse Tucker -mesh 2 {d}",
+                             pp=True, fit=d == "float64",
+                             margin=F64_DIFFV_MARGIN)
+        phase("11c. torchrun -m pairwise_perturbation_tpu_torch.cli test_als "
+              "-issparse 1 -pp 1 -mesh 2 (phase 6's run), 2 ranks")
+        _, rows6, _ = run_sparse_cli()
+        out6 = os.path.join(tmp, "cp_mesh2.csv")
+        cli_args = ["-m", "pairwise_perturbation_tpu_torch.cli", "test_als",
+                    *SPARSE_CLI, "-maxiter", "40", "-resprint", "1",
+                    "-pp_res_tol", "0.1"]
+        out = run_mesh_cluster(MESH_RANKS, cli_args + [
+            "-mesh", "2", "-profile", "1", "-filename", out6], "11c CLI")
+        if "backend=  gloo" not in out or "nnz split over 2" not in out:
+            raise AssertionError("11c: no gloo banner or sharded COO line")
+        with open(out6) as fh:
+            rows = list(csv.reader(fh))
+        check_csv(rows, "11c CLI -mesh 2 (Poisson 100^4 rank 10, f32)")
+        gn0, gn0_one = float(rows[1][2]), float(rows6[1][2])
+        rel0 = abs(gn0 - gn0_one) / gn0_one
+        later = [abs(float(x[2]) - float(y[2])) / float(y[2])
+                 for x, y in zip(rows[2:], rows6[2:])]
+        print(f"11c [gradnorm] against phase 6's run: row 0 {rel0:.3e} "
+              f"(held to {REL_TOL}); later rows up to "
+              f"{max(later or [0.0]):.3e}, not held: the Poisson tensor's "
+              "Grams at rank 10 are near singular, so the sharded sums' "
+              "round-off moves the trajectory")
+        if not rel0 <= REL_TOL:
+            raise AssertionError("11c: row 0's gradnorm off phase 6's")
+        phase("11d. a world of one on NCCL: torchrun --nproc_per_node 1, "
+              "-mesh 1, against phase 6's run bit for bit")
+        out1 = os.path.join(tmp, "cp_mesh1.csv")
+        out = run_mesh_cluster(1, cli_args + ["-mesh", "1", "-filename",
+                                              out1], "11d CLI")
+        if "backend=  nccl" not in out:
+            raise AssertionError("11d: a world of one on a card is not NCCL")
+        with open(out1) as fh:
+            rows1 = list(csv.reader(fh))
+        check_same_rows("11d NCCL world of one against phase 6's run",
+                        rows1[1:], rows6[1:], (1, 2, 4, 5))
+    del st
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -2648,8 +3067,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="run only phases 1, 2 and these kernel phases "
                          f"(comma-separated, of {', '.join(KERNEL_PHASES)},"
-                         " 9 for Tucker and 10 for run -issparse 1, the "
-                         "datasets, checkpoints and traces)"
+                         " 9 for Tucker, 10 for run -issparse 1, the "
+                         "datasets, checkpoints and traces, and 11 for the "
+                         "nnz-sharded engines under torchrun)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
@@ -2657,7 +3077,7 @@ def main(argv=None) -> int:
     if args.phases is not None:
         names = args.phases.split(",")
         unknown = [n for n in names
-                   if n not in KERNEL_PHASES and n not in ("9", "10")]
+                   if n not in KERNEL_PHASES and n not in ("9", "10", "11")]
         if unknown:
             ap.error(f"unknown phases {unknown}")
         smi = run_kernel_phases([n for n in names if n in KERNEL_PHASES])
@@ -2665,6 +3085,8 @@ def main(argv=None) -> int:
             run_tucker(smi)
         if "10" in names:
             print(f"phase 10 launches: {run_phase10(smi)}")
+        if "11" in names:
+            print(f"phase 11 launches: {run_phase11(smi)}")
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -2747,6 +3169,9 @@ def main(argv=None) -> int:
     for kid, n in run_phase10(smi).items():
         launches[kid] += n
         by_phase.setdefault(kid, {})["10"] = n
+    for kid, n in run_phase11(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["11"] = n
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]

@@ -57,6 +57,16 @@ checkpoint's factors, the only path where the JAX package reads it.
 ``-profile 1 -trace_dir DIR`` also writes a torch.profiler trace of the
 command to DIR (utils/tracing.device_trace). What is not ported yet is
 refused with the ROADMAP step that brings it.
+
+``-mesh N`` runs ``test_als -model {CP,Tucker} -issparse 1`` on an
+nnz-sharded COO over a 1D mesh of N ranks (parallel/mesh.py), one process
+per rank, started by torchrun; rank 0 alone prints and writes the CSV:
+
+    torchrun --standalone --nproc_per_node 2 \
+        -m pairwise_perturbation_tpu_torch.cli test_als -model CP \
+        -tensor p -issparse 1 -pp 1 -dim 8 -size 10 -rank 10 -mesh 2
+
+The dense engines' ``-mesh`` waits for ROADMAP A15's dense half.
 """
 
 from __future__ import annotations
@@ -98,7 +108,16 @@ def _unsupported(args, cmd):
              "-device_loop >= 1 is not ported yet for test_als and "
              "pp_bench (ROADMAP A14); use -device_loop 0"))
     checks += [
-        (bool(args.mesh), "-mesh is not ported yet (ROADMAP A15)"),
+        (bool(args.mesh) and not args.issparse,
+         "-mesh on the dense engines is not ported yet (ROADMAP A15, dense "
+         "half); -mesh runs test_als -model {CP,Tucker} -issparse 1"),
+        (bool(args.mesh) and bool(args.issparse)
+         and (cmd != "test_als" or "x" in args.mesh),
+         "-issparse 1 is supported for test_als -model {CP,Tucker} "
+         "-pp {0,1} and for run (all optimizers); -mesh with sparse "
+         "only for test_als CP/Tucker on a 1D mesh (nnz-sharded COO, "
+         "parallel/mesh.shard_coo). Re-run without -issparse or "
+         "adjust -mesh."),
         (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16): "
          "its mode-minor copies of V serve the TPU's tiling"),
         (bool(args.resume) and not resumes,
@@ -125,6 +144,10 @@ def _print_banner(args):
     print(f"  timelimit=  {args.timelimit}  maxiter=  {args.maxiter}"
           f"  resprint=  {args.resprint}")
     print(f"  dtype=  {args.dtype}  device=  {args.device}")
+    if args.mesh:
+        from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+        print(f"  mesh=  {args.mesh}  backend=  {pmesh.backend()}  "
+              f"(nccl: a card per rank; gloo: CPU or ranks sharing a card)")
 
 
 def _planned_split(args, shape):
@@ -195,7 +218,8 @@ def _save_checkpoint(args, res, model, core=None):
     """-checkpoint: the result's factors (and Tucker's core), in natural
     mode order, with the JAX CLI's meta (cli.py:247-252, 283-289,
     339-345, 399-405)."""
-    if not args.checkpoint:
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    if not args.checkpoint or pmesh.rank() != 0:
         return
     from pairwise_perturbation_tpu_torch.utils import io
     meta = dict(model=model, tensor=args.tensor)
@@ -226,6 +250,64 @@ def _resumed_factors(args, shape, dtype, device):
     return [torch.from_numpy(f).to(dtype).to(device) for f in ck["factors"]]
 
 
+def _mesh_shape(args):
+    return tuple(int(x) for x in args.mesh.split("x"))
+
+
+def _join_mesh(args) -> bool:
+    """-mesh: join the torchrun world of one rank per mesh device
+    (parallel/mesh.distributed_init), or refuse and say how to launch.
+    ``args.device`` becomes the rank's device; ranks other than 0 run
+    quietly. Returns whether this call joined the world (False when the
+    caller had joined it already)."""
+    import torch.distributed as dist
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    n = int(np.prod(_mesh_shape(args)))
+    if not pmesh.launched() or pmesh.world_size() != n:
+        raise SystemExit(
+            f"-mesh {args.mesh} runs one process per mesh device (ROADMAP "
+            f"A15's parallel layer), and this process is in a world of "
+            f"{pmesh.world_size()}: launch {n} ranks with torchrun "
+            f"--standalone --nproc_per_node {n} -m "
+            "pairwise_perturbation_tpu_torch.cli ...")
+    joined = not dist.is_initialized()
+    args.device = str(pmesh.distributed_init(args.device))
+    if pmesh.rank() != 0:
+        args.quiet = True
+    return joined
+
+
+def _shard_coo(args, st, device):
+    """-mesh: this rank's block of the COO's nonzeros and the mesh (JAX
+    cli.py:316-326, 370-383); (st, None) without -mesh."""
+    if not args.mesh:
+        return st, None
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(_mesh_shape(args), device_type=device.type)
+    st = pmesh.shard_coo(st, mesh)
+    if not args.quiet:
+        print(f"  sharded COO: nnz split over {args.mesh} devices")
+    return st, mesh
+
+
+def _plot(args, header):
+    """The CSV writer, on rank 0 alone (None on the other ranks)."""
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
+    if pmesh.rank() != 0:
+        return None
+    return PlotFile(args.filename, header, echo=not args.quiet)
+
+
+def _solved(solve, plot, *a, **kw):
+    """``solve(*a, plot, **kw)``, the CSV closed after it."""
+    try:
+        return solve(*a, plot, **kw)
+    finally:
+        if plot is not None:
+            plot.close()
+
+
 def _dense(args, V, device):
     """V on ``device``, stored in bf16 under -dtype bfloat16."""
     import torch
@@ -254,10 +336,15 @@ def _test_als_tucker(args, V, Vnorm, device) -> int:
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
     t0 = time.perf_counter()
+    kw = {}
     if args.issparse:
         # the sparse Tucker engine takes no extraction options (JAX
         # cli.py:383-388): exact eigh, no quiet-mode skip
         X = _sparse_tensor(args, V, device)
+        if args.mesh:
+            # the HOSVD starts from the unsharded COO (JAX cli.py:376)
+            kw["init_st"] = X
+            X, kw["mesh"] = _shard_coo(args, X, device)
         cfg = tucker.TuckerConfig(tol=args.tol * Vnorm,
                                   pp_res_tol=args.pp_res_tol,
                                   maxiter=args.maxiter,
@@ -275,12 +362,8 @@ def _test_als_tucker(args, V, Vnorm, device) -> int:
                                   subspace_iters=args.tucker_subspace,
                                   pp_quiet_frac=args.tucker_pp_skip)
         solve = tucker.als_tucker if args.pp == 0 else tucker.als_tucker_pp
-    plot = PlotFile(args.filename, PlotFile.TUCKER_HEADER,
-                    echo=not args.quiet)
-    try:
-        res = solve(X, _tucker_ranks(args, X.ndim), cfg, plot)
-    finally:
-        plot.close()
+    res = _solved(solve, _plot(args, PlotFile.TUCKER_HEADER), X,
+                  _tucker_ranks(args, X.ndim), cfg, **kw)
     _save_checkpoint(args, res, "Tucker", core=res.core)
     if not args.quiet:
         print(f"\nIter = {res.iters} Final Diff norm {res.diffnorm:E}")
@@ -307,8 +390,11 @@ def cmd_test_als(args) -> int:
         V = torch.from_numpy(V).to(torch.bfloat16).float().numpy()
     if args.model == "Tucker":
         return _test_als_tucker(args, V, Vnorm, device)
+    kw = {}
     if args.issparse:
-        X = _sparse_tensor(args, V, device)
+        X, mesh = _shard_coo(args, _sparse_tensor(args, V, device), device)
+        if mesh is not None:
+            kw["mesh"] = mesh
         solve = (sparse_cp.als_cp_sparse, sparse_cp.als_cp_pp_sparse)[args.pp]
         split = None
     else:
@@ -329,11 +415,7 @@ def cmd_test_als(args) -> int:
                       resprint=args.resprint,
                       update_percentage=args.update_percentage_pp,
                       tree_split=split)
-    plot = PlotFile(args.filename, PlotFile.CP_HEADER, echo=not args.quiet)
-    try:
-        res = solve(X, Ws, cfg, plot)
-    finally:
-        plot.close()
+    res = _solved(solve, _plot(args, PlotFile.CP_HEADER), X, Ws, cfg, **kw)
     _save_checkpoint(args, res, "CP")
     if not args.quiet:
         print(f"\nIter = {res.iters} Final grad norm {res.gradnorm:E}")
@@ -558,6 +640,7 @@ def _sparse_tensor(args, V, device):
 
 def main(argv=None) -> int:
     from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
     from pairwise_perturbation_tpu_torch.utils import flags, tracing
     argv = list(sys.argv[1:] if argv is None else argv)
     cmd = "test_als"
@@ -569,22 +652,28 @@ def main(argv=None) -> int:
     why = _unsupported(args, cmd)
     if why:
         raise SystemExit(why)
+    joined = bool(args.mesh) and _join_mesh(args)
     config.apply_fp32_pins()
     if args.profile:
         tracing.enable()
     run = {"test_als": cmd_test_als, "run": cmd_run,
            "pp_bench": cmd_pp_bench}[cmd]
-    if args.profile and args.trace_dir:
-        # a device trace only under -profile 1, as in JAX cli.py:611-625
-        with tracing.device_trace(args.trace_dir) as path:
-            with tracing.annotate(f"cli.{cmd}"):
-                rc = run(args)
-        if not args.quiet:
-            print(f"device trace written to {path}")
-    else:
-        rc = run(args)
-    if args.profile:
-        print("\n" + tracing.report())
+    try:
+        if args.profile and args.trace_dir:
+            # a device trace only under -profile 1, as in JAX
+            # cli.py:611-625
+            with tracing.device_trace(args.trace_dir) as path:
+                with tracing.annotate(f"cli.{cmd}"):
+                    rc = run(args)
+            if not args.quiet:
+                print(f"device trace written to {path}")
+        else:
+            rc = run(args)
+        if args.profile and pmesh.rank() == 0:
+            print("\n" + tracing.report())
+    finally:
+        if joined:
+            pmesh.distributed_close()
     return rc
 
 

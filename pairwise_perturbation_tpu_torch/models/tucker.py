@@ -25,8 +25,10 @@ device (``lax.cond`` in :func:`tucker_pp_sweep`) the port branches on the
 host, and reads the device only when the branch can go the other way.
 Every ``jax.random`` draw is an argument here (the randomized HOSVD's
 starting bases), drawn by default from seeded CPU ``torch.Generator``s.
-The JAX package's ``mesh_layout`` (ROADMAP A15) and its device-resident
-and fused phase loops (A14) are not ported.
+Not ported: the JAX package's ``TuckerConfig.mesh_layout``, the dense
+engines' sharded caches, which wait for ROADMAP A15's dense half (the
+sparse engine's nnz-sharded ``mesh=`` is ported, models/sparse_tucker.py),
+and its device-resident and fused phase loops (A14).
 """
 
 from __future__ import annotations

@@ -1,0 +1,401 @@
+"""Multi-process worker of the parallel layer (parallel/mesh.py) — the
+port's counterpart of the root ``scripts/multiprocess_worker.py``. One
+process per mesh device, started by torchrun and joined by
+``init_process_group`` (the MPI_Init / MPI_Comm_rank substrate of the
+reference, test_ALS.cxx:58-62):
+
+    torchrun --standalone --nproc_per_node 2 \\
+        -m pairwise_perturbation_tpu_torch.scripts.multiprocess_worker \\
+        --inputs in.npz --outdir out --tasks functions,cp --device cpu
+
+Every rank reads its inputs from the ``.npz`` the caller wrote, runs the
+tasks and writes ``<outdir>/result_<rank>.npz``: its rank, world size,
+backend, device, its kernels' launch counts, and per task:
+
+- ``functions`` (COO ``indices``/``values``, CP factors ``cp_W<i>``,
+  orthonormal Tucker factors ``tk_W<i>``): shard_coo, then the five
+  sharded sparse functions (MTTKRP of every mode, PP caches, TTMc of
+  every skip mode and -1, TTMc caches, gradnorm) and ||V||^2, in each of
+  ``--dtypes``;
+- ``cp`` (the same COO, ``cp_cfg`` as JSON): ``sparse_cp.als_cp_pp_sparse``
+  from ``cp_W<i>`` with ``mesh=``;
+- ``tucker`` (the COO ``tk_indices``/``tk_values``/``tk_shape`` if given,
+  else the same one; ``tk_ranks``, ``tk_cfg``):
+  ``sparse_tucker.als_tucker_pp_sparse`` with ``mesh=``, from the sketch
+  HOSVD of the unsharded COO (``init_st``; its rows ``tk_O<i>`` if
+  given);
+  each of the two with its history, factors, scope statistics
+  (``tracing`` on: sweep, cache build and ``mesh.all_reduce`` seconds),
+  K7 launches and wall seconds;
+- ``als`` (``als_indices``/``als_values``/``als_shape``, ``als_cfg``):
+  plain sparse ALS with ``mesh=`` from seeded factors (float32), with
+  its statistics, wall seconds and peak device memory;
+- ``dense`` (``V``, factors ``d_W<i>``, ``mesh_shape``; optionally a file
+  ``vfile`` with ``file_shape`` and ``axes_perm``): plan_layout,
+  shard_tensor, shard_factors, sharded_mttkrp of every mode (its kernel
+  launches counted apart), constrained_pp_caches, unshard_factors and
+  read_dense_sharded, as this rank's blocks;
+- ``cli`` (``cli_argv``, a JSON list of argument lists): ``cli.main`` of
+  each inside this world, as ``torchrun -m pairwise_perturbation_tpu_torch.cli``
+  would run it; their exit codes.
+
+Every result is written with its SHA-256 (``sha/<key>``, for bitwise
+comparisons across ranks and runs) and its relative max-norm distance
+from the same function computed without a mesh on this rank's full copy
+of the input (``err/<key>``); with ``--arrays`` also the array itself
+(``<key>``; always for the engines' histories, factors and cores).
+:func:`run_cluster` launches the worker (or the CLI) under
+torchrun with a time limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+
+
+def run_cluster(nproc: int, argv, timeout: float = 120.0):
+    """Run ``torchrun --standalone --nproc_per_node nproc *argv`` from the
+    repository's root with one thread per rank; return (exit code, its
+    output). On the time limit torchrun is sent SIGTERM, which ends its
+    ranks, then its process group is killed, and TimeoutError raises."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        TORCHRUN + [f"--nproc_per_node={nproc}", *map(str, argv)], cwd=REPO,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+        raise TimeoutError(f"torchrun {list(argv)[:3]}... ({nproc} ranks) "
+                           f"passed its {timeout} s limit:\n{out[-4000:]}")
+    return proc.returncode, out
+
+
+WORKER = ["-m", "pairwise_perturbation_tpu_torch.scripts.multiprocess_worker"]
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+class _Results:
+    """What a rank writes: arrays (with ``--arrays``), their digests and
+    their distances from the unsharded references."""
+
+    def __init__(self, arrays: bool):
+        self.arrays = arrays
+        self.out = {}
+
+    def put(self, key, x, ref=None, keep=False):
+        """Record ``x`` under ``key`` (the array itself with ``--arrays``
+        or ``keep``), with its distance from ``ref`` if given."""
+        a = x.detach().cpu().numpy() if hasattr(x, "detach") else \
+            np.asarray(x)
+        self.out[f"sha/{key}"] = np.frombuffer(
+            hashlib.sha256(np.ascontiguousarray(a).tobytes()).digest(),
+            np.uint8)
+        if ref is not None:
+            r = ref.detach().cpu().numpy() if hasattr(ref, "detach") else \
+                np.asarray(ref)
+            scale = float(np.max(np.abs(r))) if r.size else 0.0
+            self.out[f"err/{key}"] = np.asarray(
+                float(np.max(np.abs(a - r))) / scale if scale else 0.0)
+        if self.arrays or keep:
+            self.out[key] = a
+
+    def meta(self, key, value):
+        self.out[key] = np.asarray(value)
+
+
+def _coo(data, prefix, dtype, device):
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import sparse as sp
+    shape = tuple(int(s) for s in data[f"{prefix}shape"])
+    return sp.SparseTensor(
+        torch.from_numpy(data[f"{prefix}indices"]).to(device),
+        torch.from_numpy(data[f"{prefix}values"]).to(dtype).to(device),
+        shape)
+
+
+def _factors(data, prefix, dtype, device):
+    import torch
+    out, i = [], 0
+    while f"{prefix}{i}" in data:
+        out.append(torch.from_numpy(data[f"{prefix}{i}"]).to(dtype)
+                   .to(device))
+        i += 1
+    return out
+
+
+def _stats():
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    return json.dumps({k: list(v) for k, v in tracing.stats().items()})
+
+
+def task_functions(data, res, mesh, dtypes, device):
+    from pairwise_perturbation_tpu_torch.ops import sparse as sp
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    for dtype in dtypes:
+        d = _dtype_name(dtype)
+        st = _coo(data, "", dtype, device)
+        sts = pmesh.shard_coo(st, mesh)
+        Ws = _factors(data, "cp_W", dtype, device)
+        Ts = _factors(data, "tk_W", dtype, device)
+        res.put(f"norm_sq/{d}", pmesh.sharded_sparse_norm_sq(sts, mesh),
+                sp.norm_sq(st))
+        for m in range(st.ndim):
+            res.put(f"mttkrp/{d}/{m}",
+                    pmesh.sharded_sparse_mttkrp(sts, Ws, m, mesh),
+                    sp.mttkrp(st, Ws, m))
+        caches = [("", pmesh.sharded_sparse_pp_caches(sts, Ws, mesh),
+                   sp.build_pp_caches(st, Ws))]
+        if Ts:
+            for skip in list(range(st.ndim)) + [-1]:
+                res.put(f"ttmc/{d}/{skip}",
+                        pmesh.sharded_sparse_ttmc(sts, Ts, skip, mesh),
+                        sp.ttmc(st, Ts, skip_mode=skip))
+            caches.append(("t", pmesh.sharded_sparse_ttmc_caches(sts, Ts,
+                                                                 mesh),
+                           sp.build_ttmc_caches(st, Ts)))
+        for tag, (single, pair), (s_ref, p_ref) in caches:
+            for i in single:
+                res.put(f"{tag}single/{d}/{i}", single[i], s_ref[i])
+            for (i, j) in pair:
+                res.put(f"{tag}pair/{d}/{i}_{j}", pair[(i, j)],
+                        p_ref[(i, j)])
+        res.put(f"gradnorm/{d}", pmesh.sharded_sparse_gradnorm(sts, Ws, mesh),
+                sp.cp_gradnorm(st, Ws))
+
+
+def _history(hist, keys):
+    return np.asarray([[h[k] for k in keys] for h in hist], np.float64)
+
+
+def _timed_run(fn, device):
+    """(result, wall seconds, scope statistics, K7 launches) of ``fn()``
+    with the tracing scopes on."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import coo_mttkrp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    tracing.reset()
+    coo_mttkrp.reset_launch_counts()
+    tracing.enable()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        tracing.enable(False)
+    return (out, time.perf_counter() - t0, _stats(),
+            coo_mttkrp.LAUNCHES["coo_mttkrp"])
+
+
+def _engine_run(res, tag, d, run, keys, device):
+    r, wall, stats, k7 = _timed_run(run, device)
+    res.put(f"{tag}_hist/{d}", _history(r.history, ("iter",) + keys),
+            keep=True)
+    for i, W in enumerate(r.factors):
+        res.put(f"{tag}_W/{d}/{i}", W, keep=True)
+    res.meta(f"{tag}_stats/{d}", stats)
+    res.meta(f"{tag}_wall/{d}", wall)
+    res.meta(f"{tag}_k7/{d}", k7)
+    return r
+
+
+def task_cp(data, res, mesh, dtypes, device):
+    from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    cfg = cp.CPConfig(**json.loads(str(data["cp_cfg"])))
+    for dtype in dtypes:
+        sts = pmesh.shard_coo(_coo(data, "", dtype, device), mesh)
+        W0 = _factors(data, "cp_W", dtype, device)
+        _engine_run(res, "cp", _dtype_name(dtype),
+                    lambda: sparse_cp.als_cp_pp_sparse(sts, W0, cfg,
+                                                       mesh=mesh),
+                    ("gradnorm", "diffV", "pp"), device)
+
+
+def task_tucker(data, res, mesh, dtypes, device):
+    from pairwise_perturbation_tpu_torch.models import sparse_tucker, tucker
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    cfg = tucker.TuckerConfig(**json.loads(str(data["tk_cfg"])))
+    ranks = tuple(int(x) for x in data["tk_ranks"])
+    prefix = "tk_" if "tk_indices" in data else ""
+    for dtype in dtypes:
+        st = _coo(data, prefix, dtype, device)
+        sts = pmesh.shard_coo(st, mesh)
+        omegas = _factors(data, "tk_O", dtype, device) or None
+        r = _engine_run(res, "tk", _dtype_name(dtype),
+                        lambda: sparse_tucker.als_tucker_pp_sparse(
+                            sts, ranks, cfg, mesh=mesh, omegas=omegas,
+                            init_st=st),
+                        ("diffnorm", "diffV", "pp"), device)
+        res.put(f"tk_core/{_dtype_name(dtype)}", r.core, keep=True)
+
+
+def task_als(data, res, mesh, device):
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    cfg = json.loads(str(data["als_cfg"]))
+    st = _coo(data, "als_", torch.float32, device)
+    sts = pmesh.shard_coo(st, mesh)
+    del st
+    Ws = cp.init_factors(sts.shape, int(data["als_rank"]), seed=0,
+                         dtype=torch.float32, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    r, wall, stats, k7 = _timed_run(lambda: sparse_cp.als_cp_sparse(
+        sts, Ws, cp.CPConfig(**cfg), mesh=mesh), device)
+    res.put("als_hist", _history(r.history,
+                                 ("iter", "gradnorm", "diffV", "pp")),
+            keep=True)
+    res.meta("als_stats", stats)
+    res.meta("als_wall", wall)
+    res.meta("als_k7", k7)
+    res.meta("als_nnz", sts.nnz)
+    res.meta("als_peak_bytes", torch.cuda.max_memory_allocated(device)
+             if device.type == "cuda" else 0)
+
+
+def task_dense(data, res, device):
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import contract
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import io
+    mesh = pmesh.make_mesh(tuple(int(s) for s in data["mesh_shape"]),
+                           device_type=device.type)
+    res.meta("coordinate", mesh.get_coordinate())
+    V = torch.from_numpy(data["V"]).to(device)
+    Ws = _factors(data, "d_W", V.dtype, device)
+    layout = pmesh.plan_layout(V.shape, mesh)
+    Vb = pmesh.shard_tensor(V, layout)
+    Wb = pmesh.shard_factors(Ws, layout)
+    spans = [layout.span(m) for m in range(V.ndim)]
+    res.meta("spans", np.asarray(spans))
+    res.put("V_block", Vb)
+
+    def block(x, modes):
+        """The reference's rows at this rank's spans of ``modes``."""
+        return pmesh._padded_block(x, [spans[m] if m is not None
+                                       else (0, x.shape[k])
+                                       for k, m in enumerate(modes)])
+
+    before = _bench.launch_counts()
+    Ms = [pmesh.sharded_mttkrp(Vb, Wb, m, layout) for m in range(V.ndim)]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    res.meta("block_launches", json.dumps(
+        {k: n - before[k] for k, n in _bench.launch_counts().items()}))
+    for m in range(V.ndim):
+        res.put(f"W_block/{m}", Wb[m])
+        res.put(f"smttkrp/{m}", Ms[m],
+                block(contract.mttkrp(V, Ws, m), (m, None)))
+    single, pair = pmesh.constrained_pp_caches(Vb, Wb, layout)
+    s_ref, p_ref = contract.build_pp_caches(V, Ws)
+    for i in single:
+        res.put(f"csingle/{i}", single[i], block(s_ref[i], (i, None)))
+    for (i, j) in pair:
+        res.put(f"cpair/{i}_{j}", pair[(i, j)],
+                block(p_ref[(i, j)], (None, i, j)))
+    for m, W in enumerate(pmesh.unshard_factors(Wb, layout)):
+        res.put(f"unshard/{m}", W, Ws[m])
+    if "vfile" in data:
+        lay = pmesh.plan_layout(tuple(int(s) for s in data["final_shape"]),
+                                mesh)
+        got = io.read_dense_sharded(
+            str(data["vfile"]), lay, out_dtype=np.float64,
+            file_shape=tuple(int(s) for s in data["file_shape"]),
+            axes_perm=tuple(int(s) for s in data["axes_perm"]),
+            device=device)
+        res.meta("read_spans", np.asarray(
+            [lay.span(m) for m in range(len(lay.orig_shape))]))
+        res.put("read_block", got)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--inputs", required=True)
+    ap.add_argument("--outdir", required=True)
+    ap.add_argument("--tasks", default="functions",
+                    help="comma-separated: functions, cp, tucker, als, "
+                         "dense, cli")
+    ap.add_argument("--dtypes", default="float64,float32")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arrays", action="store_true",
+                    help="write the result arrays, not only digests")
+    args = ap.parse_args(argv)
+
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    torch.set_num_threads(1)
+    config.apply_fp32_pins()
+    if not pmesh.launched():
+        raise SystemExit("multiprocess_worker runs under torchrun")
+    device = pmesh.distributed_init(args.device)
+    try:
+        dtypes = [getattr(torch, d) for d in args.dtypes.split(",")]
+        data = np.load(args.inputs, allow_pickle=False)  # read lazily
+        res = _Results(args.arrays)
+        res.meta("rank", pmesh.rank())
+        res.meta("world", pmesh.world_size())
+        res.meta("backend", pmesh.backend())
+        res.meta("device", str(device))
+        tasks = args.tasks.split(",")
+        _bench.reset_launch_counts()
+        mesh = None
+        if {"functions", "cp", "tucker", "als"} & set(tasks):
+            mesh = pmesh.make_mesh(device_type=device.type)
+        if "functions" in tasks:
+            task_functions(data, res, mesh, dtypes, device)
+        if "cp" in tasks:
+            task_cp(data, res, mesh, dtypes, device)
+        if "tucker" in tasks:
+            task_tucker(data, res, mesh, dtypes, device)
+        if "als" in tasks:
+            task_als(data, res, mesh, device)
+        if "dense" in tasks:
+            task_dense(data, res, device)
+        if "cli" in tasks:
+            from pairwise_perturbation_tpu_torch import cli
+            res.meta("cli_rc", [cli.main(list(a)) for a in
+                                json.loads(str(data["cli_argv"]))])
+        res.meta("launches", json.dumps(_bench.launch_counts()))
+        os.makedirs(args.outdir, exist_ok=True)
+        np.savez(os.path.join(args.outdir, f"result_{pmesh.rank()}.npz"),
+                 **res.out)
+        print(f"[rank {pmesh.rank()}/{pmesh.world_size()}] ok: tasks "
+              f"{args.tasks}, backend {pmesh.backend()}, device {device}",
+              flush=True)
+    finally:
+        pmesh.distributed_close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,9 +11,11 @@ The reference parses single-dash long options with a hand-rolled scan
 
 plus the JAX package's additions (-dtype, -mesh, -seed, -checkpoint,
 -resume, -device_loop, -layouts, -profile, -trace_dir, ...) and -device.
-Flags whose code is not ported yet (-mesh, -device_loop >= 1 of
-test_als and pp_bench, -layouts 1) are accepted by the parser and refused
-by the CLI with the ROADMAP step that brings them.
+Flags whose code is not ported yet (-mesh on the dense engines, which
+waits for ROADMAP A15's dense half, -device_loop >= 1 of test_als and
+pp_bench, -layouts 1) are accepted by the parser and refused by the CLI
+with the ROADMAP step that brings them. -mesh N is ported for test_als
+-model {CP,Tucker} -issparse 1 (a 1D mesh of N ranks under torchrun).
 Defaults and clamping follow test_ALS.cxx:64-196 / run.cxx:67-214.
 """
 
@@ -60,7 +62,9 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
                    choices=["float32", "float64", "bfloat16"],
                    help="float32 | float64 | bfloat16 (V stored bf16; "
                         "factors, Grams and solves float32)")
-    p.add_argument("-mesh", default="", help="device mesh: not ported")
+    p.add_argument("-mesh", default="",
+                   help="N: nnz-sharded COO over N torchrun ranks (test_als "
+                        "-issparse 1); dense engines: not ported (A15)")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("-checkpoint", default="",
                    help="test_als: write the final factors (and Tucker's "

@@ -21,10 +21,13 @@ coil-100 (channel, col, row, image), time-lapse (band, col, row, time).
 The port keeps that natural mode order everywhere (it has no TPU tiling to
 permute for), and so do both packages' checkpoints.
 
-Not copied: ``read_dense_sharded`` (a per-process read for a device mesh,
-which comes with the parallel layer, ROADMAP A15), and
-``build_coil100_binary`` / ``build_time_lapse_binary``, which convert the
-downloaded PNG and MAT files of the datasets (none is in the repository).
+``read_dense_sharded`` is the per-rank read of the parallel layer
+(parallel/mesh.py): each rank reads only its block's span of the file and
+returns it as a tensor. No path calls it yet: the dense engines' ``-mesh``
+(with the sharded o1/o2 load of JAX cli.py:80-110) waits for ROADMAP
+A15's dense half. Not copied: ``build_coil100_binary`` /
+``build_time_lapse_binary``, which convert the downloaded PNG and MAT
+files of the datasets (none is in the repository).
 """
 
 from __future__ import annotations
@@ -69,6 +72,38 @@ def read_dense_binary(path: str, shape: Sequence[int], file_dtype="<f8",
 
 def write_dense_binary(path: str, V: np.ndarray, file_dtype="<f8") -> None:
     np.asarray(V, dtype=file_dtype).tofile(path)
+
+
+def read_dense_sharded(path: str, layout, file_dtype="<f8",
+                       out_dtype=np.float32, file_shape=None,
+                       axes_perm=None, device="cuda"):
+    """This rank's block of a row-major dense binary (JAX io.py:67-119).
+
+    The replacement for the reference's MPI-IO collective read
+    (``MPI_File_open`` + ``V.read_dense_from_file``, test_ALS.cxx:291-304):
+    each rank memory-maps the file and reads ONLY its block's span (memmap
+    slicing touches just those pages), so no rank holds the full tensor.
+    ``layout`` is a ``parallel.mesh.ShardedLayout`` (from ``plan_layout``,
+    whose mesh gives this rank's coordinate). ``file_shape``/``axes_perm``
+    view the on-disk array through a transpose before the block is cut
+    (``layout.orig_shape[i] == file_shape[axes_perm[i]]``). Returns the
+    block zero-padded to the layout's padded block shape, in
+    ``out_dtype``, as a tensor on ``device``."""
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    orig = tuple(layout.orig_shape)
+    mm = np.memmap(path, dtype=file_dtype, mode="r",
+                   shape=tuple(file_shape) if file_shape else orig)
+    if axes_perm is not None:
+        mm = mm.transpose(tuple(axes_perm))
+        if mm.shape != orig:
+            raise ValueError(f"axes_perm {tuple(axes_perm)} views the file "
+                             f"as {mm.shape}, the layout has {orig}")
+    try:
+        return pmesh._padded_block(
+            mm, [layout.span(m) for m in range(len(orig))], device,
+            out_dtype)
+    finally:
+        del mm
 
 
 def _load_ctf_ordered(path: str, file_shape, out_dtype):

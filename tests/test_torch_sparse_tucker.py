@@ -249,11 +249,19 @@ def test_als_tucker_sparse_matches_jax(run, pp):
         assert set(flags) == {0}
 
 
+class _Mesh2D:
+    """A 2x2 mesh's axis names and sizes (all the engines read of it
+    before they refuse it)."""
+    mesh_dim_names, shape = ("x", "x1"), (2, 2)
+
+
 def test_sparse_tucker_refuses_a_mesh(rng):
+    """The nnz-sharded engines take a 1D mesh only, as the JAX package's
+    shard_coo does; a 2D one is refused before any collective."""
     _, st = coo(random_sparse(rng, (5, 6, 7)))
     for fn in (tst.als_tucker_sparse, tst.als_tucker_pp_sparse):
-        with pytest.raises(NotImplementedError, match="A15"):
-            fn(st, (2, 2, 2), ttk.TuckerConfig(), mesh=object())
+        with pytest.raises(ValueError, match="1D mesh"):
+            fn(st, (2, 2, 2), ttk.TuckerConfig(), mesh=_Mesh2D())
 
 
 def _csv(main, path, argv):
