@@ -192,6 +192,36 @@ traceback and exits nonzero:
    each rank's block, held to one process.
    ``--phases 11`` runs phases 1, 2 and 11 alone.
 
+12. The dense engines on a block-sharded V (parallel/mesh.py's dense
+   half) under torchrun, two ranks sharing the card over gloo, three
+   cluster start-ups; every time beside the card's name and power limit.
+   12a. CP-PP (-pp 1, use_kernels_triple) at the coil shape, V sharded
+   over mode 3 (3600 a rank, each rank memory-maps its block of a .npy),
+   f64 and f32, 12 sweeps: each rank's medians of the CP scopes and its
+   all_reduce count, seconds and share of the wall, beside one process's
+   run from the same factors: f64 with the same decisions and factors
+   within DENSE_FACTOR_TOL, f32 by its fit (its decisions are not
+   determined in f32 there); K6 (and K5 as its O3) once a cache build
+   on each rank's block, and K6 at rank 0's block held to its plain
+   version, twice bit for bit.
+   12b. Tucker-PP at the coil shape (phase 9a's tensor, ranks 3, 10, 10,
+   70), f64 and f32, 10 sweeps: HOSVD's sharded mode 3 by matrix-free
+   subspace iteration; f64 held to one process by decisions and factor
+   sines, f32 by a float64 reconstruction of the fit (as 9a); per-rank
+   medians.
+   12c. ``test_als -model CP -pp 1 -mesh 2`` at 200^3 rank 10 (f64, f32)
+   through cli.main in a cluster, each CSV against the unsharded CLI's
+   (DENSE_CLI_TOL); K1-K3 on each rank's (100, 200, 200) block in every
+   diagnostics row, counted, and each held to its plain version there.
+   12d. ``pp_bench -model CP -mesh 2`` at 512^3 under use_kernels_first in
+   the same cluster: K4 on each rank's (256, 512, 512) block once a DT
+   sweep, held to its plain version there.
+   12e. A world of one on NCCL (``--nproc_per_node 1``, ``-mesh 1``):
+   ``test_als -tensor o1`` read block by block from a seeded coil-100
+   binary writes the unsharded CLI's CSV bit for bit but for [dtime] and
+   [tol].
+   ``--phases 12`` runs phases 1, 2 and 12 alone.
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -2782,28 +2812,34 @@ def factor_distance(A, B, tucker):
 
 
 def held_engine(label, res_rank0, tag, d, one, stats_one, wall_one, smi,
-                tucker=False, yardstick=None):
+                tucker=False, yardstick=None, names=None, tol=None,
+                by_fit=None, same_iters=True):
     """A sharded engine run (rank 0's history and factors; every rank's
     are bitwise equal, checked apart) against the one-rank run: the same
     logged rows and DT <-> PP decisions (CP: PP rows present), factors
-    within MESH_FACTOR_TOL (float32 Tucker: the same logged iterations and
-    diffV within MESH_TUCKER_F32_DIFFV)
+    within ``tol`` (default MESH_FACTOR_TOL; ``by_fit``, by default for
+    float32 Tucker: the same logged iterations, or without
+    ``same_iters`` as many rows ending at the same iteration, and diffV
+    row for row within MESH_TUCKER_F32_DIFFV)
     (beside ``yardstick``, the one-rank float64 run's factors, for
-    float32); medians printed side by side. Returns (the rank's scope
-    stats, the failure or None)."""
+    float32); medians of the scopes ``names`` (default the sparse
+    engine's) printed side by side. Returns (the rank's scope stats, the
+    failure or None)."""
+    tol = tol or MESH_FACTOR_TOL
     hist = res_rank0[f"{tag}_hist/{d}"]
     want = [(h["iter"], h["pp"]) for h in one.history]
     got = [(int(r[0]), int(r[3])) for r in hist]
     n_pp = sum(p for _, p in got)
     mine = [res_rank0[f"{tag}_W/{d}/{i}"] for i in range(len(one.factors))]
     err = factor_distance(one.factors, mine, tucker)
-    by_fit = tucker and d == "float32"
+    if by_fit is None:
+        by_fit = tucker and d == "float32"
     fit = max(abs(r[2] - h["diffV"]) / h["diffV"]
               for r, h in zip(hist, one.history))
     line = (f"{label}: {len(got)} rows ({n_pp} PP), factors against one "
             f"rank: largest {'sine' if tucker else 'rel. difference'} "
             f"{err:.3e} ({'printed' if by_fit else 'tol'} "
-            f"{MESH_FACTOR_TOL[d]}); diffV rel. difference {fit:.3e}"
+            f"{tol[d]}); diffV rel. difference {fit:.3e}"
             + (f" (tol {MESH_TUCKER_F32_DIFFV})" if by_fit else ""))
     if yardstick is not None:
         line += (f"; against one rank's float64 run: 2 ranks "
@@ -2813,24 +2849,26 @@ def held_engine(label, res_rank0, tag, d, one, stats_one, wall_one, smi,
     stats = json.loads(str(res_rank0[f"{tag}_stats/{d}"]))
     wall = float(res_rank0[f"{tag}_wall/{d}"])
     red = stats.get("mesh.all_reduce", (0, 0.0))
-    names = SPARSE_TUCKER_PHASES if tucker else SPARSE_PHASES
+    names = names or (SPARSE_TUCKER_PHASES if tucker else SPARSE_PHASES)
     print(f"  2 ranks ({smi}): wall {wall:.3f} s, all_reduce {red[0]} calls "
           f"{red[1]:.3f} s ({100 * red[1] / wall:.1f}% of the wall); "
           f"medians ms: {scope_line(stats, names + ('mesh.all_reduce',))}")
     print(f"  1 rank: wall {wall_one:.3f} s; medians ms: "
           f"{scope_line(stats_one, names)}")
-    if by_fit and [i for i, _ in got] != [i for i, _ in want]:
+    if by_fit and ([i for i, _ in got] != [i for i, _ in want]
+                   if same_iters else
+                   (len(got), got[-1][0]) != (len(want), want[-1][0])):
         return stats, f"{label}: logged iterations {got}, one rank's {want}"
     if got != want:
         msg = f"{label}: logged (iter, pp) {got}, one rank's {want}"
         if not by_fit:
             return stats, msg
-        print(f"  decisions differ (not held in float32 Tucker): {msg}")
+        print(f"  decisions differ (not held where the fit is): {msg}")
     if n_pp == 0 and not tucker:
         return stats, f"{label}: no PP rows"
     if by_fit and not fit <= MESH_TUCKER_F32_DIFFV:
         return stats, f"{label}: diffV off one rank's"
-    if not by_fit and not err <= MESH_FACTOR_TOL[d]:
+    if not by_fit and not err <= tol[d]:
         return stats, f"{label}: factors off one rank's"
     return stats, None
 
@@ -3029,6 +3067,351 @@ def run_phase11(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the dense engines on a block-sharded V, 2 ranks under torchrun
+# ---------------------------------------------------------------------------
+
+# 12a: CP-PP at the coil shape (phase 5's seeded uniform tensor and
+# factors), every sweep's diagnostics logged every 4; 12b: Tucker-PP at
+# the coil shape (phase 9a's low-Tucker-rank tensor plus 1% noise).
+DENSE_CP_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=12, resprint=4)
+DENSE_TK_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
+# Sharded against one process from the same factors: CP's relative
+# max-norm difference, Tucker's largest principal angle (sine), float64:
+# round-off of sums in another order, grown through the solves. float32
+# CP-PP at the coil shape is held by its fit: as many logged rows, ending
+# at the same iteration, each diffV within MESH_TUCKER_F32_DIFFV of one
+# process's. Its decisions and factors are not determined in float32 on
+# this uniform tensor: a PP restart one sweep earlier on 2 ranks (the
+# rows' iterations 9 and 10 apart) moved the factors 4.7e-2 apart, while
+# both float32 runs lay 2.7-3.0e-2 from the float64 run's and every
+# diffV agreed to 1.3e-6.
+DENSE_FACTOR_TOL = {"float64": 1e-9, "float32": MESH_FACTOR_TOL["float32"]}
+# 12c's CLI at 200^3 against the unsharded CLI: float64 to 1e-10 relative
+# (the CLI tests' CLI_TOL), every decision the same; float32 rows to
+# 5e-3 (sums over 4e6 entries in another order, grown through 20 sweeps)
+# up to the first decision that differs, if one does.
+DENSE_CLI_TOL = {"float64": 1e-10, "float32": 5e-3}
+DENSE_CLI = ["test_als", "-model", "CP", "-tensor", "r", "-pp", "1", "-dim",
+             "3", "-size", "200", "-rank", "10", "-maxiter", "20",
+             "-resprint", "1", "-pp_res_tol", "0.1"]
+DENSE_TK_PHASES = TUCKER_PHASES + ("mesh.all_reduce", "mesh.broadcast")
+
+
+def dense_inputs(path, tmp, Vc, Wc, Vt):
+    """Cluster A's inputs: the coil CP tensor and the Tucker tensor as
+    float32 .npy files (each rank memory-maps its block), the CP factors,
+    the engines' configurations, K6 on (use_kernels_triple)."""
+    import numpy as np
+    d = dict(dd_mesh=np.asarray([MESH_RANKS]),
+             dc_vfile=os.path.join(tmp, "coil_cp.npy"),
+             dc_cfg=json.dumps(DENSE_CP_CFG), dc_pp=np.asarray([1]),
+             dc_config=json.dumps(dict(use_kernels_triple=True)),
+             dt_vfile=os.path.join(tmp, "coil_tucker.npy"),
+             dt_ranks=np.asarray(COIL_TUCKER_RANKS),
+             dt_tk_cfg=json.dumps(DENSE_TK_CFG))
+    np.save(d["dc_vfile"], Vc.cpu().numpy())
+    np.save(d["dt_vfile"], Vt.cpu().numpy())
+    for i, W in enumerate(Wc):
+        d[f"dc_W{i}"] = W.cpu().numpy()
+    np.savez(path, **d)
+
+
+def dense_cp_one(V, Ws, dtype):
+    """One process's coil CP-PP (the cluster's configuration, K6 on):
+    (result, scope stats, wall s)."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    tracing.reset()
+    tracing.enable()
+    t0 = time.perf_counter()
+    with config.override(use_kernels_triple=True):
+        res = cp.als_cp_pp(V.to(dtype), [W.to(dtype) for W in Ws],
+                           cp.CPConfig(**DENSE_CP_CFG))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracing.enable(False)
+    return res, tracing.stats(), wall
+
+
+def run_dense_cp(a, Vc, Wc, smi):
+    """12a: each rank's coil CP-PP against one process's, f64 then f32;
+    each rank's K6 launches (one a cache build, f32) and K5's (K6's O3);
+    K6 on rank 0's block against its plain version, twice bit for bit.
+    Returns {kernel id: launches}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots
+    failures, launches, f64 = [], {"K5": 0, "K6": 0}, None
+    for d in ("float64", "float32"):
+        one, stats_one, wall_one = dense_cp_one(Vc, Wc, getattr(torch, d))
+        _, bad = held_engine(f"12a dense CP-PP coil mesh=2 {d}", a[0],
+                             "dcp1", d, one, stats_one, wall_one, smi,
+                             yardstick=f64, names=CP_PHASES,
+                             tol=DENSE_FACTOR_TOL, by_fit=d == "float32",
+                             same_iters=d == "float64")
+        failures += [bad] if bad else []
+        f64 = f64 or [W.double() for W in one.factors]
+        check_ranks_equal(a, f"12a {d}", [f"sha/dcp1_hist/{d}"] + [
+            f"sha/dcp1_W/{d}/{i}" for i in range(4)])
+        for r, res in enumerate(a):
+            n = json.loads(str(res[f"dcp1_launches/{d}"]))
+            stats = json.loads(str(res[f"dcp1_stats/{d}"]))
+            builds = stats.get("cp.pp_cache_build", (0,))[0]
+            k6, k5 = n["triple_roots.triple_roots"], \
+                n["last_contract.last_contract"]
+            print(f"  rank {r} {d}: {builds} cache builds, K6 launches {k6}"
+                  f", K5 (O3) {k5}; medians ms: "
+                  f"{scope_line(stats, CP_PHASES + ('mesh.all_reduce',))}")
+            want = builds if d == "float32" else 0
+            if not k6 == k5 == want or (d == "float32" and builds == 0):
+                failures.append(f"12a rank {r} {d}: K6 {k6}, K5 {k5}, "
+                                f"cache builds {builds}")
+            launches["K6"] += k6
+            launches["K5"] += k5
+    half = COIL_SHAPE[3] // MESH_RANKS
+    block = Vc[..., :half].contiguous()
+    Wb = [Wc[1].float(), Wc[2].float(), Wc[3][:half].float().contiguous()]
+    err = held_twice(
+        f"12a K6 on rank 0's block {tuple(block.shape)}",
+        lambda: torch.cat([o.reshape(-1) for o in
+                           triple_roots.triple_roots(block, *Wb)]),
+        lambda: torch.cat([o.reshape(-1) for o in
+                           triple_roots.triple_roots_plain(block, *Wb)]))
+    print(f"12a K6 at rank 0's block {tuple(block.shape)}: max abs "
+          f"{err[0]:.3e}, relative {err[1]:.3e} (tol {REL_TOL}), two "
+          "launches bit for bit")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def run_dense_tucker(a, Vt, smi):
+    """12b: each rank's coil Tucker-PP against one process's from its own
+    HOSVD (the same draws): float64 by the decisions and the factors'
+    principal angles, float32 by a float64 reconstruction of the fit, as
+    phase 9a holds it."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import tucker
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    ranks = COIL_TUCKER_RANKS
+    route = "matrix-free subspace iteration" \
+        if COIL_SHAPE[3] > tucker.HOSVD_EXACT_EIGH_MAX else "assembled Gram"
+    print(f"12b HOSVD of the sharded mode 3 ({COIL_SHAPE[3]} > "
+          f"HOSVD_EXACT_EIGH_MAX {tucker.HOSVD_EXACT_EIGH_MAX}): {route}")
+    failures = []
+    for d in ("float64", "float32"):
+        Vd = Vt.to(getattr(torch, d))
+        start_tucker_trace()
+        t0 = time.perf_counter()
+        one = tucker.als_tucker_pp(Vd, ranks,
+                                   tucker.TuckerConfig(**DENSE_TK_CFG))
+        torch.cuda.synchronize()
+        wall_one = time.perf_counter() - t0
+        stats_one = tracing.stats()
+        tracing.enable(False)
+        check_ranks_equal(a, f"12b {d}", [f"sha/dtk_hist/{d}",
+                                          f"sha/dtk_core/{d}"])
+        hist = a[0][f"dtk_hist/{d}"]
+        got = [(int(r[0]), int(r[3])) for r in hist]
+        want = [(h["iter"], h["pp"]) for h in one.history]
+        mine = [torch.from_numpy(a[0][f"dtk_W/{d}/{i}"]).cuda()
+                for i in range(4)]
+        sines = [subspace_sin(x, y) for x, y in zip(one.factors, mine)]
+        label = f"12b dense Tucker-PP coil mesh=2 {d}"
+        print(f"{label}: {len(got)} rows ({sum(p for _, p in got)} PP), "
+              f"one process's {len(want)}; factor sines against one "
+              f"process by mode {', '.join(f'{x:.3e}' for x in sines)}")
+        if d == "float64":
+            if got != want:
+                failures.append(f"{label}: (iter, pp) {got}, one "
+                                f"process's {want}")
+            if not max(sines) <= DENSE_FACTOR_TOL[d]:
+                failures.append(f"{label}: factors off one process's")
+        else:
+            start = direct_residual(Vd, tucker.hosvd(Vd, ranks)[1])
+            end = direct_residual(Vd, mine)
+            end_one = direct_residual(Vd, one.factors)
+            print(f"{label}: ||V - V^|| by float64 reconstruction {start!r}"
+                  f" (one process's HOSVD) -> {end!r} (2 ranks), one "
+                  f"process's run {end_one!r}")
+            if not end <= start * (1.0 + F64_RECON_MARGIN):
+                failures.append(f"{label}: the fit got worse")
+        for r, res in enumerate(a):
+            stats = json.loads(str(res[f"dtk_stats/{d}"]))
+            wall = float(res[f"dtk_wall/{d}"])
+            red = stats.get("mesh.all_reduce", (0, 0.0))
+            print(f"  rank {r} ({smi}): wall {wall:.3f} s, all_reduce "
+                  f"{red[0]} calls {red[1]:.3f} s ({100 * red[1] / wall:.1f}%"
+                  f" of the wall); medians ms: "
+                  f"{scope_line(stats, DENSE_TK_PHASES)}")
+            if any(json.loads(str(res[f"dtk_launches/{d}"])).values()):
+                failures.append(f"12b rank {r}: a kernel launched on Tucker")
+        print(f"  1 process: wall {wall_one:.3f} s; medians ms: "
+              f"{scope_line(stats_one, TUCKER_PHASES)}")
+        del Vd
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def run_dense_cli(b, tmp, smi):
+    """12c-12d: the 200^3 CLI -mesh 2 (f64, f32) against the unsharded
+    CLI, K1-K3 per diagnostics row on each rank's (100, 200, 200) block,
+    each held to its plain version there; pp_bench at 512^3 -mesh 2 with
+    K4 on each rank's (256, 512, 512) block, held to its plain version.
+    Returns {kernel id: launches}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    if [int(x) for x in b[0]["cli_rc"]] != [0, 0, 0]:
+        raise AssertionError(f"12c-d: cli.main returned {b[0]['cli_rc']}")
+    for k, d in enumerate(("float64", "float32")):
+        mesh_rows = read_csv(os.path.join(tmp, f"cli200_{d}_mesh.csv"))
+        one = cli_csv(DENSE_CLI + ["-dtype", d],
+                      os.path.join(tmp, f"cli200_{d}_one.csv"))
+        check_csv(mesh_rows, f"12c CLI 200^3 -mesh 2 {d}")
+        tol = DENSE_CLI_TOL[d]
+        pairs = list(zip(mesh_rows[1:], one[1:]))
+        # rows up to the first decision that differs (float32 may part
+        # there, as 12a's coil runs do; float64 must not)
+        same = next((j for j, (x, y) in enumerate(pairs)
+                     if (x[1], x[4]) != (y[1], y[4])), len(pairs))
+        rel = max(abs(float(x[c]) - float(y[c])) / abs(float(y[c]))
+                  for x, y in pairs[:max(same, 1)] for c in (2, 5))
+        print(f"12c {d}: against the unsharded CLI, {len(pairs)} rows, "
+              f"decisions identical in the first {same}, [gradnorm]/[diffV]"
+              f" there within {rel:.3e} relative (tol {tol})")
+        if len(mesh_rows) != len(one) or not rel <= tol or \
+                (same < len(pairs) and d == "float64") or same < 2:
+            raise AssertionError(f"12c {d}: off the unsharded CLI's CSV")
+        n_rows = len(mesh_rows) - 1
+        for r, res in enumerate(b):
+            n = json.loads(str(res["cli_launches"]))[k]
+            got = [n[f"mttkrp3.{m}"] for m in range(3)]
+            want = [n_rows, n_rows, 2 * n_rows] if d == "float32" \
+                else [0, 0, 0]
+            print(f"12c rank {r} {d}: K1-K3 launches {got} on its block "
+                  f"(100, 200, 200), expected {want} ({n_rows} rows)")
+            if got != want:
+                raise AssertionError(f"12c rank {r}: K1-K3 launches {got}")
+            for m in range(3):
+                launches[f"K{m + 1}"] += got[m]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    Vb = torch.rand((100, 200, 200), generator=gen, device="cuda")
+    Ws = [torch.rand((s, 10), generator=gen, device="cuda")
+          for s in Vb.shape]
+    for m in range(3):
+        err = held_twice(f"12c K{m + 1} at (100, 200, 200)",
+                         lambda: mttkrp3.mttkrp3_mode(Vb, Ws, m),
+                         lambda: mttkrp3.mttkrp3_mode_plain(Vb, Ws, m))
+        print(f"12c K{m + 1} at rank 0's block (100, 200, 200): relative "
+              f"{err[1]:.3e} (tol {REL_TOL}), two launches bit for bit")
+    rows = read_csv(os.path.join(tmp, "bench512_mesh.csv"))
+    kinds = [r[0] for r in rows[1:]]
+    if kinds != ["[DTtime]"] * 3 + ["[PPfirst]", "[PPsecond]"] * 3 or \
+            not all(float(r[1]) > 0 for r in rows[1:]):
+        raise AssertionError(f"12d pp_bench -mesh 2 CSV: {rows}")
+    med = {kd: statistics.median(float(r[1]) for r in rows[1:]
+                                 if r[0] == f"[{kd}]") for kd in BENCH_KINDS}
+    print(f"12d pp_bench 512^3 f32 -mesh 2 use_kernels_first ({smi}), rank "
+          "0's rows: medians " + ", ".join(
+              f"[{kd}] {1e3 * v:.3f} ms" for kd, v in med.items()))
+    for r, res in enumerate(b):
+        k4 = json.loads(str(res["cli_launches"]))[2]["mid_contract.rank_minor"]
+        print(f"12d rank {r}: K4 launches {k4} on its block (256, 512, 512)"
+              " (expected 4: one a DT sweep)")
+        if k4 != 4:
+            raise AssertionError(f"12d rank {r}: K4 launches {k4}")
+        launches["K4"] += k4
+    Vb = torch.rand((256, 512, 512), generator=gen, device="cuda")
+    W0 = torch.rand((256, 10), generator=gen, device="cuda")
+    err = held_twice("12d K4 at (256, 512, 512) mode 0",
+                     lambda: mid_contract.mid_contract(Vb, W0, 0),
+                     lambda: mid_contract.mid_contract_plain(Vb, W0, 0))
+    print(f"12d K4 at rank 0's block (256, 512, 512), mode 0: relative "
+          f"{err[1]:.3e} (tol {REL_TOL}), two launches bit for bit")
+    return launches
+
+
+def read_csv(path):
+    with open(path) as fh:
+        return list(csv.reader(fh))
+
+
+def run_phase12(smi):
+    """Phase 12 (12a-12e); returns {kernel id: launches}."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.scripts.multiprocess_worker import \
+        WORKER
+    t_phase = time.perf_counter()
+    launches = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Vc = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    Wc = cp.init_factors(COIL_SHAPE, 10, seed=0, dtype=torch.float64,
+                         device="cuda")
+    Vt = low_tucker_rank_tensor(COIL_SHAPE, COIL_TUCKER_RANKS, seed=15)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("12a-b. the dense engines at the coil shape, V block-sharded "
+              "over mode 3 (3600 a rank), 2 ranks over gloo on one card: "
+              "CP-PP (use_kernels_triple) and Tucker-PP, f64 and f32")
+        inputs = os.path.join(tmp, "in.npz")
+        dense_inputs(inputs, tmp, Vc, Wc, Vt)
+        run_mesh_cluster(MESH_RANKS, WORKER + [
+            "--inputs", inputs, "--outdir", os.path.join(tmp, "a"),
+            "--tasks", "dcp,dtucker"], "cluster A (dense)")
+        a = worker_results(os.path.join(tmp, "a"))
+        launches.update(run_dense_cp(a, Vc, Wc, smi))
+        run_dense_tucker(a, Vt, smi)
+        del a
+        phase("12c-d. test_als -model CP -pp 1 -mesh 2 at 200^3 (f64, f32) "
+              "and pp_bench -model CP -mesh 2 at 512^3 (use_kernels_first) "
+              "through cli.main in one cluster")
+        argv = [DENSE_CLI + ["-dtype", d, "-mesh", "2", "-quiet",
+                             "-filename",
+                             os.path.join(tmp, f"cli200_{d}_mesh.csv")]
+                for d in ("float64", "float32")]
+        argv.append(PP_BENCH_ARGS + ["-mesh", "2", "-quiet", "-filename",
+                                     os.path.join(tmp, "bench512_mesh.csv")])
+        b_in = os.path.join(tmp, "b.npz")
+        np.savez(b_in, cli_argv=json.dumps(argv), cli_config=json.dumps(
+            [{}, {}, dict(use_kernels_first=True)]))
+        run_mesh_cluster(MESH_RANKS, WORKER + [
+            "--inputs", b_in, "--outdir", os.path.join(tmp, "b"),
+            "--tasks", "cli"], "cluster B (dense CLI)")
+        launches.update(run_dense_cli(
+            worker_results(os.path.join(tmp, "b")), tmp, smi))
+        phase("12e. a world of one on NCCL: torchrun --nproc_per_node 1, "
+              "test_als -tensor o1 -mesh 1 (read block by block), against "
+              "the unsharded CLI on the same file")
+        path = os.path.join(tmp, "coil-100.bin")
+        seeded_binary(path, O1_FILE_SHAPE, seed=12)
+        torch.cuda.empty_cache()
+        o1 = ["test_als", "-model", "CP", "-tensor", "o1", "-tensorfile",
+              path, "-rank", "10", "-pp", "1", "-pp_res_tol", "0.1",
+              "-resprint", "1", "-maxiter", "12"]
+        out1 = os.path.join(tmp, "o1_mesh1.csv")
+        out = run_mesh_cluster(1, ["-m", "pairwise_perturbation_tpu_torch.cli",
+                                   *o1, "-mesh", "1", "-filename", out1],
+                               "12e CLI")
+        if "backend=  nccl" not in out or "sharded read" not in out:
+            raise AssertionError("12e: no NCCL banner or sharded read line")
+        rows1 = read_csv(out1)
+        rows = cli_csv(o1, os.path.join(tmp, "o1_one.csv"))
+        check_csv(rows, "12e unsharded test_als -tensor o1")
+        check_same_rows("12e NCCL world of one (-mesh 1) against the "
+                        "unsharded CLI", rows1[1:], rows[1:], (0, 1, 2, 4, 5))
+        print(f"12e [tol] (tol x ||V||): {rows1[1][3]} (||V|| of the block "
+              f"on the card) and {rows[1][3]} (numpy on the host)")
+    del Vc, Vt
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -3068,16 +3451,19 @@ def main(argv=None) -> int:
                     help="run only phases 1, 2 and these kernel phases "
                          f"(comma-separated, of {', '.join(KERNEL_PHASES)},"
                          " 9 for Tucker, 10 for run -issparse 1, the "
-                         "datasets, checkpoints and traces, and 11 for the "
-                         "nnz-sharded engines under torchrun)"
+                         "datasets, checkpoints and traces, 11 for the "
+                         "nnz-sharded engines under torchrun and 12 for the "
+                         "dense engines on a block-sharded V)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
     if args.phases is not None:
         names = args.phases.split(",")
         unknown = [n for n in names
-                   if n not in KERNEL_PHASES and n not in ("9", "10", "11")]
+                   if n not in KERNEL_PHASES
+                   and n not in ("9", "10", "11", "12")]
         if unknown:
             ap.error(f"unknown phases {unknown}")
         smi = run_kernel_phases([n for n in names if n in KERNEL_PHASES])
@@ -3087,6 +3473,8 @@ def main(argv=None) -> int:
             print(f"phase 10 launches: {run_phase10(smi)}")
         if "11" in names:
             print(f"phase 11 launches: {run_phase11(smi)}")
+        if "12" in names:
+            print(f"phase 12 launches: {run_phase12(smi)}")
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -3172,6 +3560,9 @@ def main(argv=None) -> int:
     for kid, n in run_phase11(smi).items():
         launches[kid] += n
         by_phase.setdefault(kid, {})["11"] = n
+    for kid, n in run_phase12(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["12"] = n
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]
@@ -3189,6 +3580,8 @@ def main(argv=None) -> int:
                             launches_by_phase=by_phase.get(kid, {}),
                             on_main_path=kid not in OFF_SLICE_PATH,
                             **RESULTS[kid]))
+    print(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s in all "
+          f"({smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -58,15 +58,25 @@ checkpoint's factors, the only path where the JAX package reads it.
 command to DIR (utils/tracing.device_trace). What is not ported yet is
 refused with the ROADMAP step that brings it.
 
-``-mesh N`` runs ``test_als -model {CP,Tucker} -issparse 1`` on an
-nnz-sharded COO over a 1D mesh of N ranks (parallel/mesh.py), one process
-per rank, started by torchrun; rank 0 alone prints and writes the CSV:
+``-mesh N`` (or ``AxB``) runs ``test_als`` and ``pp_bench`` over a mesh
+of ranks (parallel/mesh.py), one process per rank, started by torchrun;
+rank 0 alone prints and writes the CSV (and the checkpoint, of the
+unsharded factors). The dense engines take V block-sharded over its
+largest modes (zero-padded; ``-tensor o1/o2`` read block by block from
+the file), CP and Tucker, every -pp and dtype of the unsharded run;
+``-issparse 1`` takes an nnz-sharded COO over a 1D mesh:
 
+    torchrun --standalone --nproc_per_node 2 \
+        -m pairwise_perturbation_tpu_torch.cli test_als -model CP \
+        -tensor r -pp 1 -dim 3 -size 200 -rank 10 -mesh 2
+    torchrun --standalone --nproc_per_node 2 \
+        -m pairwise_perturbation_tpu_torch.cli pp_bench -model CP \
+        -tensor r -dim 3 -size 512 -rank 10 -maxiter 3 -mesh 2
     torchrun --standalone --nproc_per_node 2 \
         -m pairwise_perturbation_tpu_torch.cli test_als -model CP \
         -tensor p -issparse 1 -pp 1 -dim 8 -size 10 -rank 10 -mesh 2
 
-The dense engines' ``-mesh`` waits for ROADMAP A15's dense half.
+``run -mesh`` waits for ROADMAP A15's ``run`` half.
 """
 
 from __future__ import annotations
@@ -108,9 +118,6 @@ def _unsupported(args, cmd):
              "-device_loop >= 1 is not ported yet for test_als and "
              "pp_bench (ROADMAP A14); use -device_loop 0"))
     checks += [
-        (bool(args.mesh) and not args.issparse,
-         "-mesh on the dense engines is not ported yet (ROADMAP A15, dense "
-         "half); -mesh runs test_als -model {CP,Tucker} -issparse 1"),
         (bool(args.mesh) and bool(args.issparse)
          and (cmd != "test_als" or "x" in args.mesh),
          "-issparse 1 is supported for test_als -model {CP,Tucker} "
@@ -118,6 +125,10 @@ def _unsupported(args, cmd):
          "only for test_als CP/Tucker on a 1D mesh (nnz-sharded COO, "
          "parallel/mesh.shard_coo). Re-run without -issparse or "
          "adjust -mesh."),
+        (bool(args.mesh) and cmd == "run",
+         "run -mesh is not ported yet (ROADMAP A15, `run` half: the "
+         "optimizers' sharded chain tops); -mesh runs test_als and "
+         "pp_bench"),
         (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16): "
          "its mode-minor copies of V serve the TPU's tiling"),
         (bool(args.resume) and not resumes,
@@ -199,6 +210,81 @@ def _load_tensor(args):
                               args.colmin, args.colmax, args.rationoise,
                               seed=args.seed, dtype=np_dtype)
     return V, dtype
+
+
+def _load_tensor_sharded(args, device):
+    """-mesh with -tensor o1/o2 (JAX cli.py:80-110): this rank's block of
+    the dataset, read from the file alone (io.read_dense_sharded), and
+    its layout, planned on the dataset's shape. The port keeps V's
+    natural mode order (C10), so the file is viewed through the CTF axis
+    reversal only; the JAX package composes its TPU mode permutation
+    into that view as well."""
+    from pairwise_perturbation_tpu_torch.utils import io
+    file_shape = io.COIL100_FILE_SHAPE if args.tensor == "o1" \
+        else io.TIME_LAPSE_FILE_SHAPE
+    path = _dataset_path(args, "coil-100.bin" if args.tensor == "o1"
+                         else "time-lapse.bin", file_shape)
+    nd = len(file_shape)
+    layout = _plan(args, tuple(reversed(file_shape)), device)
+    V = io.read_dense_sharded(
+        path, layout, out_dtype=np.float64 if args.dtype == "float64"
+        else np.float32, file_shape=file_shape,
+        axes_perm=tuple(range(nd - 1, -1, -1)), device=device)
+    if not args.quiet:
+        print(f"  sharded read: {path} -> {layout.orig_shape} padded "
+              f"{layout.padded_shape} over mesh {args.mesh}")
+    return V, layout
+
+
+def _plan(args, shape, device):
+    """The -mesh device mesh and the layout of V's ``shape`` on it."""
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh(_mesh_shape(args), device_type=device.type)
+    return pmesh.plan_layout(shape, mesh)
+
+
+def _dense_tensor(args, device):
+    """(V on ``device``, its layout or None, ||V||, the factor dtype) of
+    the dense engines. Without -mesh V is the whole tensor; with it,
+    this rank's zero-padded block (o1/o2 read block by block, any other
+    tensor cut from the host array). ||V|| comes from the host array
+    when there is one (JAX cli.py:191-195), else from the blocks' squared
+    norms summed over the mesh, V never gathered."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import contract
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    if args.mesh and args.tensor in ("o1", "o2"):
+        V, layout = _load_tensor_sharded(args, device)
+        Vnorm = float(torch.sqrt(contract.norm_sq(V, layout)))
+        dtype = V.dtype
+    else:
+        V, dtype = _load_tensor(args)
+        Vnorm = float(np.linalg.norm(V.ravel()))
+        layout = _plan(args, V.shape, device) if args.mesh else None
+        if layout is not None:
+            V = pmesh.shard_tensor(V, layout)
+    return _dense(args, V, device), layout, Vnorm, dtype
+
+
+def _global_shape(X, layout):
+    return tuple(X.shape) if layout is None else layout.orig_shape
+
+
+def _sharded_factors(Ws, layout):
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    return Ws if layout is None else pmesh.shard_factors(Ws, layout)
+
+
+def _unsharded(res, layout):
+    """The result's factors whole, padding stripped (JAX
+    cli.py:131-137), as tensors on the CPU; unchanged without a
+    layout."""
+    import torch
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    if layout is not None:
+        res.factors = [torch.from_numpy(W)
+                       for W in pmesh.unshard_factors(res.factors, layout)]
+    return res
 
 
 def _dataset_path(args, default, file_shape):
@@ -309,9 +395,10 @@ def _solved(solve, plot, *a, **kw):
 
 
 def _dense(args, V, device):
-    """V on ``device``, stored in bf16 under -dtype bfloat16."""
+    """V (a host array or a tensor) on ``device``, stored in bf16 under
+    -dtype bfloat16."""
     import torch
-    X = torch.from_numpy(V).to(device)
+    X = torch.as_tensor(V).to(device)
     return X.to(torch.bfloat16) if args.dtype == "bfloat16" else X
 
 
@@ -326,12 +413,13 @@ def _tucker_ranks(args, order: int):
     return (args.rank,) * order
 
 
-def _test_als_tucker(args, V, Vnorm, device) -> int:
+def _test_als_tucker(args, V, Vnorm, device, layout=None) -> int:
     """test_als -model Tucker (JAX cli.py:255-291, 351-409), with the
     CSV's TUCKER_HEADER. Dense: -pp 0 runs DT-ALS (als_tucker), any other
     -pp Tucker-PP (als_tucker_pp), both from HOSVD. -issparse 1: -pp 0
     sparse HOOI, -pp 1 sparse Tucker-PP, from the randomized sparse
-    HOSVD."""
+    HOSVD. ``layout``: dense V is this rank's block (-mesh), and the
+    factors are unsharded before the checkpoint."""
     from pairwise_perturbation_tpu_torch.models import sparse_tucker, tucker
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
@@ -353,18 +441,19 @@ def _test_als_tucker(args, V, Vnorm, device) -> int:
         solve = (sparse_tucker.als_tucker_sparse,
                  sparse_tucker.als_tucker_pp_sparse)[args.pp]
     else:
-        X = _dense(args, V, device)
+        X = V
         cfg = tucker.TuckerConfig(tol=args.tol * Vnorm,
                                   pp_res_tol=args.pp_res_tol,
                                   maxiter=args.maxiter,
                                   timelimit=args.timelimit,
                                   resprint=args.resprint,
                                   subspace_iters=args.tucker_subspace,
-                                  pp_quiet_frac=args.tucker_pp_skip)
+                                  pp_quiet_frac=args.tucker_pp_skip,
+                                  mesh_layout=layout)
         solve = tucker.als_tucker if args.pp == 0 else tucker.als_tucker_pp
     res = _solved(solve, _plot(args, PlotFile.TUCKER_HEADER), X,
                   _tucker_ranks(args, X.ndim), cfg, **kw)
-    _save_checkpoint(args, res, "Tucker", core=res.core)
+    _save_checkpoint(args, _unsharded(res, layout), "Tucker", core=res.core)
     if not args.quiet:
         print(f"\nIter = {res.iters} Final Diff norm {res.diffnorm:E}")
         if not args.issparse:
@@ -379,8 +468,12 @@ def cmd_test_als(args) -> int:
 
     device = _device(args.device)
     _print_banner(args)
-    V, dtype = _load_tensor(args)
-    Vnorm = float(np.linalg.norm(V.ravel()))  # of the f32 values, unrounded
+    layout = None
+    if args.issparse:
+        V, dtype = _load_tensor(args)
+        Vnorm = float(np.linalg.norm(V.ravel()))  # of the f32 values
+    else:
+        V, layout, Vnorm, dtype = _dense_tensor(args, device)
     if not args.quiet:
         print(f"Vnorm= {Vnorm}")
     if args.issparse and args.dtype == "bfloat16":
@@ -389,7 +482,7 @@ def cmd_test_als(args) -> int:
         # in float32, as the JAX package stores them
         V = torch.from_numpy(V).to(torch.bfloat16).float().numpy()
     if args.model == "Tucker":
-        return _test_als_tucker(args, V, Vnorm, device)
+        return _test_als_tucker(args, V, Vnorm, device, layout)
     kw = {}
     if args.issparse:
         X, mesh = _shard_coo(args, _sparse_tensor(args, V, device), device)
@@ -398,25 +491,31 @@ def cmd_test_als(args) -> int:
         solve = (sparse_cp.als_cp_sparse, sparse_cp.als_cp_pp_sparse)[args.pp]
         split = None
     else:
-        X = _dense(args, V, device)
+        X = V
         solve = (cp.als_cp_dt, cp.als_cp_pp,
                  functools.partial(cp.als_cp_pp, partial_update=True))[
             min(args.pp, 2)]
-        split = _planned_split(args, X.shape)
+        # planned on the padded global shape under -mesh
+        split = _planned_split(args, X.shape if layout is None
+                               else layout.padded_shape)
     t0 = time.perf_counter()
+    # factors at the original mode sizes, then zero-padded row blocks
+    # under -mesh (JAX cli.py:218-224)
+    shape = _global_shape(X, layout)
     if args.resume:
-        Ws = _resumed_factors(args, X.shape, dtype, device)
+        Ws = _resumed_factors(args, shape, dtype, device)
     else:
-        Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
+        Ws = cp.init_factors(shape, args.rank, seed=args.seed, dtype=dtype,
                              device=device)
     cfg = cp.CPConfig(tol=args.tol * Vnorm, pp_res_tol=args.pp_res_tol,
                       lam=args.lam, ratio_step=args.magni,
                       maxiter=args.maxiter, timelimit=args.timelimit,
                       resprint=args.resprint,
                       update_percentage=args.update_percentage_pp,
-                      tree_split=split)
-    res = _solved(solve, _plot(args, PlotFile.CP_HEADER), X, Ws, cfg, **kw)
-    _save_checkpoint(args, res, "CP")
+                      tree_split=split, mesh_layout=layout)
+    res = _solved(solve, _plot(args, PlotFile.CP_HEADER), X,
+                  _sharded_factors(Ws, layout), cfg, **kw)
+    _save_checkpoint(args, _unsharded(res, layout), "CP")
     if not args.quiet:
         print(f"\nIter = {res.iters} Final grad norm {res.gradnorm:E}")
         print(f"experiment took {time.perf_counter() - t0:.6f} seconds")
@@ -495,7 +594,8 @@ def _synced(V):
         torch.cuda.synchronize(V.device)
 
 
-def pp_bench_cp(V, W0, lam, magni, maxiter, split=None, plot=None):
+def pp_bench_cp(V, W0, lam, magni, maxiter, split=None, plot=None,
+                layout=None):
     """The CP body of pp_bench (JAX cli.py:482-517): one untimed DT sweep,
     then ``maxiter`` [DTtime] rows of one DT sweep each; one untimed cache
     build, then ``maxiter`` pairs of rows: [PPfirst] a cache build and the
@@ -504,7 +604,7 @@ def pp_bench_cp(V, W0, lam, magni, maxiter, split=None, plot=None):
     split ``split``) and its window ends in a device synchronize. Rows go
     to ``plot`` (a PlotFile, or None). Returns the factors each row kind
     ended with, at its last row: {"DTtime": ..., "PPfirst": ...,
-    "PPsecond": ...}."""
+    "PPsecond": ...}. ``layout``: V and W0 are this rank's blocks."""
     import torch
     from pairwise_perturbation_tpu_torch.models import cp
 
@@ -516,37 +616,39 @@ def pp_bench_cp(V, W0, lam, magni, maxiter, split=None, plot=None):
         return [w.clone() for w in W0]
 
     last = {}
-    Ws, _ = cp.dt_sweep(V, fresh(), lam, solver="svd", root_split=split)
+    Ws, _ = cp.dt_sweep(V, fresh(), lam, solver="svd", root_split=split,
+                        layout=layout)
     _synced(V)
     for _ in range(maxiter):
         Ws = fresh()
         t0 = time.perf_counter()
-        Ws, _ = cp.dt_sweep(V, Ws, lam, solver="svd", root_split=split)
+        Ws, _ = cp.dt_sweep(V, Ws, lam, solver="svd", root_split=split,
+                            layout=layout)
         _synced(V)
         row("DTtime", time.perf_counter() - t0)
         last["DTtime"] = Ws
-    cp.pp_build_caches(V, fresh())
+    cp.pp_build_caches(V, fresh(), layout)
     _synced(V)
     for _ in range(maxiter):
         Ws = fresh()
         t0 = time.perf_counter()
-        single, pair = cp.pp_build_caches(V, Ws)
+        single, pair = cp.pp_build_caches(V, Ws, layout)
         W_init = list(Ws)
         dWs = [torch.zeros_like(w) for w in Ws]
         Ws, dWs, _ = cp.pp_sweep(single, pair, Ws, W_init, dWs, lam, magni,
-                                 solver="svd")
+                                 solver="svd", layout=layout)
         _synced(V)
         t1 = time.perf_counter()
         row("PPfirst", t1 - t0)
         Ws2, _, _ = cp.pp_sweep(single, pair, Ws, W_init, dWs, lam, magni,
-                                solver="svd")
+                                solver="svd", layout=layout)
         _synced(V)
         row("PPsecond", time.perf_counter() - t1)
         last["PPfirst"], last["PPsecond"] = Ws, Ws2
     return last
 
 
-def pp_bench_tucker(V, ranks, maxiter, plot=None):
+def pp_bench_tucker(V, ranks, maxiter, plot=None, layout=None):
     """The Tucker body of pp_bench (JAX cli.py:520-551), from HOSVD's
     factors W0: one untimed DT sweep, then ``maxiter`` [DTtime] rows of
     one DT sweep each (W0 as factors and sign references, exact eigh);
@@ -554,7 +656,8 @@ def pp_bench_tucker(V, ranks, maxiter, plot=None):
     cache build and the first PP sweep from zero dWs, [PPsecond] the next
     PP sweep on those caches. Each window ends in a device synchronize;
     rows go to ``plot`` (a PlotFile, or None). Returns the factors each
-    row kind ended with, at its last row."""
+    row kind ended with, at its last row. ``layout``: V is this rank's
+    block."""
     import torch
     from pairwise_perturbation_tpu_torch.models import tucker
 
@@ -564,30 +667,32 @@ def pp_bench_tucker(V, ranks, maxiter, plot=None):
 
     ranks = tuple(ranks)
     last = {}
-    _, W0 = tucker.hosvd(V, ranks)
-    tucker.tucker_dt_sweep(V, list(W0), W0, ranks=ranks, use_sign=True)
+    _, W0 = tucker.hosvd(V, ranks, layout=layout)
+    tucker.tucker_dt_sweep(V, list(W0), W0, ranks=ranks, use_sign=True,
+                           layout=layout)
     _synced(V)
     for _ in range(maxiter):
         t0 = time.perf_counter()
         Ws, _ = tucker.tucker_dt_sweep(V, list(W0), W0, ranks=ranks,
-                                       use_sign=True)
+                                       use_sign=True, layout=layout)
         _synced(V)
         row("DTtime", time.perf_counter() - t0)
         last["DTtime"] = Ws
-    tucker.tucker_build_caches(V, list(W0))
+    tucker.tucker_build_caches(V, list(W0), layout)
     _synced(V)
     for _ in range(maxiter):
         t0 = time.perf_counter()
-        single, pair = tucker.tucker_build_caches(V, list(W0))
+        single, pair = tucker.tucker_build_caches(V, list(W0), layout)
         W_init = list(W0)
         dWs = [torch.zeros_like(w) for w in W0]
         Ws, dWs, _, _ = tucker.tucker_pp_sweep(single, pair, list(W0),
-                                               W_init, dWs, ranks=ranks)
+                                               W_init, dWs, ranks=ranks,
+                                               layout=layout)
         _synced(V)
         t1 = time.perf_counter()
         row("PPfirst", t1 - t0)
         Ws2, _, _, _ = tucker.tucker_pp_sweep(single, pair, Ws, W_init, dWs,
-                                              ranks=ranks)
+                                              ranks=ranks, layout=layout)
         _synced(V)
         row("PPsecond", time.perf_counter() - t1)
         last["PPfirst"], last["PPsecond"] = Ws, Ws2
@@ -604,21 +709,22 @@ def cmd_pp_bench(args) -> int:
 
     device = _device(args.device)
     _print_banner(args)
-    V, dtype = _load_tensor(args)
-    X = _dense(args, V, device)
-    plot = PlotFile(args.filename, PlotFile.BENCH_HEADER,
-                    echo=not args.quiet)
+    X, layout, _, dtype = _dense_tensor(args, device)
+    plot = _plot(args, PlotFile.BENCH_HEADER)
     try:
         if args.model == "Tucker":
             pp_bench_tucker(X, _tucker_ranks(args, X.ndim), args.maxiter,
-                            plot)
+                            plot, layout)
         else:
-            W0 = cp.init_factors(X.shape, args.rank, seed=args.seed,
-                                 dtype=dtype, device=device)
-            pp_bench_cp(X, W0, args.lam, args.magni, args.maxiter,
-                        _planned_split(args, X.shape), plot)
+            W0 = cp.init_factors(_global_shape(X, layout), args.rank,
+                                 seed=args.seed, dtype=dtype, device=device)
+            pp_bench_cp(X, _sharded_factors(W0, layout), args.lam,
+                        args.magni, args.maxiter, _planned_split(
+                            args, X.shape if layout is None
+                            else layout.padded_shape), plot, layout)
     finally:
-        plot.close()
+        if plot is not None:
+            plot.close()
     return 0
 
 

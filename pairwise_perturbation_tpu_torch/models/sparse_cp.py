@@ -87,17 +87,6 @@ def sparse_diagnostics(V_norm_sq, st, Ws, lam=None, mesh=None):
     return gn, dv
 
 
-def agreed_dtime(clock, mesh, device) -> float:
-    """The clock's dtime, rank 0's under ``mesh`` (broadcast outside the
-    timed window), so that every rank takes the time limit's exit at the
-    same row."""
-    dtime = clock.dtime()
-    if mesh is None:
-        return dtime
-    with clock.exclude():
-        return pmesh.broadcast_scalar(dtime, mesh, device)
-
-
 def _diag_and_log(V_norm_sq, st, Ws, lam, clock, plot, it, tol, pp_flag,
                   history, mesh=None):
     """Exact diagnostics with excluded time, one CSV row; queued sweep
@@ -107,7 +96,7 @@ def _diag_and_log(V_norm_sq, st, Ws, lam, clock, plot, it, tol, pp_flag,
         gn, diffV = tracing.timed("sparse.diagnostics", sparse_diagnostics,
                                   V_norm_sq, st, Ws, lam, mesh)
         gn, diffV = float(gn), float(diffV)
-    dtime = agreed_dtime(clock, mesh, st.values.device)
+    dtime = pmesh.agreed_dtime(clock, mesh, st.values.device)
     if plot is not None:
         plot.row(st.shape[0], it, gn, tol, pp_flag, diffV, dtime)
     history.append(dict(iter=it, gradnorm=gn, diffV=diffV, dtime=dtime,

@@ -41,8 +41,7 @@ import torch
 from pairwise_perturbation_tpu_torch.models import cp as cpm
 from pairwise_perturbation_tpu_torch.models import tucker as tkm
 from pairwise_perturbation_tpu_torch.ops import contract, solve
-from pairwise_perturbation_tpu_torch.models.sparse_cp import agreed_dtime, \
-    norm_sq
+from pairwise_perturbation_tpu_torch.models.sparse_cp import norm_sq
 from pairwise_perturbation_tpu_torch.ops import sparse as sp
 from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
 from pairwise_perturbation_tpu_torch.utils import tracing
@@ -126,7 +125,7 @@ def _diag_and_log(V_norm_sq, st, Ws, cn_prev, clock, plot, it, tol,
             "sparse_tucker.diagnostics", sparse_tucker_diagnostics,
             V_norm_sq, st, Ws, cn_prev, mesh)
         cn, dn, diffV = float(cn), float(dn), float(diffV)
-    dtime = agreed_dtime(clock, mesh, st.values.device)
+    dtime = pmesh.agreed_dtime(clock, mesh, st.values.device)
     if plot is not None:
         plot.row(st.shape[0], it, dn, tol, pp_flag, diffV, dtime)
     history.append(dict(iter=it, diffnorm=dn, diffV=diffV, dtime=dtime,

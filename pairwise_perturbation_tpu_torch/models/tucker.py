@@ -25,10 +25,20 @@ device (``lax.cond`` in :func:`tucker_pp_sweep`) the port branches on the
 host, and reads the device only when the branch can go the other way.
 Every ``jax.random`` draw is an argument here (the randomized HOSVD's
 starting bases), drawn by default from seeded CPU ``torch.Generator``s.
-Not ported: the JAX package's ``TuckerConfig.mesh_layout``, the dense
-engines' sharded caches, which wait for ROADMAP A15's dense half (the
-sparse engine's nnz-sharded ``mesh=`` is ported, models/sparse_tucker.py),
-and its device-resident and fused phase loops (A14).
+
+``TuckerConfig.mesh_layout`` (the JAX package's name) runs the engines on
+a block-sharded V, one process per mesh device (parallel/mesh.py), as
+models/cp.py does: V is this rank's block, the factors of sharded modes
+are row blocks, and the sweep functions take the layout as ``layout=``.
+A TTMc leaf, the core and each PP cache (parallel/mesh.
+constrained_ttmc_caches) are summed over the sharded modes they
+contracted, Grams and norms over the rows. A sharded mode's factor is
+extracted on the small side of its unfolding from reduced Grams, with
+the sign fix gathered along the axis; on the mode side the unfolding's
+rows are gathered first. HOSVD's Gram of a sharded mode is applied
+matrix-free on the subspace route and assembled block by block on the
+exact route (see :func:`hosvd`). Not ported: the JAX package's
+device-resident and fused phase loops (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 
 from pairwise_perturbation_tpu_torch.models import cp as cpm
 from pairwise_perturbation_tpu_torch.ops import contract, dimtree, solve
+from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
 from pairwise_perturbation_tpu_torch.utils import tracing
 from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile, SweepClock
 
@@ -66,6 +77,9 @@ class TuckerConfig:
     # Quiet-mode extraction skip inside PP sweeps (tucker_pp_sweep); 0 =
     # off, the reference's semantics and the default.
     pp_quiet_frac: float = 0.0
+    # ShardedLayout of a -mesh run (parallel/mesh.plan_layout); None =
+    # unsharded.
+    mesh_layout: object = None
 
 
 @dataclass
@@ -83,14 +97,18 @@ class TuckerBinaryTreeSweep:
     """Lazy binary-tree TTMc cache: node (lo, hi) is V with every mode
     outside [lo, hi] contracted with its factor (axis positions kept).
     Mirrors ``ttmc_map_DT`` (als_Tucker.cxx:178-230), top-level nodes
-    built from V."""
+    built from V. ``layout``: planned on the padded global shape, each
+    leaf summed over the sharded modes it contracted (nodes stay
+    partial)."""
 
-    def __init__(self, V, factors: Sequence):
+    def __init__(self, V, factors: Sequence, layout=None):
         self.V = V
         self.factors = list(factors)
         self.order = V.ndim
         self.parent = dimtree.binary_parent_map(self.order)
-        self.priority = contract.contraction_priority(V.shape)
+        self.layout = layout
+        self.priority = contract.contraction_priority(
+            contract.plan_shape(V, layout))
         self._memo: Dict[Tuple[int, int], object] = {}
 
     def node(self, lo: int, hi: int):
@@ -108,7 +126,7 @@ class TuckerBinaryTreeSweep:
 
     def ttmc(self, i: int):
         """Y_i: every mode but i contracted."""
-        return self.node(i, i)
+        return pmesh.reduce_modes([self.node(i, i)], self.layout, (i,))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -117,13 +135,16 @@ class TuckerBinaryTreeSweep:
 
 
 def _topk_subspace(G, r: int, Q0, iters: int):
-    """Top eigenpairs of the PSD ``G`` by subspace iteration from the
-    start basis ``Q0``, then Rayleigh-Ritz. Returns (W[m, q], lam[q])
-    descending, q = Q0's width (the caller keeps r of them)."""
-    Q, _ = torch.linalg.qr(G @ Q0)
+    """Top eigenpairs of the PSD ``G`` (a matrix, or a function Q -> G Q)
+    by subspace iteration from the start basis ``Q0``, then Rayleigh-Ritz.
+    Returns (W[m, q], lam[q]) descending, q = Q0's width (the caller keeps
+    r of them)."""
+    if isinstance(G, torch.Tensor):
+        G = G.__matmul__
+    Q, _ = torch.linalg.qr(G(Q0))
     for _ in range(max(iters - 1, 0)):
-        Q, _ = torch.linalg.qr(G @ Q)
-    B = Q.T @ (G @ Q)
+        Q, _ = torch.linalg.qr(G(Q))
+    B = Q.T @ G(Q)
     Wk, lam = solve.truncated_eigh(B, B.shape[0])
     return Q @ Wk, lam
 
@@ -153,7 +174,7 @@ def _resolve_subspace_iters(subspace_iters: int, side: int, r: int,
 
 
 def _factor_from_Y(Y, i: int, r: int, sign_ref=None, warm=None,
-                   subspace_iters: int = 0, pp: bool = False):
+                   subspace_iters: int = 0, pp: bool = False, layout=None):
     """Leading r left singular vectors of the mode-i unfolding A (s_i, m)
     of Y, from a Gram matrix and its eigh (JAX tucker.py:185-234):
 
@@ -166,18 +187,37 @@ def _factor_from_Y(Y, i: int, r: int, sign_ref=None, warm=None,
 
     With ``subspace_iters`` (resolved by :func:`_resolve_subspace_iters`)
     > 0 and a ``warm`` basis the eigh is warm-started subspace iteration.
-    Column signs are fixed, then matched to ``sign_ref`` when given."""
-    s_i = Y.shape[i]
-    m = Y.numel() // s_i
+    Column signs are fixed, then matched to ``sign_ref`` when given.
+
+    ``layout`` with mode i sharded: Y, ``sign_ref``, ``warm`` and the
+    result are this rank's row blocks of mode i, and s_i is the padded
+    global size. The small side sums A^T A and A^T warm over the axis
+    (one all_reduce); the mode side gathers A's rows (and the references'),
+    extracts as one process would and keeps this rank's block."""
+    sharded = pmesh.is_sharded(layout, i)
+    s_i = layout.padded_shape[i] if sharded else Y.shape[i]
+    m = Y.numel() // Y.shape[i]
+    if sharded and not r <= m < s_i:
+        lo, hi = layout.span(i)
+
+        def full(x):
+            return None if x is None else pmesh.gather_rows(x, i, layout)
+        U = _factor_from_Y(pmesh.gather_rows(Y, i, layout, dim=i), i, r,
+                           full(sign_ref), full(warm), subspace_iters, pp)
+        return U[lo:hi].contiguous()
     side = m if r <= m < s_i else s_i
     subspace_iters = _resolve_subspace_iters(subspace_iters, side, r, pp)
     fast = subspace_iters > 0 and warm is not None
     if r <= m < s_i:
-        A = Y.movedim(i, 0).reshape(s_i, m)
+        A = Y.movedim(i, 0).reshape(Y.shape[i], m)
         G = A.T @ A
         if fast and r < m:
-            W, lam = _topk_subspace(G, r, A.T @ warm, subspace_iters)
+            G, Q0 = pmesh.row_sum([G, A.T @ warm], [i, i],
+                                  layout if sharded else None)
+            W, lam = _topk_subspace(G, r, Q0, subspace_iters)
         else:
+            if sharded:
+                G = pmesh.row_sum([G], [i], layout)[0]
             W, lam = solve.truncated_eigh(G, r)
         floor = 1e-12 * torch.clamp(lam[0], min=1e-30)
         inv_sigma = torch.where(lam > floor,
@@ -190,20 +230,27 @@ def _factor_from_Y(Y, i: int, r: int, sign_ref=None, warm=None,
             U, _ = _topk_subspace(G, r, warm, subspace_iters)
         else:
             U, _ = solve.truncated_eigh(G, r)
-    U = solve.fix_sign_columns(U)
+    U = solve.fix_sign_columns(U, layout, i)
     if sign_ref is not None:
-        U = solve.sign_match(U, sign_ref)
+        U = solve.sign_match(U, sign_ref, layout, i)
     return U
 
 
+def _core_from_Y(Y_end, W_last, order: int, layout):
+    """The core: the last mode's Y contracted with its factor, summed over
+    that mode's axis where it is sharded."""
+    core = contract.ttmc_contract_mode(Y_end, W_last, order - 1)
+    return pmesh.row_sum([core], [order - 1], layout)[0]
+
+
 def tucker_dt_sweep(V, Ws, sign_refs, *, ranks: Tuple[int, ...],
-                    use_sign: bool, subspace_iters: int = 0):
+                    use_sign: bool, subspace_iters: int = 0, layout=None):
     """One DT Tucker sweep: per mode the tree's TTMc, Gram, eigh and sign
     fix; the core from the last mode's Y (als_Tucker.cxx:342-408,
     568-645). ``sign_refs`` are the warm bases (and the sign references
     with ``use_sign``). Returns (Ws_new, core)."""
     order = V.ndim
-    sweep = TuckerBinaryTreeSweep(V, Ws)
+    sweep = TuckerBinaryTreeSweep(V, Ws, layout)
     Y_end = None
     for i in range(order):
         Y = sweep.ttmc(i)
@@ -212,29 +259,34 @@ def tucker_dt_sweep(V, Ws, sign_refs, *, ranks: Tuple[int, ...],
         ref = sign_refs[i] if use_sign else None
         sweep.factors[i] = _factor_from_Y(Y, i, ranks[i], ref,
                                           warm=sign_refs[i],
-                                          subspace_iters=subspace_iters)
+                                          subspace_iters=subspace_iters,
+                                          layout=layout)
     Ws = sweep.factors
-    return Ws, contract.ttmc_contract_mode(Y_end, Ws[-1], order - 1)
+    return Ws, _core_from_Y(Y_end, Ws[-1], order, layout)
 
 
-def tucker_hooi_sweep(V, Ws, *, ranks: Tuple[int, ...]):
+def tucker_hooi_sweep(V, Ws, *, ranks: Tuple[int, ...], layout=None):
     """One plain HOOI sweep (alsTucker body, als_Tucker.cxx:148-163): a
     full TTMc per mode. Returns (Ws_new, core)."""
     Ws = list(Ws)
     for i in range(V.ndim):
-        Ws[i] = _factor_from_Y(contract.ttmc(V, Ws, skip_mode=i), i,
-                               ranks[i])
-    return Ws, contract.ttmc(V, Ws, skip_mode=-1)
+        Ws[i] = _factor_from_Y(
+            contract.ttmc(V, Ws, skip_mode=i, layout=layout), i, ranks[i],
+            layout=layout)
+    return Ws, contract.ttmc(V, Ws, skip_mode=-1, layout=layout)
 
 
-def tucker_build_caches(V, Ws):
-    """Tucker PP caches (als_Tucker.cxx:744-760)."""
+def tucker_build_caches(V, Ws, layout=None):
+    """Tucker PP caches (als_Tucker.cxx:744-760); under ``layout``
+    through parallel/mesh.constrained_ttmc_caches."""
+    if layout is not None:
+        return pmesh.constrained_ttmc_caches(V, Ws, layout)
     return contract.build_ttmc_caches(V, Ws)
 
 
 def tucker_pp_sweep(single, pair, Ws, W_init, dWs, quiet_tol: float = 0.0,
                     age: int = 0, *, ranks: Tuple[int, ...],
-                    subspace_iters: int = 0):
+                    subspace_iters: int = 0, layout=None):
     """One PP Tucker sweep (als_Tucker.cxx:823-891): per mode the
     corrected TTMc from the caches, the factor update (AUTO resolved with
     the PP thresholds, warm-started from ``W_init``), the sign fix
@@ -253,10 +305,10 @@ def tucker_pp_sweep(single, pair, Ws, W_init, dWs, quiet_tol: float = 0.0,
     Ws, dWs = list(Ws), list(dWs)
     quiet = [False] * order
     if quiet_tol > 0 and age > 0:
-        rel = torch.stack([
-            torch.linalg.vector_norm(d)
-            / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
-            for d, w in zip(dWs, Ws)]).cpu().numpy()
+        n = contract.factor_norms(list(dWs) + list(Ws), layout,
+                                  [k % order for k in range(2 * order)])
+        rel = torch.stack([n[k] / torch.clamp(n[order + k], min=1e-30)
+                           for k in range(order)]).cpu().numpy()
         tol = rel.dtype.type(quiet_tol)
         for i in range(order):
             quiet[i] = bool(np.max(np.where(np.arange(order) == i, 0, rel))
@@ -264,21 +316,22 @@ def tucker_pp_sweep(single, pair, Ws, W_init, dWs, quiet_tol: float = 0.0,
     Y_end = None
     for i in range(order):
         if i == order - 1 or not quiet[i]:
-            Y = contract.pp_correct_ttmc(single[i], pair, dWs, i)
+            Y = contract.pp_correct_ttmc(single[i], pair, dWs, i, layout)
             if i == order - 1:
                 Y_end = Y
         if not quiet[i]:
             Ws[i] = _factor_from_Y(Y, i, ranks[i], W_init[i], warm=W_init[i],
-                                   subspace_iters=subspace_iters, pp=True)
+                                   subspace_iters=subspace_iters, pp=True,
+                                   layout=layout)
         dWs[i] = Ws[i] - W_init[i]
-    core = contract.ttmc_contract_mode(Y_end, Ws[-1], order - 1)
+    core = _core_from_Y(Y_end, Ws[-1], order, layout)
     return Ws, dWs, core, all(quiet)
 
 
-def tucker_diagnostics(V_norm_sq, V, Ws, core_prev_norm):
+def tucker_diagnostics(V_norm_sq, V, Ws, core_prev_norm, layout=None):
     """(core, core norm, diffnorm, diffV), diffV^2 = ||V||^2 - ||core||^2
     (orthonormal factors)."""
-    core = contract.ttmc(V, Ws, skip_mode=-1)
+    core = contract.ttmc(V, Ws, skip_mode=-1, layout=layout)
     cn = torch.linalg.vector_norm(core)
     diffnorm = torch.abs(cn - core_prev_norm)
     diffV = torch.sqrt(torch.clamp(V_norm_sq - cn * cn, min=0.0))
@@ -306,7 +359,49 @@ def hosvd_draw(shape, dtype, mode: int):
     return torch.randn(shape, generator=gen, dtype=dtype)
 
 
-def hosvd(V, ranks: Sequence[int], Q0s: Optional[Sequence] = None):
+def _unfolding(V, i: int):
+    """V's mode-i unfolding (rows of mode i), in V's compute dtype (float32
+    for bf16 V, whose values it holds exactly)."""
+    if V.dtype == torch.bfloat16:
+        V = V.float()
+    return V.movedim(i, 0).reshape(V.shape[i], -1)
+
+
+def _gram_apply(V, i: int, layout):
+    """Q -> G Q for the Gram G of the sharded mode i, matrix-free:
+    G Q = V_(i) (V_(i)^T Q). ``Q`` is whole (padded s_i rows) and
+    replicated; V_(i)^T Q is summed over i's axis (a sum over rows), the
+    product over the axes of the other sharded modes, and the result's
+    row blocks are gathered, so every rank gets the same whole G Q."""
+    A = _unfolding(V, i)
+    lo, hi = layout.span(i)
+
+    def apply(Q):
+        P = pmesh.row_sum([A.T @ Q[lo:hi]], [i], layout)[0]
+        GQ = pmesh.reduce_modes([A @ P], layout, (i,))[0]
+        return pmesh.gather_rows(GQ, i, layout)
+    return apply
+
+
+def _assembled_gram(V, i: int, layout):
+    """The whole Gram of the sharded mode i: each rank of i's axis
+    broadcasts its block of the unfolding in turn, every rank forms its
+    rows of G against it, and one zero-filled all_reduce over every
+    sharded axis assembles G (and sums the other sharded modes'
+    partials). V moves once, a block at a time."""
+    A = _unfolding(V, i)
+    lo, hi = layout.span(i)
+    b = hi - lo
+    s_i = layout.padded_shape[i]
+    G = torch.zeros((s_i, s_i), dtype=A.dtype, device=A.device)
+    for c in range(s_i // b):
+        G[lo:hi, c * b:(c + 1) * b] = A @ pmesh.broadcast_block(
+            A, i, layout, c).T
+    return pmesh.reduce_modes([G], layout)[0]
+
+
+def hosvd(V, ranks: Sequence[int], Q0s: Optional[Sequence] = None,
+          layout=None):
     """HOSVD initialization (als_Tucker.cxx:66-70; JAX tucker.py:371-394).
     Returns (core, factors).
 
@@ -314,23 +409,47 @@ def hosvd(V, ranks: Sequence[int], Q0s: Optional[Sequence] = None):
     eigh where s_i <= HOSVD_EXACT_EIGH_MAX or 2 r_i >= s_i, else by
     :func:`_topk_subspace` (4 iterations) from an (s_i, 2 r_i) normal
     start basis, ``Q0s[i]`` when given (a parity test passes the JAX
-    package's draw), else :func:`hosvd_draw`'s."""
+    package's draw), else :func:`hosvd_draw`'s.
+
+    ``layout``: V is this rank's block and s_i the padded global size
+    (the JAX package's GSPMD run sees the padded V). An unsharded mode's
+    Gram is summed over the sharded axes. A sharded mode's Gram needs
+    rows of other ranks: on the subspace route it is applied matrix-free
+    (:func:`_gram_apply`, one reduction of an (other modes, 2 r_i) matrix
+    per product), on the exact route assembled block by block
+    (:func:`_assembled_gram`); either way the whole factor is replicated,
+    its signs fixed, and this rank keeps its row block."""
     ranks = tuple(int(r) for r in ranks)
+    shape = contract.plan_shape(V, layout)
+    # the Grams' dtype (mode_gram of bf16 V accumulates in float32)
+    dtype = torch.float32 if V.dtype == torch.bfloat16 else V.dtype
     Ws = []
     for i in range(V.ndim):
-        G = contract.mode_gram(V, i)
-        s_i = V.shape[i]
+        sharded = pmesh.is_sharded(layout, i)
+        s_i = shape[i]
         q = min(2 * ranks[i], s_i)
-        if s_i > HOSVD_EXACT_EIGH_MAX and q < s_i:
-            Q0 = Q0s[i] if Q0s is not None else hosvd_draw((s_i, q),
-                                                           G.dtype, i)
-            U, _ = _topk_subspace(G, ranks[i], Q0.to(G.device, G.dtype),
+        subspace = s_i > HOSVD_EXACT_EIGH_MAX and q < s_i
+        if sharded and subspace:
+            G = _gram_apply(V, i, layout)
+        elif sharded:
+            G = _assembled_gram(V, i, layout)
+        else:
+            G = pmesh.reduce_modes([contract.mode_gram(V, i)], layout,
+                                   (i,))[0]
+        if subspace:
+            Q0 = Q0s[i] if Q0s is not None else hosvd_draw((s_i, q), dtype,
+                                                           i)
+            U, _ = _topk_subspace(G, ranks[i], Q0.to(V.device, dtype),
                                   iters=4)
             U = U[:, :ranks[i]]
         else:
             U, _ = solve.truncated_eigh(G, ranks[i])
-        Ws.append(solve.fix_sign_columns(U))
-    return contract.ttmc(V, Ws, skip_mode=-1), Ws
+        U = solve.fix_sign_columns(U)
+        if sharded:
+            lo, hi = layout.span(i)
+            U = U[lo:hi].contiguous()
+        Ws.append(U)
+    return contract.ttmc(V, Ws, skip_mode=-1, layout=layout), Ws
 
 
 # ---------------------------------------------------------------------------
@@ -339,18 +458,21 @@ def hosvd(V, ranks: Sequence[int], Q0s: Optional[Sequence] = None):
 
 
 def _diag_and_log(V_norm_sq, V, Ws, core_prev_norm, clock, plot, it, tol,
-                  pp_flag, history):
+                  pp_flag, history, layout=None):
     """Exact diagnostics in an excluded window, one CSV row. Queued sweep
-    work is synced before the window opens, so it counts toward dtime."""
+    work is synced before the window opens, so it counts toward dtime;
+    under ``layout`` the time limit reads rank 0's clock."""
     cpm._sync()
     with clock.exclude():
         core, cn, diffnorm, diffV = tracing.timed(
             "tucker.diagnostics", tucker_diagnostics,
-            V_norm_sq, V, Ws, core_prev_norm)
+            V_norm_sq, V, Ws, core_prev_norm, layout)
         cn, diffnorm, diffV = float(cn), float(diffnorm), float(diffV)
-    dtime = clock.dtime()
+    dtime = pmesh.agreed_dtime(clock, None if layout is None else layout.mesh,
+                               V.device)
     if plot is not None:
-        plot.row(V.shape[0], it, diffnorm, tol, pp_flag, diffV, dtime)
+        plot.row(V.shape[0] if layout is None else layout.orig_shape[0], it,
+                 diffnorm, tol, pp_flag, diffV, dtime)
     history.append(dict(iter=it, diffnorm=diffnorm, diffV=diffV, dtime=dtime,
                         pp=pp_flag))
     return core, cn, diffnorm, diffV, dtime
@@ -362,13 +484,13 @@ def _logged(it: int, cfg: TuckerConfig) -> bool:
         or it == cfg.maxiter
 
 
-def _init(V, ranks, Ws):
+def _init(V, ranks, Ws, layout=None):
     """(core, factors): HOSVD (timed) when ``Ws`` is None, else the given
-    factors and their core."""
+    factors (this rank's blocks under ``layout``) and their core."""
     if Ws is None:
-        return tracing.timed("tucker.hosvd", hosvd, V, ranks)
+        return tracing.timed("tucker.hosvd", hosvd, V, ranks, layout=layout)
     Ws = list(Ws)
-    return contract.ttmc(V, Ws, skip_mode=-1), Ws
+    return contract.ttmc(V, Ws, skip_mode=-1, layout=layout), Ws
 
 
 def als_tucker(V, ranks, cfg: TuckerConfig,
@@ -379,8 +501,9 @@ def als_tucker(V, ranks, cfg: TuckerConfig,
     ``use_tree`` (alsTucker_DT, als_Tucker.cxx:240-424), plain HOOI
     sweeps without (alsTucker, als_Tucker.cxx:120-176)."""
     ranks = tuple(int(r) for r in ranks)
-    V_norm_sq = contract.norm_sq(V)
-    core, Ws = _init(V, ranks, Ws)
+    layout = cfg.mesh_layout
+    V_norm_sq = contract.norm_sq(V, layout)
+    core, Ws = _init(V, ranks, Ws, layout)
     clock = clock or SweepClock()
     history: list = []
     core_prev_norm = torch.linalg.vector_norm(core)
@@ -391,7 +514,7 @@ def als_tucker(V, ranks, cfg: TuckerConfig,
         if _logged(it, cfg):
             core, core_prev_norm, diffnorm, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, core_prev_norm, clock, plot, it, cfg.tol, 0,
-                history)
+                history, layout)
             if diffnorm < cfg.tol:
                 converged = True
                 break
@@ -400,10 +523,11 @@ def als_tucker(V, ranks, cfg: TuckerConfig,
         if use_tree:
             Ws, core = tracing.timed(
                 "tucker.dt_sweep", tucker_dt_sweep, V, Ws, Ws, ranks=ranks,
-                use_sign=False, subspace_iters=cfg.subspace_iters)
+                use_sign=False, subspace_iters=cfg.subspace_iters,
+                layout=layout)
         else:
             Ws, core = tracing.timed("tucker.hooi_sweep", tucker_hooi_sweep,
-                                     V, Ws, ranks=ranks)
+                                     V, Ws, ranks=ranks, layout=layout)
         it += 1
     return TuckerResult(Ws, core, diffnorm, diffV, it, converged, history)
 
@@ -415,13 +539,14 @@ def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     (under AUTO, a side of 256 or more starts from qr(G @ 0)), as in the
     JAX package (tucker.py:479, 497-498)."""
     order = V.ndim
+    layout = cfg.mesh_layout
     W_prev = [torch.zeros_like(W) for W in Ws]
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
         if _logged(it, cfg):
             core, cn, diffnorm, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, state["core_prev_norm"], clock, plot, it,
-                cfg.tol, 0, state["history"])
+                cfg.tol, 0, state["history"], layout)
             state.update(core=core, core_prev_norm=cn, diffnorm=diffnorm,
                          diffV=diffV)
             if diffnorm < cfg.tol:
@@ -430,12 +555,12 @@ def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
                 return Ws, dWs, "timelimit"
         Ws_new, core = tracing.timed(
             "tucker.dt_sweep", tucker_dt_sweep, V, Ws, W_prev, ranks=ranks,
-            use_sign=True, subspace_iters=cfg.subspace_iters)
+            use_sign=True, subspace_iters=cfg.subspace_iters, layout=layout)
         state["core"] = core
         dWs = [W - Wp for W, Wp in zip(Ws_new, W_prev)]
         W_prev = list(Ws_new)
         Ws = Ws_new
-        ratios = cpm.factor_norm_ratios(Ws, dWs).cpu().numpy()
+        ratios = cpm.factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
         state["iter"] = it + 1
         if int(np.sum(np.abs(ratios) < state["tol_init"])) == order:
             return Ws, dWs, "quiet"
@@ -447,12 +572,13 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     phase's first sweep, PP sweeps until a factor drifts past tol_init
     (restart), the quiet-skip stationarity exit, convergence or the
     limits."""
+    layout = cfg.mesh_layout
     init_iter = state["iter"]
     W_init = single = pair = None
     build_it = init_iter
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
-        ratios = cpm.factor_norm_ratios(Ws, dWs).cpu().numpy()
+        ratios = cpm.factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
         num_dw_break = int(np.sum(np.abs(ratios) > state["tol_init"]))
         if it == init_iter or num_dw_break > 0:
             if num_dw_break > 0:
@@ -461,11 +587,11 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
             dWs = [torch.zeros_like(W) for W in Ws]
             build_it = it
             single, pair = tracing.timed("tucker.pp_cache_build",
-                                         tucker_build_caches, V, Ws)
+                                         tucker_build_caches, V, Ws, layout)
         if _logged(it, cfg) or it == init_iter:
             core, cn, diffnorm, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, state["core_prev_norm"], clock, plot, it,
-                cfg.tol, 1, state["history"])
+                cfg.tol, 1, state["history"], layout)
             state.update(core=core, core_prev_norm=cn, diffnorm=diffnorm,
                          diffV=diffV)
             if diffnorm < cfg.tol:
@@ -477,7 +603,7 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
         Ws, dWs, core, stationary = tracing.timed(
             "tucker.pp_sweep", tucker_pp_sweep, single, pair, Ws, W_init,
             dWs, cfg.pp_quiet_frac * state["tol_init"], it - build_it,
-            ranks=ranks, subspace_iters=cfg.subspace_iters)
+            ranks=ranks, subspace_iters=cfg.subspace_iters, layout=layout)
         state["core"] = core
         state["iter"] = it + 1
         if cfg.pp_quiet_frac and stationary:
@@ -494,8 +620,8 @@ def als_tucker_pp(V, ranks, cfg: TuckerConfig,
     above the 5e-3 floor) after each PP phase (alsTucker_PP,
     als_Tucker.cxx:906-962)."""
     ranks = tuple(int(r) for r in ranks)
-    V_norm_sq = contract.norm_sq(V)
-    core, Ws = _init(V, ranks, Ws)
+    V_norm_sq = contract.norm_sq(V, cfg.mesh_layout)
+    core, Ws = _init(V, ranks, Ws, cfg.mesh_layout)
     clock = clock or SweepClock()
     state = dict(iter=0, core=core,
                  core_prev_norm=torch.linalg.vector_norm(core),

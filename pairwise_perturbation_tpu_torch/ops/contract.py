@@ -24,6 +24,15 @@ pairwise order, the port contracts one factor at a time in the global
 path depends on whether opt_einsum is installed, and contracting a small
 mode of a large V first would materialize an intermediate many times V's
 size. The order changes results by round-off only.
+
+On a block-sharded V (parallel/mesh.py) the functions that take
+``layout=`` run on this rank's block and factor blocks and sum their
+partials through the mesh's reduction hooks: a contraction over a sharded
+mode at the result (an MTTKRP, a TTMc, a corrected PP term), a sum over
+the rows of a sharded factor at the small result (a Gram, a norm, an
+inner product). They plan the contraction order on the padded global
+shape, never the block's, so the order (and the rounding) is the
+unsharded run's. ``layout=None`` is the unsharded function, unchanged.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from pairwise_perturbation_tpu_torch import config
+from pairwise_perturbation_tpu_torch.parallel import collectives
 
 # Mode axes use lowercase letters; rank axes are uppercase.
 _MODES = string.ascii_lowercase
@@ -54,12 +64,19 @@ def _einsum(spec, *ops):
     return torch.einsum(spec, *ops)
 
 
-def norm_sq(V):
-    """||V||^2, accumulated in float32 for bf16 V, else in V's dtype."""
+def plan_shape(V, layout):
+    """The shape contractions are planned on: V's own, or the padded
+    global shape of a sharded V."""
+    return tuple(V.shape) if layout is None else layout.padded_shape
+
+
+def norm_sq(V, layout=None):
+    """||V||^2, accumulated in float32 for bf16 V, else in V's dtype;
+    summed over the ranks' blocks under ``layout``."""
     v = V.reshape(-1)
     if v.dtype == torch.bfloat16:
         v = v.float()
-    return torch.dot(v, v)
+    return collectives.reduce_modes([torch.dot(v, v)], layout)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +84,7 @@ def norm_sq(V):
 # ---------------------------------------------------------------------------
 
 
-def mttkrp(V, factors: Sequence, mode: int):
+def mttkrp(V, factors: Sequence, mode: int, layout=None):
     """Exact MTTKRP for ``mode``: M[i_mode, r] = sum V * prod_{j != mode} W_j.
 
     Routes as the JAX package does (contract.py:109-128): an order-3
@@ -81,17 +98,23 @@ def mttkrp(V, factors: Sequence, mode: int):
 
     bf16 V: the JAX package writes one einsum, which rounds every factor
     to bf16; the chain therefore rounds them all, not only the first.
+
+    ``layout``: V and the factors are this rank's blocks; the result is
+    this rank's row block, summed over the axes of the other sharded
+    modes (one all_reduce).
     """
     order = V.ndim
     if config.get().use_kernels and order == 3 and V.dtype == torch.float32:
         from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
-        return mttkrp3.mttkrp3_mode(V.contiguous(),
-                                    [W.contiguous() for W in factors], mode)
-    if V.dtype == torch.bfloat16:
-        factors = [W.to(torch.bfloat16).float() for W in factors]
-    others = (m for m in range(order) if m != mode)
-    return partial_mttkrp(
-        V, factors, order_by_priority(others, contraction_priority(V.shape)))
+        M = mttkrp3.mttkrp3_mode(V.contiguous(),
+                                 [W.contiguous() for W in factors], mode)
+    else:
+        if V.dtype == torch.bfloat16:
+            factors = [W.to(torch.bfloat16).float() for W in factors]
+        others = (m for m in range(order) if m != mode)
+        M = partial_mttkrp(V, factors, order_by_priority(
+            others, contraction_priority(plan_shape(V, layout))))
+    return collectives.reduce_modes([M], layout, (mode,))[0]
 
 
 def contract_mode_kr(T, rem_modes: Tuple[int, ...], has_rank: bool, factor,
@@ -206,7 +229,8 @@ def _contract_mode_kr_rm(T, rem_modes: Tuple[int, ...], factor, mode: int):
     return out, rem_modes[:pos] + rem_modes[pos + 1:]
 
 
-def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False):
+def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
+                    shape=None):
     """Build all PP caches: pair tensors T_{ij}[R, s_i, s_j] (rank-major)
     for i<j and single matrices M_i[s_i, R].
 
@@ -228,9 +252,13 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False):
     with the kernels on (rank-last) and is moved to rank-major.
     ``config.use_kernels_first`` does not reach here, as
     ``use_pallas_first`` does not there.
+
+    ``shape``: the shape the chains are planned on (default V's; a
+    sharded V's block passes the padded global shape, and
+    parallel/mesh.constrained_pp_caches sums the partials).
     """
     order = V.ndim
-    priority = contraction_priority(V.shape)
+    priority = contraction_priority(V.shape if shape is None else shape)
     memo: Dict[Tuple[int, ...], Tuple] = {}
     if config.get().use_kernels_triple and order == 4 and priority[-1] == 0:
         from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots
@@ -274,23 +302,34 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False):
     return single, pair
 
 
-def pp_correct_mttkrp(single_i, pair, dWs: Sequence, i: int):
+def _corrected(base, terms, layout):
+    """``base`` plus the (term, j) ``terms``, added in order. Under
+    ``layout`` a term over a sharded mode j is a partial over j's axis:
+    the terms are reduced first, one all_reduce per axis for all of them
+    (each axis carries one mode), so the additions keep the unsharded
+    order."""
+    for t in collectives.reduce_parts([(t, (j,)) for t, j in terms],
+                                      layout):
+        base = base + t
+    return base
+
+
+def pp_correct_mttkrp(single_i, pair, dWs: Sequence, i: int, layout=None):
     """First-order PP-corrected MTTKRP for mode ``i``:
 
     M~_i = M_i + sum_{j<i} T_{ji} x_j dW_j + sum_{j>i} T_{ij} x_j dW_j
 
     Reference: als_CP.cxx:778-794. ``pair[(a, b)]`` is rank-major with
-    axes (R, s_a, s_b) — see :func:`build_pp_caches`.
+    axes (R, s_a, s_b) — see :func:`build_pp_caches`. ``layout``: the
+    terms over sharded modes are summed over their axes.
     """
-    M = single_i
-    for j in range(len(dWs)):
-        if j == i:
-            continue
-        if j < i:
-            M = M + _einsum("Zab,aZ->bZ", pair[(j, i)], dWs[j])
-        else:
-            M = M + _einsum("Zab,bZ->aZ", pair[(i, j)], dWs[j])
-    return M
+    def terms():
+        for j in range(len(dWs)):
+            if j < i:
+                yield _einsum("Zab,aZ->bZ", pair[(j, i)], dWs[j]), j
+            elif j > i:
+                yield _einsum("Zab,bZ->aZ", pair[(i, j)], dWs[j]), j
+    return _corrected(single_i, terms(), layout)
 
 
 def gram(W):
@@ -298,17 +337,18 @@ def gram(W):
     return W.T @ W
 
 
-def hadamard_gram(factors: Sequence, skip_mode: int = -1, regul=None):
+def hadamard_gram(factors: Sequence, skip_mode: int = -1, regul=None,
+                  layout=None):
     """S = Hadamard product of W_j^T W_j over j != skip_mode (+ lambda I).
 
     Reference: S["ij"] = prod (W[idx]["ki"] W[idx]["kj"]) (+ regul)
-    (als_CP.cxx:573-578).
+    (als_CP.cxx:573-578). ``layout``: the Grams of row-sharded factors
+    are summed over their axes (one all_reduce per axis).
     """
+    modes = [j for j in range(len(factors)) if j != skip_mode]
     S = None
-    for j, W in enumerate(factors):
-        if j == skip_mode:
-            continue
-        G = gram(W)
+    for G in collectives.row_sum([gram(factors[j]) for j in modes], modes,
+                                 layout):
         S = G if S is None else S * G
     if regul is not None:
         S = S + regul * torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
@@ -323,15 +363,16 @@ def build_dense(factors: Sequence):
     return _einsum(spec, *factors)
 
 
-def cp_gradient(V, factors: Sequence, regul=None):
+def cp_gradient(V, factors: Sequence, regul=None, layout=None):
     """Full CP gradient for all modes: grad_i = -M_i + W_i S_i.
 
-    Reference: ``gradient_CP`` (common.cxx:1009-1052).
+    Reference: ``gradient_CP`` (common.cxx:1009-1052). ``layout``: each
+    grad is this rank's row block.
     """
     grads = []
     for i in range(len(factors)):
-        M = mttkrp(V, factors, i)
-        S = hadamard_gram(factors, skip_mode=i, regul=regul)
+        M = mttkrp(V, factors, i, layout=layout)
+        S = hadamard_gram(factors, skip_mode=i, regul=regul, layout=layout)
         grads.append(-M + factors[i] @ S)
     return grads
 
@@ -341,24 +382,27 @@ def gradsubprob(M, S, W):
     return -M + W @ S
 
 
-def cp_gradnorm(V, factors: Sequence, regul=None):
+def cp_gradnorm(V, factors: Sequence, regul=None, layout=None):
     """EXACT CP gradient norm sqrt(sum_i ||-M_i + W_i S_i||^2) at the
     current iterate (fresh MTTKRP per mode); diagnostics only, as in the
     JAX package (contract.py:534-546)."""
-    grads = cp_gradient(V, factors, regul=regul)
-    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    grads = cp_gradient(V, factors, regul=regul, layout=layout)
+    sq = [torch.sum(g * g) for g in grads]
+    return torch.sqrt(sum(collectives.row_sum(sq, range(len(sq)), layout)))
 
 
-def cp_residual_norm(V_norm_sq, M_last, factors: Sequence):
+def cp_residual_norm(V_norm_sq, M_last, factors: Sequence, layout=None):
     """|| V - [[W_1 .. W_N]] ||_F via the norm identity:
 
     ||V - Vhat||^2 = ||V||^2 - 2 <M_N, W_N> + 1^T (hadamard of all Grams) 1
 
     where M_N is the *exact* MTTKRP of the last mode (one MTTKRP, no
-    O(s^N) temporary).
+    O(s^N) temporary). ``layout``: the inner product and the Grams are
+    summed over the ranks' rows.
     """
-    inner = torch.sum(M_last * factors[-1])
-    vhat_sq = torch.sum(hadamard_gram(factors, skip_mode=-1))
+    inner = collectives.row_sum([torch.sum(M_last * factors[-1])],
+                                [len(factors) - 1], layout)[0]
+    vhat_sq = torch.sum(hadamard_gram(factors, skip_mode=-1, layout=layout))
     return torch.sqrt(torch.clamp(V_norm_sq - 2.0 * inner + vhat_sq, min=0.0))
 
 
@@ -367,12 +411,31 @@ def cp_residual_exact(V, factors: Sequence):
     return torch.linalg.vector_norm(V - build_dense(factors))
 
 
-def normalize_factors(factors: Sequence):
+def factor_norms(factors: Sequence, layout=None, modes=None, sums=()):
+    """The Frobenius norms of ``factors`` (``factors[k]`` of mode
+    ``modes[k]``, default k), then the ``sums`` ((tensor, mode) pairs:
+    sums over the rows of that mode's factor), as one list. Under
+    ``layout`` a sharded mode's norm is of the whole factor: the root of
+    the ranks' squared block norms summed; the squares and ``sums``
+    travel in one buffer per axis."""
+    modes = range(len(factors)) if modes is None else list(modes)
+    norms = [torch.linalg.vector_norm(W) for W in factors]
+    idx = [k for k, m in enumerate(modes)
+           if collectives.is_sharded(layout, m)]
+    red = collectives.reduce_parts([(norms[k] * norms[k], (modes[k],))
+                                    for k in idx]
+                                   + [(t, (m,)) for t, m in sums], layout)
+    for k, sq in zip(idx, red):
+        norms[k] = torch.sqrt(sq)
+    return norms + red[len(idx):]
+
+
+def normalize_factors(factors: Sequence, layout=None):
     """Rebalance all factor Frobenius norms to their geometric mean.
 
     Reference: ``Normalize`` (common.cxx:680-689).
     """
-    norms = [torch.linalg.vector_norm(W) for W in factors]
+    norms = factor_norms(factors, layout)
     target = torch.prod(torch.stack(norms)) ** (1.0 / len(factors))
     return [W * (target / n) for W, n in zip(factors, norms)]
 
@@ -395,7 +458,8 @@ def ttmc_contract_mode(T, factor, axis: int, transpose: bool = False):
     return _einsum(f"{letters},{f_spec}->{out_spec}", T, factor)
 
 
-def ttmc(V, factors: Sequence, skip_mode: int = -1, transpose: bool = False):
+def ttmc(V, factors: Sequence, skip_mode: int = -1, transpose: bool = False,
+         layout=None):
     """Tensor-times-matrix chain over every mode except ``skip_mode``
     (-1 contracts them all: the core). With ``transpose`` the factors map
     rank -> size (reconstruction, als_Tucker.cxx:303).
@@ -405,25 +469,28 @@ def ttmc(V, factors: Sequence, skip_mode: int = -1, transpose: bool = False):
     bf16 when V is bf16 (contract.py:54-78), so here every factor is
     rounded before the chain, as :func:`mttkrp` does; the dimension-tree
     and cache chains (:func:`ttmc_contract_mode` step by step) round only
-    the first."""
+    the first. ``layout``: summed over the axes of the sharded modes it
+    contracted (the core, ``skip_mode=-1``, over every axis)."""
     if V.dtype == torch.bfloat16:
         factors = [W.to(torch.bfloat16).float() for W in factors]
     T = V
     modes = (m for m in range(V.ndim) if m != skip_mode)
-    for m in order_by_priority(modes, contraction_priority(V.shape)):
+    for m in order_by_priority(modes,
+                               contraction_priority(plan_shape(V, layout))):
         T = ttmc_contract_mode(T, factors[m], m, transpose)
-    return T
+    return collectives.reduce_modes([T], layout, (skip_mode,))[0]
 
 
-def build_ttmc_caches(V, factors: Sequence):
+def build_ttmc_caches(V, factors: Sequence, shape=None):
     """Tucker PP caches: pair tensors (modes i, j uncontracted) and single
     tensors (mode i uncontracted), axis positions preserved (contracted
     axes rank-sized). Every pair and then every single, as
     ``Build_ttmc_map`` (als_Tucker.cxx:744-760), each a chain in
     :func:`contraction_priority` order memoized on its contracted prefix
-    (JAX contract.py:632-663)."""
+    (JAX contract.py:632-663), planned on ``shape`` (default V's; see
+    :func:`build_pp_caches`)."""
     order = V.ndim
-    priority = contraction_priority(V.shape)
+    priority = contraction_priority(V.shape if shape is None else shape)
     memo: Dict[Tuple[int, ...], object] = {(): V}
 
     def get(key: Tuple[int, ...]):
@@ -443,15 +510,13 @@ def build_ttmc_caches(V, factors: Sequence):
     return single, pair
 
 
-def pp_correct_ttmc(single_i, pair, dWs: Sequence, i: int):
+def pp_correct_ttmc(single_i, pair, dWs: Sequence, i: int, layout=None):
     """First-order PP-corrected TTMc of mode ``i``:
-    Y~_i = Y_i + sum_{j != i} cache_{ij} x_j dW_j (als_Tucker.cxx:835-859)."""
-    Y = single_i
-    for j in range(len(dWs)):
-        if j != i:
-            Y = Y + ttmc_contract_mode(pair[(min(i, j), max(i, j))], dWs[j],
-                                       j)
-    return Y
+    Y~_i = Y_i + sum_{j != i} cache_{ij} x_j dW_j (als_Tucker.cxx:835-859);
+    ``layout``: the terms over sharded modes are summed over their axes."""
+    terms = ((ttmc_contract_mode(pair[(min(i, j), max(i, j))], dWs[j], j), j)
+             for j in range(len(dWs)) if j != i)
+    return _corrected(single_i, terms, layout)
 
 
 def mode_gram(T, axis: int):

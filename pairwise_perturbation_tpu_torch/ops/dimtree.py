@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 from pairwise_perturbation_tpu_torch.ops import contract
+from pairwise_perturbation_tpu_torch.parallel import collectives
 
 
 def binary_children(lo: int, hi: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -61,13 +62,22 @@ class BinaryTreeSweep:
     Children of the root are built directly from V (mttkrp_map_DT's
     top-level special case, common.cxx:29-88); deeper nodes from their
     parent. ``factors`` is updated in place by the sweep that owns it.
+
+    ``layout`` (parallel/mesh.py): V and the factors are this rank's
+    blocks. Chains are planned on the padded global shape; nodes stay
+    partial sums over the sharded modes they contracted, and only a leaf
+    M_i is summed, over the axes of the sharded modes other than i.
     """
 
-    def __init__(self, V, factors: Sequence, root_split: int = None):
+    def __init__(self, V, factors: Sequence, root_split: int = None,
+                 layout=None):
         self.V = V
         self.factors = list(factors)
         self.order = V.ndim
         self.parent = binary_parent_map(self.order, root_split)
+        self.layout = layout
+        self.priority = contract.contraction_priority(
+            contract.plan_shape(V, layout))
         self._memo: Dict[Tuple[int, int], object] = {}
 
     def node(self, lo: int, hi: int):
@@ -79,8 +89,7 @@ class BinaryTreeSweep:
             raise ValueError("root node is V itself; query children instead")
         plo, phi = self.parent[key]
         to_contract = [m for m in range(plo, phi + 1) if not lo <= m <= hi]
-        chain = contract.order_by_priority(
-            to_contract, contract.contraction_priority(self.V.shape))
+        chain = contract.order_by_priority(to_contract, self.priority)
         if (plo, phi) == (0, order - 1) and len(chain) > 1:
             # top-level node from V: one single-consumer chain
             T, _ = contract.fused_partial_mttkrp(self.V, self.factors, chain)
@@ -100,7 +109,8 @@ class BinaryTreeSweep:
 
     def mttkrp(self, i: int):
         """M_i from the tree: leaf node (i, i) -> matrix (s_i, R)."""
-        return self.node(i, i)
+        return collectives.reduce_modes([self.node(i, i)], self.layout,
+                                        (i,))[0]
 
 
 # ---------------------------------------------------------------------------

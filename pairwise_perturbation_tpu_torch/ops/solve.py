@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from pairwise_perturbation_tpu_torch import config
+from pairwise_perturbation_tpu_torch.parallel import collectives
 
 
 def _eps_floor(dtype, n: int) -> float:
@@ -141,21 +142,37 @@ def truncated_eigh(G, k: int):
     return Q.flip(1)[:, :k], lam.flip(0)[:k]
 
 
-def fix_sign_columns(U):
+def fix_sign_columns(U, layout=None, mode: int = None):
     """Deterministic column signs: each column's largest-|.| entry is made
     positive (the first such entry on a tie, as ``jnp.argmax`` and
-    ``torch.argmax`` both pick), a zero column is left as it is."""
+    ``torch.argmax`` both pick), a zero column is left as it is.
+
+    Under ``layout`` with ``mode`` sharded, U is this rank's row block:
+    every rank's (largest |entry|, entry) pair of each column is gathered
+    along the axis (parallel/collectives.gather_blocks), and the first
+    rank with the largest |entry| decides, which is the whole column's first
+    largest entry (blocks are contiguous, in coordinate order). Every
+    rank flips the same columns."""
     idx = torch.argmax(torch.abs(U), dim=0)
-    signs = torch.sign(U.gather(0, idx[None, :]))
+    picked = U.gather(0, idx[None, :])
+    if collectives.is_sharded(layout, mode):
+        cand = collectives.gather_blocks(
+            torch.cat([torch.abs(picked), picked]), mode, layout)
+        first = torch.argmax(cand[:, 0, :], dim=0)
+        picked = cand[:, 1, :].gather(0, first[None, :])
+    signs = torch.sign(picked)
     return U * torch.where(signs == 0, torch.ones_like(signs), signs)
 
 
-def sign_match(U, W_ref):
+def sign_match(U, W_ref, layout=None, mode: int = None):
     """Flip U's columns to agree with W_ref:
     U diag(sign(diag(U^T W_ref))), where a zero inner product counts as
     negative (``jnp.where(d > 0, 1, -1)``): a zero ``W_ref``, as the first
-    DT sweep of a Tucker phase passes, negates every column."""
-    d = torch.sum(U * W_ref, dim=0)
+    DT sweep of a Tucker phase passes, negates every column. Under
+    ``layout`` with ``mode`` sharded, U and W_ref are row blocks and the
+    inner products are summed over the axis."""
+    d = collectives.row_sum([torch.sum(U * W_ref, dim=0)], [mode],
+                            layout)[0]
     return U * torch.where(d > 0, 1.0, -1.0).to(U.dtype)
 
 

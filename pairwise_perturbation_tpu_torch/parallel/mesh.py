@@ -28,11 +28,32 @@ Two halves, as in the JAX package:
 
 - dense layouts (:func:`plan_layout`, :func:`shard_tensor`,
   :func:`shard_factors`, :func:`unshard_factors`, :func:`sharded_mttkrp`,
-  :func:`constrained_pp_caches`): V block-sharded over its largest modes,
-  zero-padded to a multiple of the axis (padding is invisible to ALS: the
-  padded slices of V are zero, so padded rows of every MTTKRP and factor
-  stay zero). The dense engines do not take a mesh yet (ROADMAP A15,
-  dense half);
+  :func:`constrained_pp_caches`, :func:`constrained_ttmc_caches`): V
+  block-sharded over its largest modes, zero-padded to a multiple of the
+  axis (padding is invisible to ALS: the padded slices of V are zero, so
+  padded rows of every MTTKRP and factor stay zero). Each rank holds its
+  block of V, the row blocks of the factors of sharded modes and the
+  whole factors of the others. The dense engines (models/cp.py,
+  models/tucker.py) take the layout as ``mesh_layout`` in their configs,
+  and their sweep functions as ``layout=``; where the JAX package lets
+  GSPMD place the collectives, each engine calls the reduction hooks
+  of parallel/collectives.py, which this module re-exports
+  (:func:`reduce_parts`, :func:`reduce_modes`, :func:`row_sum`,
+  :func:`gather_rows`, :func:`gather_blocks`, :func:`broadcast_block`),
+  every one the identity for ``layout=None``, by three rules: a
+  contraction over a sharded mode leaves a partial sum, summed at the
+  smallest tensor that holds it (an MTTKRP or TTMc leaf, a cache, a
+  corrected term), never at an intermediate that still holds a mode of
+  V; a sum over the rows of a row-sharded factor (a Gram, a norm, an
+  inner product) is a partial too, reduced as the small result; every
+  decision reads reduced values. Planning (contraction order, the tree's
+  root split) reads the padded global shape, the CSV's dimension column
+  the unsharded one.
+  Tucker's sharded mode needs rows of other ranks twice: HOSVD's Gram of
+  that mode is assembled block by block (:func:`broadcast_block`, exact
+  eigh route) or applied matrix-free (subspace route,
+  models/tucker.hosvd), and a factor extracted on the mode side gathers
+  its unfolding's rows (:func:`gather_rows`);
 - the nnz-sharded COO (:func:`shard_coo` and the ``sharded_sparse_*``
   functions): each rank contracts its block of the nonzeros into a
   replicated dense output, and one ``all_reduce`` sums the partials
@@ -49,7 +70,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +78,12 @@ import torch.distributed as dist
 
 from pairwise_perturbation_tpu_torch.ops import contract
 from pairwise_perturbation_tpu_torch.ops import sparse as sp
-from pairwise_perturbation_tpu_torch.utils import tracing
+# The collectives and the dense engines' reduction hooks live in a leaf
+# module (the ops layer imports them); they are this module's API too.
+from pairwise_perturbation_tpu_torch.parallel.collectives import (
+    _coordinate, _reduce_buffer, agreed_dtime, all_reduce, axis_sizes,
+    broadcast, broadcast_block, broadcast_scalar, gather_blocks,
+    gather_rows, is_sharded, reduce_parts, reduce_modes, row_sum)
 
 # What torchrun sets in every rank's environment (env:// rendezvous).
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -166,18 +192,6 @@ def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
     return mesh
 
 
-def axis_sizes(mesh) -> Dict[str, int]:
-    """{axis name: size} of a ``DeviceMesh``, or of any object with its
-    ``mesh_dim_names`` and ``shape`` (the layout planner reads no more,
-    so it runs without a process group)."""
-    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
-
-
-def _coordinate(mesh, axis: str) -> int:
-    """This rank's index along ``axis``."""
-    return int(mesh.get_coordinate()[list(mesh.mesh_dim_names).index(axis)])
-
-
 @dataclass
 class ShardedLayout:
     """Static layout decision: which tensor mode maps to which mesh axis."""
@@ -270,70 +284,8 @@ def unshard_factors(Ws: Sequence, layout: ShardedLayout) -> List[np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
-# Collectives
-# ---------------------------------------------------------------------------
-
-
-def _reduce_buffer(buf, group) -> None:
-    """SUM ``buf`` in place over ``group``: the one place an all_reduce of
-    this module runs."""
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-
-
-def _flat(tensors: Sequence):
-    """One contiguous buffer holding ``tensors`` in turn."""
-    return torch.cat([t.reshape(-1) for t in tensors])
-
-
-def _unflat(flat, tensors: Sequence):
-    """``flat`` cut back into tensors of the shapes of ``tensors``."""
-    return [c.view(t.shape)
-            for c, t in zip(flat.split([t.numel() for t in tensors]),
-                            tensors)]
-
-
-def _all_reduce(tensors: Sequence, mesh, axes: Sequence[str]):
-    flat = _flat(tensors)
-    for axis in axes:
-        _reduce_buffer(flat, mesh.get_group(axis))
-    return _unflat(flat, tensors)
-
-
-def all_reduce(tensors: Sequence, mesh, axes: Optional[Sequence[str]] = None):
-    """The sums of ``tensors`` over the mesh axes ``axes`` (default: every
-    axis), as new tensors, bitwise equal on every rank. The tensors travel
-    in one buffer, so each axis costs one collective whatever their
-    number (the JAX package's psum of a pytree). Scope
-    ``mesh.all_reduce``."""
-    axes = tuple(mesh.mesh_dim_names if axes is None else axes)
-    return tracing.timed("mesh.all_reduce", _all_reduce, list(tensors),
-                         mesh, axes)
-
-
-def broadcast(tensors: Sequence, mesh):
-    """``tensors`` as rank 0 holds them, on every rank (one collective;
-    every rank passes tensors of the same shapes and dtypes)."""
-    flat = _flat(tensors)
-    dist.broadcast(flat, src=0)
-    return _unflat(flat, tensors)
-
-
-def broadcast_scalar(x: float, mesh, device) -> float:
-    """Rank 0's value of the host number ``x``, on every rank: a decision
-    on a host clock (the time limit) is taken once for all."""
-    return float(broadcast([torch.tensor([x], dtype=torch.float64,
-                                         device=device)], mesh)[0])
-
-
-# ---------------------------------------------------------------------------
 # Explicit-collective dense MTTKRP and PP caches
 # ---------------------------------------------------------------------------
-
-
-def _sharded_axes(layout: ShardedLayout, keep: Sequence[int]):
-    """The axes of the sharded modes outside ``keep``: a contraction over
-    them leaves partials to sum."""
-    return tuple(a for m, a in layout.mode_axis.items() if m not in keep)
 
 
 def sharded_mttkrp(V, Ws: Sequence, mode: int, layout: ShardedLayout):
@@ -341,29 +293,40 @@ def sharded_mttkrp(V, Ws: Sequence, mode: int, layout: ShardedLayout):
     (contract.mttkrp: K1-K3 on an order-3 float32 block on the card),
     then one all_reduce over the axes of the other sharded modes. Returns
     this rank's row block of the (padded) result."""
-    M = contract.mttkrp(V, list(Ws), mode)
-    axes = _sharded_axes(layout, (mode,))
-    return all_reduce([M], layout.mesh, axes)[0] if axes else M
+    return contract.mttkrp(V, list(Ws), mode, layout=layout)
+
+
+def _constrained(single, pair, layout: ShardedLayout):
+    """Caches keyed by the modes they keep, each summed over the axes of
+    the sharded modes it contracted away (caches with the same axes share
+    one all_reduce)."""
+    order = len(layout.padded_shape)
+    keys = [(i,) for i in single] + list(pair)
+    xs = [single[k[0]] if len(k) == 1 else pair[k] for k in keys]
+    out = dict(zip(keys, reduce_parts(
+        [(x, [m for m in range(order) if m not in k])
+         for k, x in zip(keys, xs)], layout)))
+    return {i: out[(i,)] for i in single}, {k: out[k] for k in pair}
 
 
 def constrained_pp_caches(V, Ws: Sequence, layout: ShardedLayout):
-    """PP caches of this rank's block (contract.build_pp_caches), each
-    summed over the axes of the sharded modes it contracted away, so it
-    keeps the blocks of the modes it retains: the layout JAX's sharding
-    constraints pin (mesh.py:196-220), the rank axis replicated. Caches
-    with the same axes to sum share one all_reduce."""
-    single, pair = contract.build_pp_caches(V, list(Ws))
-    caches = {**{(i,): x for i, x in single.items()}, **pair}
-    by_axes: Dict[Tuple[str, ...], list] = {}
-    for key in caches:
-        by_axes.setdefault(_sharded_axes(layout, key), []).append(key)
-    for axes, keys in by_axes.items():
-        if axes:
-            for k, x in zip(keys, all_reduce([caches[k] for k in keys],
-                                             layout.mesh, axes)):
-                caches[k] = x
-    return ({i: caches[(i,)] for i in single},
-            {k: caches[k] for k in pair})
+    """PP caches of this rank's block (contract.build_pp_caches, planned
+    on the padded global shape), each summed over the axes of the sharded
+    modes it contracted away, so it keeps the blocks of the modes it
+    retains: the layout JAX's sharding constraints pin (mesh.py:196-220),
+    the rank axis replicated."""
+    return _constrained(*contract.build_pp_caches(
+        V, list(Ws), shape=layout.padded_shape), layout)
+
+
+def constrained_ttmc_caches(V, Ws: Sequence, layout: ShardedLayout):
+    """Tucker's PP caches of this rank's block (contract.build_ttmc_caches,
+    planned on the padded global shape), each summed over the axes of the
+    sharded modes it contracted away: the layout JAX tucker.py:975-981 and
+    :1065-1070 pin (a cache keeps the blocks of its uncontracted modes;
+    its contracted axes are rank-sized and replicated)."""
+    return _constrained(*contract.build_ttmc_caches(
+        V, list(Ws), shape=layout.padded_shape), layout)
 
 
 # ---------------------------------------------------------------------------

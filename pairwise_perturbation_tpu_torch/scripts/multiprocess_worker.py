@@ -35,9 +35,32 @@ backend, device, its kernels' launch counts, and per task:
   shard_tensor, shard_factors, sharded_mttkrp of every mode (its kernel
   launches counted apart), constrained_pp_caches, unshard_factors and
   read_dense_sharded, as this rank's blocks;
-- ``cli`` (``cli_argv``, a JSON list of argument lists): ``cli.main`` of
-  each inside this world, as ``torchrun -m pairwise_perturbation_tpu_torch.cli``
-  would run it; their exit codes.
+- ``dfunctions`` (dense V ``dd_V``, CP factors ``dd_W<i>``, the mesh
+  shape ``dd_mesh``, which ``dcp`` and ``dtucker`` take too, and Tucker
+  ranks ``dd_ranks``): the dense engines' sweep functions with
+  ``layout=`` on this rank's blocks, each gathered whole (padded, so
+  every rank holds the same array): ``cp.dt_sweep``,
+  ``cp.pp_build_caches``, two ``cp.pp_sweep``s, and in float64
+  ``tucker.hosvd``, ``tucker.tucker_dt_sweep``,
+  ``tucker.tucker_build_caches`` and ``tucker.tucker_pp_sweep``; each
+  beside one process's function on the zero-padded whole V (``err/``);
+- ``dcp`` (``dc_V``, or an ``.npy`` file ``dc_vfile`` of which each rank
+  reads only its block; factors ``dc_W<i>``, ``dc_cfg``,
+  ``dc_pp``: the -pp values to run, ``dc_config``: config overrides):
+  ``cp.als_cp_pp`` (-pp 1, or -pp 2 with ``partial_update``) with
+  ``mesh_layout``, its history, its factors unsharded, scope statistics,
+  wall seconds and kernel launches (``dcp<pp>_*/<dtype>``);
+- ``dtucker`` (``dt_V`` or ``dt_vfile``, ``dt_ranks``, ``dt_tk_cfg``;
+  ``dt_Q<i>`` starts it from ``tucker.hosvd`` with those draws;
+  ``dt_hosvd_max`` sets tucker.HOSVD_EXACT_EIGH_MAX for this task
+  alone): ``tucker.als_tucker_pp`` with ``mesh_layout``, the same
+  records and its core (``dtk_*/<dtype>``);
+- ``cli`` (``cli_argv``, a JSON list of argument lists, and optionally
+  ``cli_config``, a JSON list of config overrides, one a run, and
+  ``io_shapes``, utils/io.py's dataset file shapes to use): ``cli.main``
+  of each inside this world, as ``torchrun -m
+  pairwise_perturbation_tpu_torch.cli`` would run it; their exit codes
+  and each run's kernel launches.
 
 Every result is written with its SHA-256 (``sha/<key>``, for bitwise
 comparisons across ranks and runs) and its relative max-norm distance
@@ -336,13 +359,227 @@ def task_dense(data, res, device):
         res.put("read_block", got)
 
 
+def _dense_host(data, p):
+    """The dense V of the inputs with prefix ``p`` as a host array: the
+    ``.npy`` file ``<p>vfile`` memory-mapped (a rank's block alone is
+    read from disk), or the inline array ``<p>V``."""
+    if f"{p}vfile" in data:
+        return np.load(str(data[f"{p}vfile"]), mmap_mode="r")
+    return data[f"{p}V"]
+
+
+def _dense_inputs(data, p, mesh, dtype, device, padded_refs):
+    """(layout, V block, CP factor blocks ``<p>W<i>``) of this rank, and
+    with ``padded_refs`` the zero-padded whole V and factors (one
+    process's inputs; else None, None)."""
+    import torch
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    Vh = _dense_host(data, p)
+    layout = pmesh.plan_layout(Vh.shape, mesh)
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    Vb = pmesh._padded_block(Vh, [layout.span(m) for m in range(Vh.ndim)],
+                             device, np_dt).to(dtype)
+    W0 = _factors(data, f"{p}W", dtype, device)
+    Wb = pmesh.shard_factors(W0, layout, device)
+    if not padded_refs:
+        return layout, Vb, Wb, None, None
+    full = [(0, p) for p in layout.padded_shape]
+    Vp = pmesh._padded_block(Vh, full, device, np_dt).to(dtype)
+    Wp = [pmesh._padded_block(W, [full[m], (0, W.shape[1])], device)
+          for m, W in enumerate(W0)]
+    return layout, Vb, Wb, Vp, Wp
+
+
+def _whole(x, dims, layout):
+    """``x`` gathered along each (dim, mode) of ``dims`` whose mode is
+    sharded: the padded global array, the same on every rank."""
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    for dim, mode in dims:
+        x = pmesh.gather_rows(x, mode, layout, dim=dim)
+    return x
+
+
+def task_dfunctions(data, res, mesh, dtypes, device):
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp, tucker
+    for dtype in dtypes:
+        d = _dtype_name(dtype)
+        layout, Vb, Wb, Vp, Wp = _dense_inputs(data, "dd_", mesh, dtype,
+                                               device, True)
+        order = Vb.ndim
+
+        def put(key, x, ref, dims):
+            res.put(f"{d}/{key}", _whole(x, dims, layout), ref)
+
+        def run(fn, args, **kw):
+            """(``fn(*args[0])`` with the layout, one process's
+            ``fn(*args[1])``)."""
+            return fn(*args[0], layout=layout, **kw), fn(*args[1], **kw)
+
+        (Ws, grads), ref = run(cp.dt_sweep, ((Vb, Wb, 0.0), (Vp, Wp, 0.0)))
+        for m in range(order):
+            put(f"dt/W{m}", Ws[m], ref[0][m], [(0, m)])
+            put(f"dt/g{m}", grads[m], ref[1][m], [(0, m)])
+        caches, ref = run(cp.pp_build_caches, ((Vb, Wb), (Vp, Wp)))
+        _put_caches(put, "", caches, ref, rank_major=True)
+        zeros = [torch.zeros_like(W) for W in Wb]
+        zp = [torch.zeros_like(W) for W in Wp]
+        (W1, dW1, _), r1 = run(cp.pp_sweep, (
+            (*caches, Wb, Wb, zeros, 0.0, 1.0),
+            (*ref, Wp, Wp, zp, 0.0, 1.0)))
+        (W2, _, _), r2 = run(cp.pp_sweep, (
+            (*caches, W1, Wb, dW1, 0.0, 1.0),
+            (*ref, r1[0], Wp, r1[1], 0.0, 1.0)))
+        for m in range(order):
+            put(f"pp1/W{m}", W1[m], r1[0][m], [(0, m)])
+            put(f"pp2/W{m}", W2[m], r2[0][m], [(0, m)])
+        if dtype != torch.float64 or "dd_ranks" not in data:
+            continue
+        ranks = tuple(int(r) for r in data["dd_ranks"])
+        (core, Th), (c_ref, Tp) = run(tucker.hosvd, ((Vb, ranks),
+                                                     (Vp, ranks)))
+        for m in range(order):
+            put(f"hosvd/W{m}", Th[m], Tp[m], [(0, m)])
+        put("hosvd/core", core, c_ref, [])
+        (Td, cd), (Tdp, cd_ref) = run(tucker.tucker_dt_sweep,
+                                      ((Vb, Th, Th), (Vp, Tp, Tp)),
+                                      ranks=ranks, use_sign=True)
+        for m in range(order):
+            put(f"tdt/W{m}", Td[m], Tdp[m], [(0, m)])
+        put("tdt/core", cd, cd_ref, [])
+        tcaches, tref = run(tucker.tucker_build_caches, ((Vb, Th), (Vp, Tp)))
+        _put_caches(put, "t", tcaches, tref, rank_major=False)
+        dT = [a - b for a, b in zip(Td, Th)]
+        dTp = [a - b for a, b in zip(Tdp, Tp)]
+        (Tq, _, cq, _), ref = run(tucker.tucker_pp_sweep, (
+            (*tcaches, Td, Th, dT), (*tref, Tdp, Tp, dTp)), ranks=ranks)
+        for m in range(order):
+            put(f"tpp/W{m}", Tq[m], ref[0][m], [(0, m)])
+        put("tpp/core", cq, ref[2], [])
+
+
+def _put_caches(put, tag, caches, ref, rank_major):
+    """Single caches keep their mode on axis (rank-major CP pairs: axes
+    1, 2; Tucker caches: the modes' own axes)."""
+    single, pair = caches
+    for i, x in single.items():
+        put(f"{tag}single/{i}", x, ref[0][i], [(0 if rank_major else i, i)])
+    for (i, j), x in pair.items():
+        dims = [(1, i), (2, j)] if rank_major else [(i, i), (j, j)]
+        put(f"{tag}pair/{i}_{j}", x, ref[1][(i, j)], dims)
+
+
+def _run_counted(fn, device):
+    """(result, wall seconds, scope statistics, {kernel: launches}) of
+    ``fn()`` with the tracing scopes on."""
+    import torch
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    tracing.reset()
+    before = _bench.launch_counts()
+    tracing.enable()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        tracing.enable(False)
+    after = _bench.launch_counts()
+    return (out, time.perf_counter() - t0, _stats(),
+            {k: n - before.get(k, 0) for k, n in after.items()})
+
+
+def _dense_engine(res, tag, d, run, keys, layout, device):
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    r, wall, stats, launches = _run_counted(run, device)
+    res.put(f"{tag}_hist/{d}", _history(r.history, ("iter",) + keys),
+            keep=True)
+    for i, W in enumerate(pmesh.unshard_factors(r.factors, layout)):
+        res.put(f"{tag}_W/{d}/{i}", W, keep=True)
+    res.meta(f"{tag}_stats/{d}", stats)
+    res.meta(f"{tag}_wall/{d}", wall)
+    res.meta(f"{tag}_launches/{d}", json.dumps(launches))
+    return r
+
+
+def task_dcp(data, res, mesh, dtypes, device):
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import cp
+    over = json.loads(str(data["dc_config"])) if "dc_config" in data else {}
+    for dtype in dtypes:
+        layout, Vb, Wb, _, _ = _dense_inputs(data, "dc_", mesh, dtype,
+                                             device, False)
+        cfg = cp.CPConfig(**json.loads(str(data["dc_cfg"])),
+                          mesh_layout=layout)
+        for pp in (int(p) for p in data["dc_pp"]):
+            with config.override(**over):
+                _dense_engine(res, f"dcp{pp}", _dtype_name(dtype),
+                              lambda: cp.als_cp_pp(Vb, Wb, cfg,
+                                                   partial_update=pp == 2),
+                              ("gradnorm", "diffV", "pp"), layout, device)
+
+
+def task_dtucker(data, res, mesh, dtypes, device):
+    """The Tucker engine at ``dt_hosvd_max`` if given, then the package's
+    HOSVD threshold again for the tasks that follow."""
+    from pairwise_perturbation_tpu_torch.models import tucker
+    default = tucker.HOSVD_EXACT_EIGH_MAX
+    if "dt_hosvd_max" in data:
+        tucker.HOSVD_EXACT_EIGH_MAX = int(data["dt_hosvd_max"])
+    try:
+        _dtucker_runs(data, res, mesh, dtypes, device)
+    finally:
+        tucker.HOSVD_EXACT_EIGH_MAX = default
+
+
+def _dtucker_runs(data, res, mesh, dtypes, device):
+    from pairwise_perturbation_tpu_torch.models import tucker
+    ranks = tuple(int(r) for r in data["dt_ranks"])
+    for dtype in dtypes:
+        d = _dtype_name(dtype)
+        layout, Vb, _, _, _ = _dense_inputs(data, "dt_", mesh, dtype, device,
+                                            False)
+        cfg = tucker.TuckerConfig(**json.loads(str(data["dt_tk_cfg"])),
+                                  mesh_layout=layout)
+        Q0s = _factors(data, "dt_Q", dtype, device) or None
+        Ws = tucker.hosvd(Vb, ranks, Q0s, layout=layout)[1] if Q0s else None
+        r = _dense_engine(res, "dtk", d, lambda: tucker.als_tucker_pp(
+            Vb, ranks, cfg, Ws=Ws), ("diffnorm", "diffV", "pp"), layout,
+            device)
+        res.put(f"dtk_core/{d}", r.core, keep=True)
+
+
+def _cli_runs(data, res):
+    """cli.main of each ``cli_argv`` entry, under its ``cli_config``
+    overrides; exit codes and kernel launches per run."""
+    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import io
+    for name, shape in json.loads(str(data["io_shapes"])).items() \
+            if "io_shapes" in data else ():
+        setattr(io, name, tuple(shape))
+    argvs = json.loads(str(data["cli_argv"]))
+    overs = json.loads(str(data["cli_config"])) if "cli_config" in data \
+        else [{}] * len(argvs)
+    rcs, launches = [], []
+    for argv, over in zip(argvs, overs):
+        before = _bench.launch_counts()
+        with config.override(**over):
+            rcs.append(cli.main(list(argv)))
+        launches.append({k: n - before.get(k, 0)
+                         for k, n in _bench.launch_counts().items()})
+    res.meta("cli_rc", rcs)
+    res.meta("cli_launches", json.dumps(launches))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--inputs", required=True)
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--tasks", default="functions",
                     help="comma-separated: functions, cp, tucker, als, "
-                         "dense, cli")
+                         "dense, dfunctions, dcp, dtucker, cli")
     ap.add_argument("--dtypes", default="float64,float32")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arrays", action="store_true",
@@ -381,10 +618,17 @@ def main(argv=None) -> int:
             task_als(data, res, mesh, device)
         if "dense" in tasks:
             task_dense(data, res, device)
+        dense = [t for t in ("dfunctions", "dcp", "dtucker") if t in tasks]
+        if dense:
+            dmesh = pmesh.make_mesh(tuple(int(s) for s in data["dd_mesh"]),
+                                    device_type=device.type)
+            res.meta("coordinate", dmesh.get_coordinate())
+            tasks_of = {"dfunctions": task_dfunctions, "dcp": task_dcp,
+                        "dtucker": task_dtucker}
+            for t in dense:
+                tasks_of[t](data, res, dmesh, dtypes, device)
         if "cli" in tasks:
-            from pairwise_perturbation_tpu_torch import cli
-            res.meta("cli_rc", [cli.main(list(a)) for a in
-                                json.loads(str(data["cli_argv"]))])
+            _cli_runs(data, res)
         res.meta("launches", json.dumps(_bench.launch_counts()))
         os.makedirs(args.outdir, exist_ok=True)
         np.savez(os.path.join(args.outdir, f"result_{pmesh.rank()}.npz"),

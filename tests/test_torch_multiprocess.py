@@ -9,6 +9,12 @@ agree bit for bit, the two runs agree bit for bit, and the result matches
 one process (the unsharded functions here) to 1e-12 in float64 and 1e-5
 in float32. On a card (the ``cuda`` test) the same holds for K7 on every
 rank's shard, two ranks sharing the card over gloo.
+
+The dense half of the claim: the same two ranks run the dense engines'
+sweep functions on a block-sharded V (SHAPE, R 4, float64): the DT sweep,
+the constrained PP caches and two PP sweeps, each gathered whole on
+every rank. They agree bit for bit across the ranks and the two runs, and
+lie within 1e-12 of one process's functions.
 """
 
 import json
@@ -122,6 +128,50 @@ def test_two_ranks_match_one_process(runs, dtype):
         err = np.max(np.abs(res[key] - w)) / max(np.max(np.abs(w)), 1e-300)
         assert err <= TOL[dtype], (key, err)
         assert float(res[f"err/{key}"]) <= TOL[dtype], key
+
+
+@pytest.fixture(scope="module")
+def dense_runs(tmp_path_factory):
+    """Two runs of a 2-rank cluster of the dense sweep functions
+    (scripts/multiprocess_worker.py's ``dfunctions``, float64)."""
+    tmp = tmp_path_factory.mktemp("mp_dense")
+    rng = np.random.default_rng(17)
+    d = dict(dd_V=rng.standard_normal(SHAPE), dd_mesh=np.asarray([2]))
+    for i, W in enumerate(cp.init_factors(SHAPE, R, seed=5,
+                                          dtype=torch.float64,
+                                          device="cpu")):
+        d[f"dd_W{i}"] = W.numpy()
+    np.savez(tmp / "in.npz", **d)
+    runs = []
+    for name in ("run1", "run2"):
+        rc, out = run_cluster(2, WORKER + [
+            "--inputs", tmp / "in.npz", "--outdir", tmp / name, "--tasks",
+            "dfunctions", "--device", "cpu", "--dtypes", "float64"],
+            timeout=120.0)
+        assert rc == 0, out[-4000:]
+        runs.append([dict(np.load(tmp / name / f"result_{r}.npz"))
+                     for r in range(2)])
+    return runs
+
+
+def test_dense_sweeps_agree_bitwise_across_ranks_and_runs(dense_runs):
+    run1, run2 = dense_runs
+    keys = _shas(run1[0])
+    # 4 DT factors and grads, 4 singles and 6 pairs, 2 x 4 PP factors
+    assert len(keys) == 4 + 4 + 4 + 6 + 8
+    for res in (run1[1], run2[0], run2[1]):
+        assert _shas(res).keys() == keys.keys()
+        for k, v in keys.items():
+            assert np.array_equal(res[k], v), k
+
+
+def test_dense_sweeps_match_one_process(dense_runs):
+    """Each gathered result within 1e-12 (relative max-norm) of the same
+    function on the whole V in one process, on both ranks."""
+    for res in dense_runs[0]:
+        errs = {k: float(v) for k, v in res.items() if k.startswith("err/")}
+        assert len(errs) == 26
+        assert max(errs.values()) <= TOL["float64"], errs
 
 
 @pytest.mark.cuda

@@ -11,7 +11,9 @@ Tolerances: float64 to 1e-12 relative (max-norm) and float32 to 1e-5 for
 one function; solver trajectories over many sweeps to 1e-9 (CP) and the
 Tucker runs' RUN (tests/test_torch_tucker.py), with identical DT <-> PP
 decisions; the CLI under -mesh 2 against the port's own unsharded run to
-1e-10. Replicated results are bitwise equal on every rank.
+1e-10. Replicated results are bitwise equal on every rank. The dense
+engines' mesh (the sweep functions, CP-PP, Tucker-PP and the CLI) is held
+to the JAX package's in tests/test_torch_mesh_dense.py.
 """
 
 import csv
@@ -418,11 +420,16 @@ def test_cli_mesh_csv_matches_unsharded(tmp_path, model):
      "world of 1: launch 3 ranks"),
     (["test_als", "-issparse", "1", "-mesh", "2x1"], "on a 1D mesh"),
     (["run", "-issparse", "1", "-mesh", "2"], "on a 1D mesh"),
-    (["test_als", "-mesh", "2"], "A15, dense half"),
-    (["run", "-mesh", "2"], "A15, dense half"),
-    (["pp_bench", "-mesh", "2"], "A15, dense half"),
+    (["test_als", "-mesh", "2"], "torchrun --standalone --nproc_per_node 2"),
+    (["run", "-mesh", "2"], "A15, `run` half"),
+    (["pp_bench", "-mesh", "2x2"], "world of 1: launch 4 ranks"),
+    (["test_als", "-mesh", "2", "-device_loop", "1"], "ROADMAP A14"),
+    (["pp_bench", "-mesh", "2", "-device_loop", "2"], "ROADMAP A14"),
 ])
 def test_cli_mesh_refusals(argv, match):
+    """What -mesh refuses, each naming its ROADMAP step, and the dense
+    engines' -mesh (accepted since A15's dense half) outside torchrun,
+    which says how to launch it."""
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["-device", "cpu"])
 
