@@ -222,6 +222,45 @@ traceback and exits nonzero:
    [tol].
    ``--phases 12`` runs phases 1, 2 and 12 alone.
 
+13. ``run -mesh 2``: the second-gen optimizers on a block-sharded V, two
+   ranks sharing the card over gloo, one cluster start-up, then a world
+   of one.
+   13a. DT, MSDT (use_kernels_first: K4 on the hold-outs it admits at
+   the block's shape), DT-LR and MSDT-LR through cli.run_cpd at the coil
+   shape, V sharded over mode 3 (3600 a rank, each rank memory-maps its
+   block of a .npy), f64 and f32: f64 factors within RUN_MESH_FACTOR_TOL
+   of one process's, f32 held by its fit (every logged diffV within
+   RUN_MESH_F32_DIFFV), the same logged sweeps; per-rank step medians
+   beside one process's, all_reduce calls and seconds, peak memory; K4
+   counted on each rank and held to its plain version at rank 0's block.
+   13b. The CLI in the same cluster: ``run -pp 4 -mesh 2`` at 512^3 f32
+   (K1-K3 on each rank's (256, 512, 512) block, once a Simple step and
+   1/1/2 a diagnostics row, each held to its plain version there) and
+   ``run -pp 1 -device_loop 1 -mesh 2`` at 200^3 f64, each CSV against
+   the unsharded CLI's.
+   13c. A world of one on NCCL (``--nproc_per_node 1``, ``run -pp 3
+   -mesh 1`` at 200^3 f32) writes the unsharded CSV bit for bit but for
+   [dtime].
+   ``--phases 13`` runs phases 1, 2 and 13 alone.
+
+14. ``test_als -model CP -pp 1 -device_loop 1``: the device-resident
+   phase loops (models/cp.py, sweeps issued in chunks of
+   DEVICE_LOOP_CHUNK with the loop state on the card) beside the host
+   engine, f32.
+   14a. The 200^3 CLI, -device_loop 0 then 1: the same (iter, pp) rows,
+   final factors (-checkpoint) within DEVICE_LOOP_FACTOR_TOL, K1-K3
+   1/1/2 a logged row in both (the device engine's from the ring's
+   snapshots); scope medians, sweeps issued and masked, ms an issued
+   sweep and host pulls a phase.
+   14b. The coil shape under use_kernels_triple, cp.als_cp_pp against
+   cp.als_cp_pp_device: the same rows and factors, K6 (and K5 as its O3)
+   once a cache build in both.
+   14c. Syncs per sweep under torch.cuda.set_sync_debug_mode("warn"),
+   named by their source, at 200^3 and coil: a host DT sweep, cache
+   build and PP sweep, the host engine's ratio pull, and a chunk of each
+   device phase.
+   ``--phases 14`` runs phases 1, 2 and 14 alone.
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -3412,6 +3451,525 @@ def run_phase12(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: run -mesh 2, the five optimizers on a block-sharded V
+# ---------------------------------------------------------------------------
+
+# 13a: the chain optimizers through cli.run_cpd on each rank's block of
+# the coil tensor (phase 5's seeded uniform tensor, V sharded over mode 3,
+# 3600 a rank), f64 and f32; MSDT under use_kernels_first (K4 on the
+# hold-outs it admits at the block's shape, f32).
+RUN_MESH_SPECS = [
+    dict(tag="dt", pp=0, maxiter=3, resprint=2),
+    dict(tag="msdt", pp=1, maxiter=3, resprint=2,
+         config=dict(use_kernels_first=True)),
+    dict(tag="dtlr", pp=2, maxiter=4, resprint=2),
+    dict(tag="msdtlr", pp=3, maxiter=4, resprint=2)]
+# float64 factors against one process's: round-off of the blocks' sums in
+# another order, grown through a few Cholesky solves and truncations.
+# float32 is held by its fit: the logged diffV (exact diagnostics) of
+# every row within RUN_MESH_F32_DIFFV of one process's.
+RUN_MESH_FACTOR_TOL = 1e-9
+RUN_MESH_F32_DIFFV = 1e-4
+# 13b: the CLI in the same cluster: Simple at 512^3 f32 (K1-K3 on each
+# rank's (256, 512, 512) block, a step and 1/1/2 a diagnostics row) and
+# MSDT -device_loop 1 at 200^3 f64 (a rotation a step); 13c: a world of
+# one on NCCL, MSDT-LR at 200^3 f32.
+RUN_MESH_CLI = [
+    RUN_512 + ["-pp", "4", "-maxiter", "4", "-resprint", "2", "-dtype",
+               "float32"],
+    ["run", "-tensor", "r", "-dim", "3", "-size", "200", "-rank", "10",
+     "-pp", "1", "-device_loop", "1", "-maxiter", "6", "-resprint", "1",
+     "-dtype", "float64"]]
+RUN_MESH_CLI_TOL = {"float64": 1e-10, "float32": 5e-3}
+RUN_WORLD1 = ["run", "-tensor", "r", "-dim", "3", "-size", "200", "-rank",
+              "10", "-pp", "3", "-maxiter", "6", "-resprint", "1",
+              "-dtype", "float32"]
+
+
+def run_mesh_one(spec, V, Ws, dtype):
+    """One process's cli.run_cpd of ``spec`` at the coil shape: (CPD,
+    scope stats, K4 launches)."""
+    import torch
+    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    tracing.reset()
+    _bench.reset_launch_counts()
+    tracing.enable()
+    try:
+        with config.override(**spec.get("config", {})):
+            model = cli.run_cpd(V.to(dtype), [W.to(dtype) for W in Ws],
+                                spec["pp"], tol=0.0, maxiter=spec["maxiter"],
+                                resprint=spec["resprint"])
+        torch.cuda.synchronize()
+    finally:
+        tracing.enable(False)
+    return (model, tracing.stats(),
+            _bench.launch_counts()["mid_contract.rank_minor"])
+
+
+def run_mesh_optimizers(a, Vc, Wc, smi):
+    """13a: each rank's coil runs against one process's; K4's launches on
+    the MSDT run (f32) against its hold-outs, and K4 held to its plain
+    version at rank 0's block. Returns K4's launches."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    half = COIL_SHAPE[3] // MESH_RANKS
+    block = COIL_SHAPE[:3] + (half,)
+    eligible = {m for m in range(4) if mid_contract.mid_contract_eligible(
+        block, m, torch.float32, 10)}
+    failures, k4 = [], 0
+    for d in ("float64", "float32"):
+        for spec in RUN_MESH_SPECS:
+            tag = spec["tag"]
+            label = f"13a run -pp {spec['pp']} ({tag}) coil mesh=2 {d}"
+            one, stats_one, k4_one = run_mesh_one(spec, Vc, Wc,
+                                                  getattr(torch, d))
+            check_ranks_equal(a, label, [f"sha/run_hist/{d}/{tag}"] + [
+                f"sha/run/{d}/{tag}/W/{m}" for m in range(4)])
+            hist = a[0][f"run_hist/{d}/{tag}"]
+            want = [(h["sweeps"], h["diffV"]) for h in one.history]
+            mine = [a[0][f"run/{d}/{tag}/W/{m}"][:COIL_SHAPE[m]]
+                    for m in range(4)]
+            dist = factor_distance(mine, one.W, False)
+            rel = max(abs(r[2] - w[1]) / abs(w[1])
+                      for r, w in zip(hist, want))
+            print(f"{label}: {len(hist)} rows (one process {len(want)}), "
+                  f"sweeps {hist[-1][0]:g}, diffV {hist[0][2]:.6e} -> "
+                  f"{hist[-1][2]:.6e}; factors {dist:.3e} from one "
+                  f"process's, diffV within {rel:.3e}")
+            if [r[0] for r in hist] != [w[0] for w in want]:
+                failures.append(f"{label}: logged sweeps differ")
+            elif d == "float64" and not dist <= RUN_MESH_FACTOR_TOL:
+                failures.append(f"{label}: factors {dist:.3e} off")
+            elif d == "float32" and not rel <= RUN_MESH_F32_DIFFV:
+                failures.append(f"{label}: diffV {rel:.3e} off")
+            scope = [n for n in stats_one if n.endswith(".step")][0]
+            for r, res in enumerate(a):
+                stats = json.loads(str(res[f"run_stats/{d}/{tag}"]))
+                n = json.loads(str(res[f"run_launches/{d}/{tag}"]))[
+                    "mid_contract.rank_minor"]
+                steps = stats[scope][0]
+                want_k4 = sum(1 for h in msdt_holdouts(4, steps)
+                              if h in eligible) \
+                    if "config" in spec and d == "float32" else 0
+                red = stats.get("mesh.all_reduce", (0, 0.0))
+                wall = float(res[f"run_wall/{d}/{tag}"])
+                print(f"  rank {r} ({smi}): {scope} {steps} steps, median "
+                      f"{1e3 * stats[scope][2]:.3f} ms (one process "
+                      f"{1e3 * stats_one[scope][2]:.3f}); all_reduce "
+                      f"{red[0]} calls {red[1]:.3f} s of {wall:.3f} s; K4 "
+                      f"{n} (expected {want_k4}; one process {k4_one}); "
+                      f"peak {float(res[f'run_peak/{d}/{tag}']) / 2**30:.2f}"
+                      " GiB")
+                if n != want_k4 or ("config" in spec and d == "float32"
+                                    and n == 0):
+                    failures.append(f"{label} rank {r}: K4 launches {n}")
+                k4 += n
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    Vb = torch.rand(block, generator=gen, device="cuda")
+    for m in sorted(eligible):
+        W = torch.rand((block[m], 10), generator=gen, device="cuda")
+        err = held_twice(f"13a K4 at {block} mode {m}",
+                         lambda: mid_contract.mid_contract(Vb, W, m),
+                         lambda: mid_contract.mid_contract_plain(Vb, W, m))
+        print(f"13a K4 at rank 0's block {block}, mode {m}: relative "
+              f"{err[1]:.3e} (tol {REL_TOL}), two launches bit for bit")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return k4
+
+
+def run_mesh_cli(a, tmp, smi):
+    """13b: the cluster's CLI runs against the unsharded CLI's; K1-K3 on
+    each rank's (256, 512, 512) block, held to their plain versions there.
+    Returns {kernel id: launches}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    if [int(x) for x in a[0]["cli_rc"]] != [0] * len(RUN_MESH_CLI):
+        raise AssertionError(f"13b: cli.main returned {a[0]['cli_rc']}")
+    for k, argv in enumerate(RUN_MESH_CLI):
+        d = argv[argv.index("-dtype") + 1]
+        label = f"13b {' '.join(argv)} -mesh 2"
+        mesh_rows = read_csv(os.path.join(tmp, f"run{k}_mesh.csv"))
+        one = cli_csv(argv, os.path.join(tmp, f"run{k}_one.csv"))
+        check_run_csv(mesh_rows, label)
+        rel = max(abs(float(x[c]) - float(y[c])) / abs(float(y[c]))
+                  for x, y in zip(mesh_rows[1:], one[1:]) for c in (2, 5))
+        same = [r[1] for r in mesh_rows] == [r[1] for r in one]
+        print(f"{label}: against the unsharded CLI, the same sweeps "
+              f"{same}, [gradnorm]/[diffV] within {rel:.3e} relative (tol "
+              f"{RUN_MESH_CLI_TOL[d]})")
+        if not same or not rel <= RUN_MESH_CLI_TOL[d]:
+            raise AssertionError(f"{label}: off the unsharded CLI's CSV")
+        if "-pp" in argv and argv[argv.index("-pp") + 1] != "4":
+            continue
+        rows = len(mesh_rows) - 1
+        for r, res in enumerate(a):
+            n = json.loads(str(res["cli_launches"]))[k]
+            got = [n[f"mttkrp3.{m}"] for m in range(3)]
+            steps = got[0] - rows
+            want = [steps + rows, steps + rows, steps + 2 * rows]
+            print(f"13b rank {r}: K1-K3 launches {got} on its block (256, "
+                  f"512, 512): {steps} Simple steps and {rows} rows "
+                  f"(expected {want})")
+            if got != want or steps <= 0:
+                raise AssertionError(f"13b rank {r}: K1-K3 launches {got}")
+            for m in range(3):
+                launches[f"K{m + 1}"] += got[m]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    Vb = torch.rand((256, 512, 512), generator=gen, device="cuda")
+    Ws = [torch.rand((s, 10), generator=gen, device="cuda")
+          for s in Vb.shape]
+    for m in range(3):
+        err = held_twice(f"13b K{m + 1} at (256, 512, 512)",
+                         lambda: mttkrp3.mttkrp3_mode(Vb, Ws, m),
+                         lambda: mttkrp3.mttkrp3_mode_plain(Vb, Ws, m))
+        print(f"13b K{m + 1} at rank 0's block (256, 512, 512): relative "
+              f"{err[1]:.3e} (tol {REL_TOL}), two launches bit for bit")
+    return launches
+
+
+def run_phase13(smi):
+    """Phase 13 (13a-13c); returns {kernel id: launches}."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.scripts.multiprocess_worker import \
+        WORKER
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Vc = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    Wc = cp.init_factors(COIL_SHAPE, 10, seed=0, dtype=torch.float64,
+                         device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("13a-b. run -mesh 2, two ranks over gloo on one card: DT, "
+              "MSDT (use_kernels_first), DT-LR and MSDT-LR at the coil "
+              "shape through cli.run_cpd, f64 and f32; the CLI's Simple at "
+              "512^3 and -device_loop 1 at 200^3")
+        inputs = os.path.join(tmp, "in.npz")
+        d = dict(dd_mesh=np.asarray([MESH_RANKS]),
+                 dr_vfile=os.path.join(tmp, "coil.npy"),
+                 dr_runs=json.dumps(RUN_MESH_SPECS),
+                 cli_argv=json.dumps([
+                     argv + ["-mesh", "2", "-quiet", "-filename",
+                             os.path.join(tmp, f"run{k}_mesh.csv")]
+                     for k, argv in enumerate(RUN_MESH_CLI)]))
+        np.save(d["dr_vfile"], Vc.cpu().numpy())
+        for i, W in enumerate(Wc):
+            d[f"dr_W{i}"] = W.cpu().numpy()
+        np.savez(inputs, **d)
+        torch.cuda.empty_cache()
+        run_mesh_cluster(MESH_RANKS, WORKER + [
+            "--inputs", inputs, "--outdir", os.path.join(tmp, "a"),
+            "--tasks", "drun,cli"], "13 cluster (run -mesh)")
+        a = worker_results(os.path.join(tmp, "a"))
+        launches = {"K4": run_mesh_optimizers(a, Vc, Wc, smi)}
+        launches.update(run_mesh_cli(a, tmp, smi))
+        del a
+        phase("13c. a world of one on NCCL: torchrun --nproc_per_node 1, "
+              "run -pp 3 -mesh 1 at 200^3 against the unsharded run")
+        out1 = os.path.join(tmp, "world1.csv")
+        out = run_mesh_cluster(1, ["-m", "pairwise_perturbation_tpu_torch.cli",
+                                   *RUN_WORLD1, "-mesh", "1", "-filename",
+                                   out1], "13c CLI")
+        if "backend=  nccl" not in out:
+            raise AssertionError("13c: no NCCL banner")
+        rows = cli_csv(RUN_WORLD1, os.path.join(tmp, "world1_one.csv"))
+        check_run_csv(rows, "13c unsharded run -pp 3")
+        check_same_rows("13c NCCL world of one (run -mesh 1) against the "
+                        "unsharded run", read_csv(out1)[1:], rows[1:],
+                        (0, 1, 2, 3, 4, 5))
+    del Vc
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: test_als -pp 1 -device_loop 1, the device-resident phase loops
+# ---------------------------------------------------------------------------
+
+DEVICE_LOOP_CLI = ["test_als", "-model", "CP", "-tensor", "r", "-pp", "1",
+                   "-dim", "3", "-size", "200", "-rank", "10", "-resprint",
+                   "1", "-pp_res_tol", "0.1"]
+# The device engine runs the host engine's sweep functions on the same
+# inputs and takes the same decisions: its factors equal the host
+# engine's bit for bit on the CPU (f64 and f32); on the card this
+# tolerance (relative max-norm) is the check.
+DEVICE_LOOP_FACTOR_TOL = 1e-5
+DEVICE_PHASES = ("cp.dt_phase_device", "cp.pp_phase_device",
+                 "cp.pp_cache_build", "cp.diagnostics")
+# 14a's device engine again at these chunk sizes (sweeps issued between
+# two pulls): [dtime], masked sweeps and pulls beside the default's.
+DEVICE_LOOP_CHUNKS = (1, 4, 8)
+# 14b at the coil shape: where the engines take another DT <-> PP
+# decision (the host engine's gradnorm guard also holds the last DT
+# sweep's estimate in its floor, the device engine's only its own
+# phase's: JAX cp.py:556-575 and :852-866), the device engine is held by
+# its fit: its last row's exact diffV within this relative distance of
+# the host engine's.
+DEVICE_LOOP_COIL_DIFFV = 1e-3
+
+
+def count_syncs(fn):
+    """(fn(), {source: syncs}) with torch.cuda.set_sync_debug_mode("warn"):
+    each synchronizing CUDA call warns, and its source is the innermost
+    frame of the port on the Python stack (else the innermost frame)."""
+    import collections
+    import traceback
+    import warnings
+    import torch
+    counts = collections.Counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not f.filename.endswith("warnings.py")]
+        own = [f for f in frames
+               if "pairwise_perturbation_tpu_torch" in f.filename]
+        f = (own or frames)[-1]
+        name = os.path.relpath(f.filename, root)
+        counts[f"{name}:{f.lineno} {(f.line or '').strip()[:48]}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, counts
+
+
+def sync_line(counts, per=1):
+    return f"{sum(counts.values()) / per:g} (" + "; ".join(
+        f"{src}: {n / per:g}" for src, n in counts.most_common()) + ")"
+
+
+def device_loop_syncs(label, V, Ws):
+    """14c: syncs of one host-engine DT sweep, PP cache build and PP sweep
+    and of the host engine's per-sweep ratio pull, beside one chunk of the
+    device engine's DT and PP phases (per sweep), by source."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp
+    chunk = cp.DEVICE_LOOP_CHUNK
+    Ws = [W.clone() for W in Ws]
+    cp.dt_sweep(V, Ws, 0.0, solver="svd")          # warm
+    (W1, _), dt = count_syncs(lambda: cp.dt_sweep(V, Ws, 0.0, solver="svd"))
+    (single, pair), build = count_syncs(lambda: cp.pp_build_caches(V, W1))
+    dWs = [torch.zeros_like(W) for W in W1]
+    _, pp = count_syncs(lambda: cp.pp_sweep(single, pair, W1, W1, dWs, 0.0,
+                                            1.0, solver="svd"))
+    _, pull = count_syncs(lambda: cp.factor_norm_ratios(W1, W1).cpu())
+    _, ddt = count_syncs(lambda: cp.dt_phase_device(
+        V, Ws, 0.0, 1e-30, 0.0, chunk, solver="svd", max_sweeps=chunk))
+    _, dpp = count_syncs(lambda: cp.pp_phase_device(
+        V, W1, 0.0, 1.0, 1e30, 0.0, chunk, gn_guard=0.0, solver="svd",
+        max_sweeps=chunk))
+    print(f"14c {label} syncs (set_sync_debug_mode warn), by source:\n"
+          f"  host DT sweep {sync_line(dt)}\n"
+          f"  host PP cache build {sync_line(build)}\n"
+          f"  host PP sweep {sync_line(pp)}\n"
+          f"  host per-sweep ratio pull {sync_line(pull)}\n"
+          f"  device DT phase, per sweep of a {chunk}-sweep chunk "
+          f"{sync_line(ddt, chunk)}\n"
+          f"  device PP phase (its cache build included), per sweep of a "
+          f"{chunk}-sweep chunk {sync_line(dpp, chunk)}")
+    return dict(dt=dt, pp=pp, ddt=ddt, dpp=dpp)
+
+
+def device_loop_report(label, eng, stats, counts, smi):
+    """Medians of an engine's scopes, and for the device engine per-sweep
+    times and pulls per phase."""
+    if eng == "host":
+        print(f"  {label} host engine ({smi}): " + scope_line(stats,
+                                                              CP_PHASES))
+        return
+    phases = sum(stats.get(n, (0,))[0] for n in DEVICE_PHASES[:2])
+    dt_ms = 1e3 * stats.get("cp.dt_phase_device", (0, 0.0))[1] / max(
+        counts["dt_issued"], 1)
+    pp_ms = 1e3 * (stats.get("cp.pp_phase_device", (0, 0.0))[1]
+                   - stats.get("cp.pp_cache_build", (0, 0.0))[1]) / max(
+        counts["pp_issued"], 1)
+    print(f"  {label} device engine ({smi}): "
+          + scope_line(stats, DEVICE_PHASES)
+          + f"; DT sweeps issued {counts['dt_issued']} (masked "
+          f"{counts['dt_masked']}), {dt_ms:.3f} ms an issued sweep; PP "
+          f"sweeps issued {counts['pp_issued']} (masked "
+          f"{counts['pp_masked']}), {pp_ms:.3f} ms an issued sweep (cache "
+          f"builds aside); host pulls {counts['pulls']} in {phases} phases "
+          f"({counts['pulls'] / max(phases, 1):.2f} a phase)")
+
+
+def device_loop_cli(tmp, smi):
+    """14a: the 200^3 CLI, f32, -device_loop 0 then 1 (each after a
+    3-sweep warm-up): the same (iter, pp) rows, final factors (its
+    -checkpoint) within DEVICE_LOOP_FACTOR_TOL, K1-K3 1/1/2 a logged row
+    in both. Returns K1-K3's launches."""
+    import numpy as np
+    from pairwise_perturbation_tpu_torch import cli
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
+    from pairwise_perturbation_tpu_torch.utils import io, tracing
+    runs = {}
+    for loop in ("0", "1"):
+        argv = DEVICE_LOOP_CLI + ["-device_loop", loop]
+        cli_csv(argv + ["-maxiter", "3"], os.path.join(tmp, "warm.csv"))
+        tracing.reset()
+        mttkrp3.reset_launch_counts()
+        cp.reset_device_loop_counts()
+        ck = os.path.join(tmp, f"ck{loop}")
+        rows = cli_csv(argv + ["-maxiter", "40", "-profile", "1",
+                               "-checkpoint", ck],
+                       os.path.join(tmp, f"dl{loop}.csv"))
+        tracing.enable(False)
+        check_csv(rows, f"14a test_als -pp 1 -device_loop {loop} 200^3 f32")
+        runs[loop] = (rows, io.load_checkpoint(ck + ".npz")["factors"],
+                      tracing.stats(), dict(mttkrp3.LAUNCHES),
+                      dict(cp.DEVICE_LOOP_COUNTS))
+    (r0, f0, s0, l0, _), (r1, f1, s1, l1, c1) = runs["0"], runs["1"]
+    same = [(r[1], r[4]) for r in r0] == [(r[1], r[4]) for r in r1]
+    dist = max(float(np.max(np.abs(a - b)) / np.max(np.abs(a)))
+               for a, b in zip(f0, f1))
+    print(f"14a: the same (iter, pp) rows {same} ({len(r0) - 1} rows, "
+          f"{sum(1 for r in r0[1:] if r[4] == '1')} PP); final factors "
+          f"{dist:.3e} apart (tol {DEVICE_LOOP_FACTOR_TOL}); [dtime] at the "
+          f"last row {r0[-1][6]} s (-device_loop 0), {r1[-1][6]} s (1)")
+    n_rows = len(r0) - 1
+    for loop, launches in (("0", l0), ("1", l1)):
+        got = [launches[m] for m in range(3)]
+        print(f"14a -device_loop {loop}: K1-K3 launches {got} (expected "
+              f"{[n_rows, n_rows, 2 * n_rows]}: 1/1/2 a logged row)")
+        if got != [n_rows, n_rows, 2 * n_rows]:
+            raise AssertionError(f"14a -device_loop {loop}: K1-K3 {got}")
+    device_loop_report("14a 200^3", "host", s0, None, smi)
+    device_loop_report("14a 200^3", "device", s1, c1, smi)
+    if not same or not dist <= DEVICE_LOOP_FACTOR_TOL:
+        raise AssertionError("14a: the engines' rows or factors differ")
+    default = cp.DEVICE_LOOP_CHUNK
+    try:
+        for chunk in DEVICE_LOOP_CHUNKS:
+            cp.DEVICE_LOOP_CHUNK = chunk
+            cp.reset_device_loop_counts()
+            rows = cli_csv(DEVICE_LOOP_CLI + ["-device_loop", "1",
+                                              "-maxiter", "40"],
+                           os.path.join(tmp, f"chunk{chunk}.csv"))
+            c = cp.DEVICE_LOOP_COUNTS
+            print(f"14a chunk of {chunk} sweeps ({smi}): [dtime] at the "
+                  f"last row {rows[-1][6]} s; sweeps issued DT "
+                  f"{c['dt_issued']} (masked {c['dt_masked']}), PP "
+                  f"{c['pp_issued']} (masked {c['pp_masked']}); host pulls "
+                  f"{c['pulls']}")
+            if [r[:6] for r in rows] != [r[:6] for r in r1]:
+                raise AssertionError(f"14a: chunk {chunk} changed the rows")
+    finally:
+        cp.DEVICE_LOOP_CHUNK = default
+    return {f"K{m + 1}": l0[m] + l1[m] for m in range(3)}
+
+
+def device_loop_coil(V, smi):
+    """14b: the coil shape, f32, use_kernels_triple: als_cp_pp and
+    als_cp_pp_device from the same factors; K6 (and K5 as its O3) once a
+    cache build in both. Returns {kernel id: launches}."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config, native
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    split, _, _ = native.plan_tree_split_traffic(COIL_SHAPE, 10)
+    cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=1,
+                      tree_split=split)
+    out, launches = {}, {"K5": 0, "K6": 0}
+    for eng, fn in (("host", cp.als_cp_pp), ("device", cp.als_cp_pp_device)):
+        Ws = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
+        with config.override(use_kernels_triple=True):
+            fn(V, [W.clone() for W in Ws], cp.CPConfig(
+                tol=0.0, pp_res_tol=0.1, maxiter=2, resprint=1,
+                tree_split=split))                      # warm
+            tracing.reset()
+            _bench.reset_launch_counts()
+            cp.reset_device_loop_counts()
+            tracing.enable()
+            t0 = time.perf_counter()
+            res = fn(V, Ws, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tracing.enable(False)
+        stats, counts = tracing.stats(), _bench.launch_counts()
+        builds = stats.get("cp.pp_cache_build", (0,))[0]
+        k6, k5 = counts["triple_roots.triple_roots"], \
+            counts["last_contract.last_contract"]
+        print(f"14b coil {eng} engine: {len(res.history)} rows "
+              f"({sum(h['pp'] for h in res.history)} PP), {res.iters} "
+              f"sweeps in {wall:.3f} s; K6 {k6}, K5 {k5}, cache builds "
+              f"{builds}")
+        if not k6 == k5 == builds > 0:
+            raise AssertionError(f"14b {eng}: K6 {k6}, K5 {k5}, builds "
+                                 f"{builds}")
+        launches["K6"] += k6
+        launches["K5"] += k5
+        device_loop_report("14b coil", eng, stats,
+                           dict(cp.DEVICE_LOOP_COUNTS), smi)
+        out[eng] = res
+    flags = {e: "".join(str(h["pp"]) for h in r.history)
+             for e, r in out.items()}
+    dist = factor_distance(out["host"].factors, out["device"].factors, False)
+    dv = {e: r.history[-1]["diffV"] for e, r in out.items()}
+    rel = abs(dv["device"] - dv["host"]) / dv["host"]
+    print(f"14b: pp flags by row, host {flags['host']}, device "
+          f"{flags['device']}; final factors {dist:.3e} apart; last "
+          f"diffV host {dv['host']!r}, device {dv['device']!r} ({rel:.3e} "
+          "apart)")
+    if len(flags["host"]) != len(flags["device"]) or \
+            "1" not in flags["device"]:
+        raise AssertionError("14b: the engines' rows differ in number, or "
+                             "the device engine ran no PP phase")
+    if flags["host"] == flags["device"]:
+        if not dist <= DEVICE_LOOP_FACTOR_TOL:
+            raise AssertionError("14b: the same decisions, other factors")
+    elif not rel <= DEVICE_LOOP_COIL_DIFFV:
+        raise AssertionError("14b: other decisions and a worse fit")
+    return launches
+
+
+def run_phase14(smi):
+    """Phase 14 (14a-14c); returns {kernel id: launches}."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.utils import synth
+    t_phase = time.perf_counter()
+    phase("14a. test_als -model CP -pp 1 -device_loop 1 beside -device_loop "
+          f"0, 200^3 rank 10 f32 (chunks of {cp.DEVICE_LOOP_CHUNK} sweeps)")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = device_loop_cli(tmp, smi)
+    phase("14b. the two engines at the coil shape, f32, use_kernels_triple")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    launches.update(device_loop_coil(V, smi))
+    phase("14c. syncs per sweep by source, host and device engines")
+    # the first switch into the warn mode reports itself once: spend it
+    _, first = count_syncs(lambda: None)
+    print(f"14c the counter's first use, nothing measured: "
+          f"{sync_line(first)}")
+    V200 = torch.from_numpy(synth.make_tensor("r", 3, 200, 10, seed=0,
+                                              dtype=np.float32)).cuda()
+    for label, X in (("200^3", V200), ("coil", V)):
+        device_loop_syncs(label, X, cp.init_factors(X.shape, 10, seed=0,
+                                                    device="cuda"))
+    del V, V200
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -3452,8 +4010,9 @@ def main(argv=None) -> int:
                          f"(comma-separated, of {', '.join(KERNEL_PHASES)},"
                          " 9 for Tucker, 10 for run -issparse 1, the "
                          "datasets, checkpoints and traces, 11 for the "
-                         "nnz-sharded engines under torchrun and 12 for the "
-                         "dense engines on a block-sharded V)"
+                         "nnz-sharded engines under torchrun, 12 for the "
+                         "dense engines on a block-sharded V, 13 for run "
+                         "-mesh and 14 for test_als -device_loop 1)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
@@ -3463,7 +4022,7 @@ def main(argv=None) -> int:
         names = args.phases.split(",")
         unknown = [n for n in names
                    if n not in KERNEL_PHASES
-                   and n not in ("9", "10", "11", "12")]
+                   and n not in ("9", "10", "11", "12", "13", "14")]
         if unknown:
             ap.error(f"unknown phases {unknown}")
         smi = run_kernel_phases([n for n in names if n in KERNEL_PHASES])
@@ -3475,6 +4034,10 @@ def main(argv=None) -> int:
             print(f"phase 11 launches: {run_phase11(smi)}")
         if "12" in names:
             print(f"phase 12 launches: {run_phase12(smi)}")
+        if "13" in names:
+            print(f"phase 13 launches: {run_phase13(smi)}")
+        if "14" in names:
+            print(f"phase 14 launches: {run_phase14(smi)}")
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -3563,6 +4126,12 @@ def main(argv=None) -> int:
     for kid, n in run_phase12(smi).items():
         launches[kid] += n
         by_phase.setdefault(kid, {})["12"] = n
+    for kid, n in run_phase13(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["13"] = n
+    for kid, n in run_phase14(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["14"] = n
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]

@@ -4,7 +4,9 @@
 - ``test_als`` (``./test_ALS``, test_ALS.cxx; JAX cli.py:182-409). CP,
   dense or sparse: -pp 0 DT-ALS, -pp 1 PP with DT preconditioning, -pp 2
   PP-partupdate (each PP sweep solves the ``-update_percentage_pp`` share
-  of the modes that moved most), host-driven phases. ``-issparse 1`` runs
+  of the modes that moved most), host-driven phases; ``-pp 1
+  -device_loop 1`` keeps each phase's loop state on the device
+  (``cp.als_cp_pp_device``). ``-issparse 1`` runs
   the COO engine (models/sparse_cp.py) on V's nonzeros instead: plain ALS
   sweeps with -pp 0, PP with plain-ALS preconditioning with -pp 1.
   ``-model Tucker`` (models/tucker.py): -pp 0 DT-ALS from HOSVD, any
@@ -76,7 +78,12 @@ the file), CP and Tucker, every -pp and dtype of the unsharded run;
         -m pairwise_perturbation_tpu_torch.cli test_als -model CP \
         -tensor p -issparse 1 -pp 1 -dim 8 -size 10 -rank 10 -mesh 2
 
-``run -mesh`` waits for ROADMAP A15's ``run`` half.
+``run -mesh N`` runs the five optimizers on the same block-sharded V
+(``-issparse 1`` stays refused there, as in the JAX package):
+
+    torchrun --standalone --nproc_per_node 2 \
+        -m pairwise_perturbation_tpu_torch.cli run -tensor r -dim 3 \
+        -size 200 -rank 10 -pp 1 -mesh 2
 """
 
 from __future__ import annotations
@@ -89,6 +96,38 @@ import time
 import numpy as np
 
 RUN_OPTIMIZERS = ("DT", "MSDT", "DT-LR", "MSDT-LR", "Simple")
+
+
+def _device_loop_refusal(args, cmd):
+    """Why ``-device_loop`` >= 1 is refused for this command, or None.
+    Where the JAX package ignores the flag, the refusal says so; where it
+    has an engine the port lacks, it names ROADMAP A14's rest."""
+    if args.device_loop < 1 or cmd == "run":
+        return None
+    ignored = "; the JAX package ignores the flag there. Use -device_loop 0"
+    if cmd == "pp_bench":
+        return "-device_loop: pp_bench times host-driven sweeps" + ignored
+    if args.issparse:
+        return ("-device_loop: the sparse engines (-issparse 1) have no "
+                "device-resident loop" + ignored)
+    if args.model == "CP" and args.pp != 1:
+        return (f"-device_loop: test_als -model CP -pp {args.pp} runs the "
+                "host-driven engine" + ignored)
+    if args.model == "Tucker" and args.pp == 0:
+        return ("-device_loop: test_als -model Tucker -pp 0 (DT-ALS) runs "
+                "the host-driven engine" + ignored)
+    if args.model == "Tucker":
+        return ("-device_loop >= 1 for Tucker (JAX tucker.py:635-1184) is "
+                "not ported yet (ROADMAP A14's rest); use -device_loop 0")
+    if args.device_loop >= 2:
+        return ("-device_loop 2 (the fused machine, JAX cp.py:1031-1375) "
+                "is not ported yet (ROADMAP A14's rest); -device_loop 1 runs "
+                "the device-resident phase loops")
+    if args.mesh:
+        return ("-device_loop 1 with -mesh (the device engines' mesh half) "
+                "is not ported yet (ROADMAP A14's rest); use -device_loop 0 "
+                "under -mesh")
+    return None
 
 
 def _unsupported(args, cmd):
@@ -112,12 +151,9 @@ def _unsupported(args, cmd):
              "-issparse 1 takes -pp 0 or 1: -pp 2 (PP-partupdate) has no "
              "sparse engine, in the JAX package either"),
         ]
-    if cmd != "run":
-        checks.append(
-            (args.device_loop >= 1,
-             "-device_loop >= 1 is not ported yet for test_als and "
-             "pp_bench (ROADMAP A14); use -device_loop 0"))
+    loop = _device_loop_refusal(args, cmd)
     checks += [
+        (loop is not None, loop),
         (bool(args.mesh) and bool(args.issparse)
          and (cmd != "test_als" or "x" in args.mesh),
          "-issparse 1 is supported for test_als -model {CP,Tucker} "
@@ -125,10 +161,6 @@ def _unsupported(args, cmd):
          "only for test_als CP/Tucker on a 1D mesh (nnz-sharded COO, "
          "parallel/mesh.shard_coo). Re-run without -issparse or "
          "adjust -mesh."),
-        (bool(args.mesh) and cmd == "run",
-         "run -mesh is not ported yet (ROADMAP A15, `run` half: the "
-         "optimizers' sharded chain tops); -mesh runs test_als and "
-         "pp_bench"),
         (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16): "
          "its mode-minor copies of V serve the TPU's tiling"),
         (bool(args.resume) and not resumes,
@@ -492,7 +524,10 @@ def cmd_test_als(args) -> int:
         split = None
     else:
         X = V
-        solve = (cp.als_cp_dt, cp.als_cp_pp,
+        # -device_loop 1 routes -pp 1 alone, as JAX cli.py:237-242 does
+        # (_unsupported refuses it elsewhere)
+        solve = (cp.als_cp_dt,
+                 cp.als_cp_pp_device if args.device_loop else cp.als_cp_pp,
                  functools.partial(cp.als_cp_pp, partial_update=True))[
             min(args.pp, 2)]
         # planned on the padded global shape under -mesh
@@ -522,19 +557,13 @@ def cmd_test_als(args) -> int:
     return 0
 
 
-def run_cpd(X, Ws, pp: int, *, tol: float, maxiter: int, resprint: int,
-            timelimit: float = 5e3, lam: float = 0.0, updaterank: int = 1,
-            randomsvd: bool = False, msdt_min_holdout: int = 0,
-            seed: int = 0, macro: bool = False, plot=None):
-    """The body of ``run`` on the tensor ``X`` (dense, or a COO
-    ``SparseTensor``) from the factors ``Ws`` (run.cxx; JAX
-    cli.py:435-462): the CPD of the optimizer ``pp`` picks
-    (``RUN_OPTIMIZERS``), its ALS loop to the absolute gradnorm ``tol``;
-    with ``macro``, MSDT steps a full rotation per call. Returns the CPD,
-    whose ``history`` holds the logged rows."""
+def run_optimizer(pp: int, order: int, R: int, *, updaterank: int = 1,
+                  randomsvd: bool = False, msdt_min_holdout: int = 0,
+                  seed: int = 0):
+    """The optimizer ``run -pp`` picks (``RUN_OPTIMIZERS``), with run's
+    options."""
     from pairwise_perturbation_tpu_torch.models import optimizers as opt
-    order, R = X.ndim, Ws[0].shape[1]
-    optimizer = {
+    return {
         0: lambda: opt.CPDTOptimizer(order, R),
         1: lambda: opt.CPMSDTOptimizer(order, R,
                                        min_holdout_size=msdt_min_holdout),
@@ -545,8 +574,26 @@ def run_cpd(X, Ws, pp: int, *, tol: float, maxiter: int, resprint: int,
                                          min_holdout_size=msdt_min_holdout),
         4: lambda: opt.CPSimpleOptimizer(order, R),
     }[pp]()
+
+
+def run_cpd(X, Ws, pp: int, *, tol: float, maxiter: int, resprint: int,
+            timelimit: float = 5e3, lam: float = 0.0, updaterank: int = 1,
+            randomsvd: bool = False, msdt_min_holdout: int = 0,
+            seed: int = 0, macro: bool = False, plot=None, layout=None):
+    """The body of ``run`` on the tensor ``X`` (dense, or a COO
+    ``SparseTensor``) from the factors ``Ws`` (run.cxx; JAX
+    cli.py:435-462): the CPD of the optimizer ``pp`` picks
+    (``RUN_OPTIMIZERS``), its ALS loop to the absolute gradnorm ``tol``;
+    with ``macro``, MSDT steps a full rotation per call. Returns the CPD,
+    whose ``history`` holds the logged rows. ``layout`` (``-mesh``): X
+    and Ws are this rank's blocks of a dense V (parallel/mesh.py)."""
+    from pairwise_perturbation_tpu_torch.models import optimizers as opt
+    order, R = X.ndim, Ws[0].shape[1]
+    optimizer = run_optimizer(pp, order, R, updaterank=updaterank,
+                              randomsvd=randomsvd,
+                              msdt_min_holdout=msdt_min_holdout, seed=seed)
     model = opt.CPD(order, list(X.shape), R, optimizer)
-    model.init(X, Ws, lam=lam)
+    model.init(X, Ws, lam=lam, layout=layout)
     model.als(tol=tol, timelimit=timelimit, maxsweep=maxiter,
               resprint=resprint, plot=plot, macro=macro)
     return model
@@ -556,32 +603,39 @@ def cmd_run(args) -> int:
     """The second-gen CPD (run.cxx; JAX cli.py:411-466) on dense V or,
     with -issparse 1, on the COO of V's nonzeros: -pp picks the
     optimizer, ``-device_loop`` >= 1 runs MSDT a full rotation per step;
-    the LR optimizers' randomized SVD draws from ``-seed``."""
+    the LR optimizers' randomized SVD draws from ``-seed``. Under -mesh,
+    dense V is block-sharded as the dense engines take it
+    (``_dense_tensor``), and the factors are drawn at the original shape,
+    then cut into zero-padded row blocks (JAX cli.py:420-443)."""
     from pairwise_perturbation_tpu_torch.models import cp
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
 
     device = _device(args.device)
     _print_banner(args)
-    V, dtype = _load_tensor(args)
-    Vnorm = float(np.linalg.norm(V.ravel()))
-    # run builds the COO from the float32 values, unrounded under
-    # -dtype bfloat16 (JAX cli.py:429-438), unlike test_als
-    X = _sparse_tensor(args, V, device) if args.issparse \
-        else _dense(args, V, device)
-    Ws = cp.init_factors(X.shape, args.rank, seed=args.seed, dtype=dtype,
-                         device=device)
-    plot = PlotFile(args.filename, PlotFile.CP_HEADER, echo=not args.quiet)
+    layout = None
+    if args.issparse:
+        V, dtype = _load_tensor(args)
+        Vnorm = float(np.linalg.norm(V.ravel()))
+        # run builds the COO from the float32 values, unrounded under
+        # -dtype bfloat16 (JAX cli.py:429-438), unlike test_als
+        X = _sparse_tensor(args, V, device)
+    else:
+        X, layout, Vnorm, dtype = _dense_tensor(args, device)
+    Ws = cp.init_factors(_global_shape(X, layout), args.rank, seed=args.seed,
+                         dtype=dtype, device=device)
+    plot = _plot(args, PlotFile.CP_HEADER)
     try:
-        model = run_cpd(X, Ws, args.pp, tol=args.tol * Vnorm,
-                        maxiter=args.maxiter, resprint=args.resprint,
-                        timelimit=args.timelimit, lam=args.lam,
-                        updaterank=args.updaterank,
+        model = run_cpd(X, _sharded_factors(Ws, layout), args.pp,
+                        tol=args.tol * Vnorm, maxiter=args.maxiter,
+                        resprint=args.resprint, timelimit=args.timelimit,
+                        lam=args.lam, updaterank=args.updaterank,
                         randomsvd=bool(args.randomsvd),
                         msdt_min_holdout=args.msdt_min_holdout,
                         seed=args.seed, macro=bool(args.device_loop),
-                        plot=plot)
+                        plot=plot, layout=layout)
     finally:
-        plot.close()
+        if plot is not None:
+            plot.close()
     if not args.quiet:
         print(f"\nFinal gradnorm {model.gradnorm:E}")
     return 0

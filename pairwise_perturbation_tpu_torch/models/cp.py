@@ -514,3 +514,346 @@ def als_cp_pp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
             break
     return CPResult(Ws, state["gradnorm"], state["diffV"], state["iter"],
                     reason == "converged", state["history"])
+
+
+# ---------------------------------------------------------------------------
+# Device-resident phase loops (JAX cp.py:665-1008; test_als -device_loop 1)
+# ---------------------------------------------------------------------------
+#
+# The host drivers above pull the restart ratios after every sweep. These
+# keep a whole DT or PP phase's loop state on the device instead: the sweep
+# count, the quiet/broke flag, the gradnorm estimate and its floor, the
+# history buffer and the factor snapshot ring. JAX runs the phase as one
+# lax.while_loop; eager PyTorch has no device-side loop, so the host issues
+# sweeps in chunks of DEVICE_LOOP_CHUNK and reads nothing of the state
+# inside a chunk. Each sweep evaluates the while-loop's condition on the
+# device and applies its updates through torch.where(active, new, old), so
+# a sweep issued after the stop changes nothing (it costs device time, and
+# is counted). After each chunk one pull of (active, sweep count) decides
+# whether to issue another. The R x R solves still synchronize the card
+# (ops/solve.py: torch.linalg.eigh under solver "svd"), so a phase is not
+# free of host syncs; it reads no loop state back inside a chunk.
+
+#: Sweeps issued per chunk of a device-resident phase before the host
+#: reads the loop's ``active`` flag: at most DEVICE_LOOP_CHUNK - 1 masked
+#: sweeps a phase, one pull a chunk. Two, since a masked sweep costs a
+#: sweep: DT phases at 200^3 end after about two sweeps, and chunks of 4
+#: and 8 masked 24 and 84 of 65 and 125 issued sweeps on an H100
+#: (chip_smoke.py phase 14a; PERF.md section 5).
+DEVICE_LOOP_CHUNK = 2
+
+#: Host pulls of loop state (a chunk's flag, a phase's history, ring count
+#: and labels, its last gradnorm), and by phase kind the sweeps issued and
+#: the sweeps masked (issued after the stop) by the device-resident engine
+#: since the last reset.
+DEVICE_LOOP_COUNTS = dict(pulls=0, dt_issued=0, dt_masked=0, pp_issued=0,
+                          pp_masked=0)
+
+
+def reset_device_loop_counts():
+    for k in DEVICE_LOOP_COUNTS:
+        DEVICE_LOOP_COUNTS[k] = 0
+
+
+def _pull(x):
+    """One counted host read of device loop state."""
+    DEVICE_LOOP_COUNTS["pulls"] += 1
+    return x.cpu()
+
+
+def _in_dtype(x: float, dtype) -> float:
+    """``x`` rounded to ``dtype``, as the JAX engine's jnp.asarray(x,
+    dtype) scalars are (V's dtype for lam and the tolerances)."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+def _sweep_norm_stats(V_norm_sq, Ws, grads, lam):
+    """The DT phase's cheap per-sweep (gradnorm, diffV): the exact-solve
+    identity ||V - V^||^2 = ||V||^2 - <S_last, W_last^T W_last> (phase
+    control only; logged rows are recomputed exactly)."""
+    order = len(Ws)
+    gn = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    S_last = contract.hadamard_gram(Ws, skip_mode=order - 1, regul=lam)
+    vhat_sq = torch.sum(S_last * contract.gram(Ws[order - 1]))
+    return gn, torch.sqrt(torch.clamp(V_norm_sq - vhat_sq, min=0.0))
+
+
+def _exact_row_stats(V, V_norm_sq, Ws, lam):
+    """EXACT (gradnorm, diffV) of a logged row (:func:`cp_diagnostics`),
+    in the factors' dtype."""
+    gn, diffV = cp_diagnostics(V_norm_sq, V, list(Ws), lam)
+    return gn.to(Ws[0].dtype), diffV.to(Ws[0].dtype)
+
+
+def _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws, dWs, grads):
+    """The PP phase's per-sweep (gradnorm, diffV estimate): the norm
+    identity with the PP-corrected last-mode MTTKRP, first-order accurate
+    in dW and free of V passes (JAX cp.py:711-733 says why the DT
+    shortcut drifts here)."""
+    order = len(Ws)
+    gn = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    M_last = contract.pp_correct_mttkrp(single[order - 1], pair, dWs,
+                                        order - 1)
+    inner = torch.sum(M_last * Ws[order - 1])
+    S_all = contract.hadamard_gram(Ws, skip_mode=-1)
+    return gn, torch.sqrt(torch.clamp(V_norm_sq - 2.0 * inner
+                                      + torch.sum(S_all), min=0.0))
+
+
+def _snap_ring_init(Ws, n_slots: int):
+    """Empty factor-snapshot ring on the factors' device: (snaps, labels,
+    count)."""
+    slots = max(n_slots, 1)
+    dev = Ws[0].device
+    return ([torch.zeros((slots,) + tuple(W.shape), dtype=W.dtype,
+                         device=dev) for W in Ws],
+            torch.full((slots,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _logged(it: int, resprint: int, log_mark: int) -> bool:
+    """Whether the host logs global iteration ``it`` (a ring snapshot)."""
+    return bool(resprint) and (it % resprint == 0 or it == log_mark)
+
+
+def _record(st, j, on, row, Ws2, it0, resprint, log_mark, n_slots, snaps,
+            labels):
+    """Sweep ``j``'s history row and, on a logged iteration, its factor
+    snapshot (JAX cp.py:740-757), written where ``on``. A stopped loop
+    changes nothing, so while it runs its sweep count is the issue index
+    ``j``, and its ring count the logged iterations issued before: the
+    host knows every index, and no index is read back."""
+    if j < len(st["hist"]):
+        st["hist"][j] = torch.where(on, row, st["hist"][j])
+    if n_slots and _logged(it0 + j, resprint, log_mark):
+        slot = min(st["slot"], n_slots - 1)
+        for s, w in zip(snaps, Ws2):
+            s[slot] = torch.where(on, w, s[slot])
+        labels[slot] = torch.where(on, it0 + j, labels[slot])
+        st["count"] = st["count"] + on
+        st["slot"] += 1
+
+
+def _issue_chunks(sweep, st, budget: int, kind: str) -> int:
+    """Issue ``sweep(j)`` for j = 0, 1, ... in chunks of DEVICE_LOOP_CHUNK,
+    at most ``budget`` in all, pulling (st["on"], st["k"]) after each
+    chunk; returns k, the sweeps that ran. ``st["on"]`` starts true (k = 0,
+    nothing quiet or broken, the gradnorm estimate infinite), and each
+    sweep keeps it the JAX while-loop's condition. ``kind`` ("dt" or "pp")
+    names the phase in DEVICE_LOOP_COUNTS."""
+    issued, n = 0, 0
+    while issued < budget:
+        for j in range(issued, min(issued + DEVICE_LOOP_CHUNK, budget)):
+            sweep(j)
+        issued = min(issued + DEVICE_LOOP_CHUNK, budget)
+        flag, n = (int(x) for x in _pull(torch.stack([st["on"], st["k"]])))
+        if not flag:
+            break
+    DEVICE_LOOP_COUNTS[f"{kind}_issued"] += issued
+    DEVICE_LOOP_COUNTS[f"{kind}_masked"] += issued - n
+    return n
+
+
+def _loop_state(Ws, max_sweeps: int, n_slots: int, **extra):
+    """The loop state both phases start from: k = 0, ``on``, the factors,
+    zero dWs, an infinite gradnorm estimate, the history buffer and the
+    ring's counts (the snapshots and labels are returned apart)."""
+    dev = Ws[0].device
+    inf = torch.full((), float("inf"), dtype=Ws[0].dtype, device=dev)
+    st = dict(k=torch.zeros((), dtype=torch.int64, device=dev),
+              on=torch.ones((), dtype=torch.bool, device=dev), Ws=list(Ws),
+              dWs=[torch.zeros_like(W) for W in Ws], gn=inf,
+              hist=torch.zeros((max_sweeps, 2), dtype=Ws[0].dtype,
+                               device=dev), slot=0, **extra)
+    snaps, labels, st["count"] = _snap_ring_init(Ws, n_slots)
+    return st, snaps, labels
+
+
+def _commit(st, on, **new):
+    """Each ``new`` value replaces the state's where ``on``; k counts the
+    sweep."""
+    for key, x in new.items():
+        st[key] = [torch.where(on, a, b) for a, b in zip(x, st[key])] \
+            if isinstance(x, list) else torch.where(on, x, st[key])
+    st["k"] = st["k"] + on
+
+
+def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
+                    log_mark=-1, *, solver: str = "svd",
+                    max_sweeps: int = 256, resprint: int = 0,
+                    root_split: int = None, n_slots: int = 0):
+    """DT sweeps with their loop on the device until every mode is quiet
+    (||dW||/||W|| < tol_init, alsCP_DT_sub:594-605), the gradnorm
+    estimate falls below gn_tol, or ``it_budget`` sweeps ran (JAX
+    cp.py:760-823).
+
+    Sweep k is global iteration it0 + k; the rows the host will log
+    ((it0 + k) % resprint == 0, or == log_mark) snapshot the factors into
+    a ring of ``n_slots``. ``hist`` rows hold :func:`_sweep_norm_stats`'
+    estimates. Returns (n_sweeps, Ws, dWs, gn, quiet, hist[max_sweeps, 2],
+    snaps, labels, count): n_sweeps a host int (pulled with the last
+    chunk's flag), the rest device tensors, as the JAX while-loop's."""
+    V_norm_sq = contract.norm_sq(V)
+    st, snaps, labels = _loop_state(
+        Ws, max_sweeps, n_slots, W_prev=[torch.zeros_like(W) for W in Ws],
+        quiet=torch.zeros((), dtype=torch.bool, device=V.device))
+
+    def sweep(j):
+        on = st["on"]
+        Ws2, grads = dt_sweep(V, st["Ws"], lam, solver=solver,
+                              root_split=root_split)
+        dWs2 = [a - b for a, b in zip(Ws2, st["W_prev"])]
+        quiet2 = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2))
+                           < tol_init)
+        gn2, diffV = _sweep_norm_stats(V_norm_sq, Ws2, grads, lam)
+        gn2 = gn2.to(st["gn"].dtype)
+        _record(st, j, on, torch.stack([gn2, diffV.to(gn2.dtype)]), Ws2,
+                it0, resprint, log_mark, n_slots, snaps, labels)
+        _commit(st, on, Ws=Ws2, W_prev=Ws2, dWs=dWs2, gn=gn2, quiet=quiet2)
+        st["on"] = on & ~quiet2 & (gn2 >= gn_tol)
+
+    n = _issue_chunks(sweep, st, it_budget, "dt")
+    return (n, st["Ws"], st["dWs"], st["gn"], st["quiet"], st["hist"], snaps,
+            labels, st["count"])
+
+
+def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
+                    it_budget: int, it0=0, log_mark=-1, gn_guard=10.0, *,
+                    solver: str = "svd", max_sweeps: int = 15,
+                    resprint: int = 0, n_slots: int = 0):
+    """Build the PP caches (:func:`pp_build_caches`: K6, with K5 as its
+    O3, under ``use_kernels_triple``), then PP sweeps with their loop on
+    the device until the restart tolerance trips (any ||dW||/||W|| >
+    tol_init, alsCP_PP_sub:656-671), the gradnorm estimate falls below
+    gn_tol, or ``it_budget`` sweeps ran (JAX cp.py:826-880).
+
+    The guard (``gn_guard`` > 0): a sweep whose gradnorm estimate passes
+    gn_guard x the phase's running minimum, or whose largest ratio passes
+    max(5 tol_init, 0.5), is reverted (factors, dWs, gn, diffV) and ends
+    the phase. Logging as :func:`dt_phase_device`; ``hist`` holds
+    :func:`_pp_sweep_norm_stats`' estimates. Returns (n_sweeps, Ws, dWs,
+    gn, hist, snaps, labels, count)."""
+    V_norm_sq = contract.norm_sq(V)
+    single, pair = tracing.timed("cp.pp_cache_build", pp_build_caches, V,
+                                 list(Ws))
+    W_init = list(Ws)
+    bound = max(_in_dtype(5.0 * tol_init, V.dtype), 0.5)
+    st, snaps, labels = _loop_state(Ws, max_sweeps, n_slots)
+    st["dv_prev"] = st["gn_floor"] = st["gn"]
+
+    def sweep(j):
+        on = st["on"]
+        Ws2, dWs2, grads = pp_sweep(single, pair, st["Ws"], W_init,
+                                    st["dWs"], lam, ratio_step, solver=solver)
+        ratios = torch.abs(factor_norm_ratios(Ws2, dWs2))
+        broke2 = torch.any(ratios > tol_init)
+        gn2, diffV = _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws2,
+                                          dWs2, grads)
+        gn2, diffV = gn2.to(st["gn"].dtype), diffV.to(st["gn"].dtype)
+        if gn_guard > 0:
+            blown = (gn2 > gn_guard * st["gn_floor"]) | \
+                (torch.max(ratios) > bound)
+            Ws2 = [torch.where(blown, a, b) for a, b in zip(st["Ws"], Ws2)]
+            dWs2 = [torch.where(blown, a, b)
+                    for a, b in zip(st["dWs"], dWs2)]
+            gn2 = torch.where(blown, st["gn"], gn2)
+            diffV = torch.where(blown, st["dv_prev"], diffV)
+            broke2 = broke2 | blown
+        _record(st, j, on, torch.stack([gn2, diffV]), Ws2, it0, resprint,
+                log_mark, n_slots, snaps, labels)
+        _commit(st, on, Ws=Ws2, dWs=dWs2, gn=gn2, dv_prev=diffV,
+                gn_floor=torch.minimum(st["gn_floor"], gn2))
+        st["on"] = on & ~broke2 & (gn2 >= gn_tol)
+
+    n = _issue_chunks(sweep, st, it_budget, "pp")
+    return (n, st["Ws"], st["dWs"], st["gn"], st["hist"], snaps, labels,
+            st["count"])
+
+
+def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
+                     clock: Optional[SweepClock] = None) -> CPResult:
+    """Device-resident DT <-> PP solver (``test_als -pp 1 -device_loop
+    1``; JAX cp.py:882-1008): the phase machine of :func:`als_cp_pp`, one
+    :func:`dt_phase_device` or :func:`pp_phase_device` call a phase.
+
+    Per-sweep rows come from the phases' history buffers, ``dtime``
+    interpolated within each phase. A logged row's diagnostics are
+    recomputed EXACTLY from the ring's snapshot inside the clock's
+    excluded window (K1-K3 for an order-3 float32 V); unlogged rows keep
+    the estimates. lam and the tolerances are rounded to V's dtype, as
+    the JAX engine's scalars are; no ``rcond`` is passed on, as there.
+    The JAX engine also runs zero-budget phases to compile them before the
+    clock starts; the port compiles nothing. Scopes ``cp.dt_phase_device``
+    and ``cp.pp_phase_device`` time each phase; DEVICE_LOOP_COUNTS counts
+    its pulls and masked sweeps."""
+    import warnings
+
+    Ws = list(Ws)
+    clock = clock or SweepClock()
+    lam = _in_dtype(cfg.lam, V.dtype)
+    tol_init = _in_dtype(cfg.pp_res_tol, V.dtype)
+    gn_tol = _in_dtype(cfg.tol, V.dtype)
+    gn_guard = _in_dtype(cfg.gn_guard, Ws[0].dtype)
+    V_norm_sq = contract.norm_sq(V)
+    history: list = []
+    it = 0
+    gn = diffV = float("inf")
+    # snapshot ring slots: enough for every logged row of one phase
+    n_slots = (cfg.maxiter // max(cfg.resprint, 1)) + 3
+    mark = cfg.maxiter
+
+    def log_phase(hist, n, pp_flag, t_start, t_end, snaps, labels, count):
+        nonlocal it, gn, diffV
+        h = _pull(hist)[:n].tolist()
+        exact = {}
+        with clock.exclude():
+            sn = int(_pull(count))
+            if sn > n_slots:
+                warnings.warn(f"phase snapshot ring overflow: {sn} logged "
+                              f"rows > {n_slots} slots; overflow rows fall "
+                              "back to in-loop estimates")
+            if sn > 0:
+                labels_h = _pull(labels).tolist()
+                for slot in range(min(sn, n_slots)):
+                    g, d = tracing.timed("cp.diagnostics", _exact_row_stats,
+                                         V, V_norm_sq, [s[slot] for s in snaps],
+                                         lam)
+                    exact[labels_h[slot]] = (float(g), float(d))
+        for row_i in range(n):
+            dt_row = t_start + (t_end - t_start) * (row_i + 1) / max(n, 1)
+            gn, diffV = h[row_i]
+            if it % cfg.resprint == 0 or it == cfg.maxiter:
+                gn, diffV = exact.get(it, (gn, diffV))
+                if plot is not None:
+                    plot.row(V.shape[0], it, gn, cfg.tol, pp_flag, diffV,
+                             dt_row)
+                history.append(dict(iter=it, gradnorm=gn, diffV=diffV,
+                                    dtime=dt_row, pp=pp_flag))
+            it += 1
+
+    while it <= cfg.maxiter:
+        t0 = clock.dtime()
+        n, Ws, dWs, gn_d, _, hist, snaps, labels, count = tracing.timed(
+            "cp.dt_phase_device", dt_phase_device, V, Ws, lam, tol_init,
+            gn_tol, cfg.maxiter + 1 - it, it, mark, solver=cfg.solver,
+            max_sweeps=cfg.maxiter + 1, resprint=cfg.resprint,
+            root_split=cfg.tree_split, n_slots=n_slots)
+        t1 = clock.dtime()
+        log_phase(hist, n, 0, t0, t1, snaps, labels, count)
+        gn_dt = float(_pull(gn_d))
+        if gn_dt < cfg.tol or it > cfg.maxiter or t1 > cfg.timelimit:
+            gn = gn_dt
+            break
+        t0 = clock.dtime()
+        n, Ws, dWs, gn_d, hist, snaps, labels, count = tracing.timed(
+            "cp.pp_phase_device", pp_phase_device, V, Ws, lam,
+            cfg.ratio_step, tol_init, gn_tol,
+            min(cfg.pp_cache_sweeps, cfg.maxiter + 1 - it), it, mark,
+            gn_guard, solver=cfg.solver, max_sweeps=cfg.pp_cache_sweeps,
+            resprint=cfg.resprint, n_slots=n_slots)
+        t1 = clock.dtime()
+        log_phase(hist, n, 1, t0, t1, snaps, labels, count)
+        gn = float(_pull(gn_d))
+        if gn < cfg.tol or t1 > cfg.timelimit:
+            break
+    return CPResult(Ws, gn, diffV, it, gn < cfg.tol, history)

@@ -21,6 +21,15 @@ COO :class:`~pairwise_perturbation_tpu_torch.ops.sparse.SparseTensor`
 fused-index ``index_add_`` (``sparse.ttm_dense``), the rest of each chain
 is dense, and Simple's sweep and the diagnostics are the sparse engine's
 (models/sparse_cp.py).
+
+``run -mesh`` (``CPD.init(..., layout=)``) runs every optimizer on a
+block-sharded dense V, one process per mesh device (parallel/mesh.py):
+V and the factors are this rank's blocks, the chain tops stay partial
+sums over a sharded hold-out, each leaf MTTKRP is summed over the other
+sharded modes and each Gram over its rows (the hooks of
+parallel/collectives.py), and the low-rank kit sums its small Grams over
+the rows of the mode it factors (ops/solve.py). Every decision reads
+values that are bitwise equal on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
 from pairwise_perturbation_tpu_torch.ops import contract, dimtree, solve
 from pairwise_perturbation_tpu_torch.ops import sparse
+from pairwise_perturbation_tpu_torch.parallel import collectives
 from pairwise_perturbation_tpu_torch.utils import tracing
 from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile, SweepClock
 
@@ -53,33 +63,40 @@ def _sparse_top(st, W, left_index: int):
     return T.permute(perm + [len(ascending)])
 
 
-def chain_top(V, W_left, *, left_index: int):
+def chain_top(V, W_left, *, left_index: int, layout=None):
     """First-level contraction V x W[left_index], axes in indexes order +
     rank (mttkrp_map_init, cp_msdt_optimizer.cxx:111-144), through
     :meth:`dimtree.ChainTreeSweep.top` (the mid_contract kernel for an
     eligible hold-out under ``config.use_kernels_first``); for a COO V,
-    one fused-index ``index_add_`` over the nonzeros."""
+    one fused-index ``index_add_`` over the nonzeros. ``layout``: of this
+    rank's block, a partial sum where the hold-out's mode is sharded."""
     order = V.ndim
     if isinstance(V, sparse.SparseTensor):
         return _sparse_top(V, W_left, left_index)
     sweep = dimtree.ChainTreeSweep(
         V, [W_left if i == left_index else None for i in range(order)],
-        rotation_indexes(left_index, order), left_index)
+        rotation_indexes(left_index, order), left_index, layout=layout)
     return sweep.top()
 
 
 def chain_step(V, top, Ws, lam, *, left_index: int,
-               positions: Tuple[int, ...], solver: str = "chol"):
+               positions: Tuple[int, ...], solver: str = "chol",
+               layout=None):
     """Process tree positions in order: per-position MTTKRP from the chain
     tree, S assembly, gradient, solve (CPDTOptimizer::step /
-    CPMSDTOptimizer::step). Returns (Ws_new, grads_by_position)."""
+    CPMSDTOptimizer::step). Returns (Ws_new, grads_by_position).
+    ``layout``: V, ``top`` and Ws are this rank's blocks; each leaf M is
+    summed over the other sharded modes and each Gram over its rows, so
+    the solves are row-wise on this rank's rows."""
     indexes = rotation_indexes(left_index, V.ndim)
-    sweep = dimtree.ChainTreeSweep(V, Ws, indexes, left_index, top=top)
+    sweep = dimtree.ChainTreeSweep(V, Ws, indexes, left_index, top=top,
+                                   layout=layout)
     grads = []
     for pos in positions:
         M = sweep.mttkrp(pos)
         i = indexes[pos]
-        S = contract.hadamard_gram(sweep.factors, skip_mode=i, regul=lam)
+        S = contract.hadamard_gram(sweep.factors, skip_mode=i, regul=lam,
+                                   layout=layout)
         grads.append(contract.gradsubprob(M, S, sweep.factors[i]))
         sweep.factors[i] = solve.solve(M, S, method=solver)
     return sweep.factors, grads
@@ -87,26 +104,30 @@ def chain_step(V, top, Ws, lam, *, left_index: int,
 
 def chain_step_lr(V, top, Ws, lam, old_W_lr, X=None, *, left_index: int,
                   positions: Tuple[int, ...], solver: str, lr_pos: int,
-                  update_rank: int, lr_from_old: bool):
+                  update_rank: int, lr_from_old: bool, layout=None):
     """Like :func:`chain_step`, but position ``lr_pos`` is solved as a
     rank-``update_rank`` *update*: (U, s, VT) of dW = M pinv(S) - A with
     A = ``old_W_lr`` (MSDT-LR) or the current factor (DT-LR), and
     W <- A + U s VT (cp_dt_lr_optimizer.cxx:202-215,
     cp_msdt_lr_optimizer.cxx:246-256). ``X``: the randomized SVD's test
     matrix, None for the exact truncation. Returns (Ws_new, grads,
-    (U, s, VT))."""
+    (U, s, VT)). ``layout``: as :func:`chain_step`; U is this rank's rows
+    of the low-rank mode (ops/solve.py's kit sums its Grams over them)."""
     indexes = rotation_indexes(left_index, V.ndim)
-    sweep = dimtree.ChainTreeSweep(V, Ws, indexes, left_index, top=top)
+    sweep = dimtree.ChainTreeSweep(V, Ws, indexes, left_index, top=top,
+                                   layout=layout)
     grads = []
     lr_usv = None
     for pos in positions:
         M = sweep.mttkrp(pos)
         i = indexes[pos]
-        S = contract.hadamard_gram(sweep.factors, skip_mode=i, regul=lam)
+        S = contract.hadamard_gram(sweep.factors, skip_mode=i, regul=lam,
+                                   layout=layout)
         grads.append(contract.gradsubprob(M, S, sweep.factors[i]))
         if pos == lr_pos:
             A = old_W_lr if lr_from_old else sweep.factors[i]
-            U, s, VT = solve.rankR_update_cholesky(M, A, S, update_rank, X)
+            U, s, VT = solve.rankR_update_cholesky(M, A, S, update_rank, X,
+                                                   layout, i)
             sweep.factors[i] = A + (U * s) @ VT
             lr_usv = (U, s, VT)
         else:
@@ -114,12 +135,15 @@ def chain_step_lr(V, top, Ws, lam, old_W_lr, X=None, *, left_index: int,
     return sweep.factors, grads, lr_usv
 
 
-def lr_update_cache(V, cache, U, s, VT, *, left_index: int):
+def lr_update_cache(V, cache, U, s, VT, *, left_index: int, layout=None):
     """cache + (V x_left (U s)) x VT: the low-rank refresh of a cached
     first-level contraction (update_cached_tensor,
     cp_dt_lr_optimizer.cxx:128-158 / cp_msdt_lr_optimizer.cxx:112-157),
     O(s^N * update_rank) in place of O(s^N * R). For a COO V, the x_left
-    contraction is one fused-index ``index_add_`` over the nonzeros."""
+    contraction is one fused-index ``index_add_`` over the nonzeros.
+    ``layout`` runs nothing: U holds this rank's rows of the hold-out's
+    mode, so V x_left (U s) is a partial sum exactly where the cached top
+    is one, and the refreshed top stays this rank's partial."""
     if isinstance(V, sparse.SparseTensor):
         T = _sparse_top(V, U * s, left_index)
     else:
@@ -134,34 +158,36 @@ def lr_update_cache(V, cache, U, s, VT, *, left_index: int):
 def chain_step_lr_fused(V, cache, U, s, VT, Ws, lam, old_W_lr, X=None, *,
                         left_index: int, positions: Tuple[int, ...],
                         solver: str, lr_pos: int, update_rank: int,
-                        lr_from_old: bool):
+                        lr_from_old: bool, layout=None):
     """The low-rank cache refresh, then :func:`chain_step_lr` on it. The
     JAX package fuses the two into one computation so XLA can stream the
     refreshed top into the first MTTKRP; eager PyTorch has nothing to
     fuse, so this is plain composition. Returns (top, Ws_new, grads,
     usv)."""
-    top = lr_update_cache(V, cache, U, s, VT, left_index=left_index)
+    top = lr_update_cache(V, cache, U, s, VT, left_index=left_index,
+                          layout=layout)
     Ws2, grads, usv = chain_step_lr(
         V, top, Ws, lam, old_W_lr, X, left_index=left_index,
         positions=positions, solver=solver, lr_pos=lr_pos,
-        update_rank=update_rank, lr_from_old=lr_from_old)
+        update_rank=update_rank, lr_from_old=lr_from_old, layout=layout)
     return top, Ws2, grads, usv
 
 
-def msdt_cycle(V, Ws, lam, *, lefts: Tuple[int, ...], solver: str = "chol"):
+def msdt_cycle(V, Ws, lam, *, lefts: Tuple[int, ...], solver: str = "chol",
+               layout=None):
     """One full MSDT rotation, the hold-outs ``lefts`` in turn (all
     ``order`` modes, or the restricted rotation of ``min_holdout_size``):
     the same as that many CPMSDTOptimizer.step() calls
     (cp_msdt_optimizer.cxx:173-208). The JAX package fuses the rotation
     into one device computation; here it is a host loop over the
-    hold-outs."""
+    hold-outs. ``layout``: as :func:`chain_step`."""
     order = V.ndim
     grads = None
     for left in lefts:
-        top = chain_top(V, Ws[left], left_index=left)
+        top = chain_top(V, Ws[left], left_index=left, layout=layout)
         Ws, grads = chain_step(V, top, Ws, lam, left_index=left,
                                positions=tuple(range(order - 1)),
-                               solver=solver)
+                               solver=solver, layout=layout)
     return Ws, grads
 
 
@@ -191,7 +217,9 @@ class Decomposition:
 
 
 class CPOptimizer:
-    """Base optimizer: holds V, W and lambda (cp_als_optimizer.{h,cxx})."""
+    """Base optimizer: holds V, W and lambda (cp_als_optimizer.{h,cxx}).
+    ``layout`` (``run -mesh``, parallel/mesh.py): V and W are this rank's
+    blocks, and every step passes the layout on to its chain functions."""
 
     def __init__(self, order: int, rank: int):
         self.order = order
@@ -200,17 +228,19 @@ class CPOptimizer:
         self.W: Optional[List] = None
         self.lam = 0.0
         self.grads = None
+        self.layout = None
 
-    def configure(self, V, W: List, lam: float = 0.0):
+    def configure(self, V, W: List, lam: float = 0.0, layout=None):
         self.V = V
         self.W = W
         self.lam = lam
         self.grads = None
+        self.layout = layout
 
     def _lam(self, dtype) -> float:
         """lambda rounded to ``dtype``, as the JAX package's steps take
         it (V's dtype: bf16-stored V rounds it to bf16)."""
-        return float(torch.tensor(self.lam, dtype=torch.float64).to(dtype))
+        return cp._in_dtype(self.lam, dtype)
 
     def step(self) -> float:
         raise NotImplementedError
@@ -232,7 +262,7 @@ class CPSimpleOptimizer(CPOptimizer):
             return 1.0
         self.W, self.grads = cp.simple_sweep(
             self.V, self.W, self._lam(self.W[0].dtype), solver="chol",
-            normalize=False)
+            normalize=False, layout=self.layout)
         return 1.0
 
 
@@ -253,10 +283,13 @@ class CPMSDTOptimizer(CPOptimizer):
         self.min_holdout_size = min_holdout_size
         self.holdouts: Optional[Tuple[int, ...]] = None
 
-    def configure(self, V, W: List, lam: float = 0.0):
-        super().configure(V, W, lam)
+    def configure(self, V, W: List, lam: float = 0.0, layout=None):
+        super().configure(V, W, lam, layout)
+        # the padded global sizes under a layout, as the JAX package's
+        # sharded V reports them (JAX optimizers.py:312)
+        shape = V.shape if layout is None else layout.padded_shape
         eligible = tuple(m for m in range(self.order)
-                         if V.shape[m] >= self.min_holdout_size)
+                         if shape[m] >= self.min_holdout_size)
         self.holdouts = eligible if eligible else tuple(range(self.order))
 
     def _next_left(self) -> int:
@@ -284,10 +317,12 @@ class CPMSDTOptimizer(CPOptimizer):
     def step(self) -> float:
         order = self.order
         left = self._next_left()
-        top = chain_top(self.V, self.W[left], left_index=left)
+        top = chain_top(self.V, self.W[left], left_index=left,
+                        layout=self.layout)
         self.W, self.grads = chain_step(
             self.V, top, self.W, self._lam(self.V.dtype), left_index=left,
-            positions=tuple(range(order - 1)), solver="chol")
+            positions=tuple(range(order - 1)), solver="chol",
+            layout=self.layout)
         return (order - 1) / order
 
     def step_cycle(self) -> float:
@@ -297,7 +332,7 @@ class CPMSDTOptimizer(CPOptimizer):
         lefts = self._cycle_lefts()
         self.W, self.grads = msdt_cycle(self.V, self.W,
                                         self._lam(self.V.dtype), lefts=lefts,
-                                        solver="chol")
+                                        solver="chol", layout=self.layout)
         self.left_index = lefts[-1]
         return len(lefts) * (self.order - 1) / self.order
 
@@ -323,10 +358,11 @@ class CPDTOptimizer(CPOptimizer):
 
     def step(self) -> float:
         left = self.left_index1 if self.first_subtree else self.left_index2
-        top = chain_top(self.V, self.W[left], left_index=left)
+        top = chain_top(self.V, self.W[left], left_index=left,
+                        layout=self.layout)
         self.W, self.grads = chain_step(
             self.V, top, self.W, self._lam(self.V.dtype), left_index=left,
-            positions=self._positions(), solver="chol")
+            positions=self._positions(), solver="chol", layout=self.layout)
         self.first_subtree = not self.first_subtree
         return 0.5
 
@@ -369,7 +405,8 @@ class CPDTLROptimizer(CPDTOptimizer):
 
     def _lr_kw(self, left, positions, lr_pos):
         return dict(left_index=left, positions=positions, solver="chol",
-                    lr_pos=lr_pos, update_rank=self.update_rank)
+                    lr_pos=lr_pos, update_rank=self.update_rank,
+                    layout=self.layout)
 
     def step(self) -> float:
         order = self.order
@@ -393,7 +430,8 @@ class CPDTLROptimizer(CPDTOptimizer):
             self.cached[self.first_subtree] = top
             self.low_rank_decomp = True
         elif do_lr:
-            top = chain_top(self.V, self.W[left], left_index=left)
+            top = chain_top(self.V, self.W[left], left_index=left,
+                            layout=self.layout)
             self.cached[self.first_subtree] = top
             X = self._rsvd.draw(self.rank, self.update_rank, self.W[0])
             self.W, self.grads, self.usv = chain_step_lr(
@@ -401,11 +439,12 @@ class CPDTLROptimizer(CPDTOptimizer):
                 lr_from_old=False, **self._lr_kw(left, positions, lr_pos))
             self.low_rank_decomp = True
         else:
-            top = chain_top(self.V, self.W[left], left_index=left)
+            top = chain_top(self.V, self.W[left], left_index=left,
+                            layout=self.layout)
             self.cached[self.first_subtree] = top
             self.W, self.grads = chain_step(
                 self.V, top, self.W, lam, left_index=left,
-                positions=positions, solver="chol")
+                positions=positions, solver="chol", layout=self.layout)
         if not self.first_subtree:
             self.count_subiteration += 1
         if (self.count_subiteration == self.num_subiteration
@@ -459,7 +498,8 @@ class CPMSDTLROptimizer(CPMSDTOptimizer):
         refresh = self.low_rank_decomp and self.is_cached[left]
         lr_kw = dict(left_index=left, positions=positions, solver="chol",
                      lr_pos=indexes.index(lr_mode) if do_lr else -1,
-                     update_rank=self.update_rank, lr_from_old=True)
+                     update_rank=self.update_rank, lr_from_old=True,
+                     layout=self.layout)
         if refresh and do_lr:
             U, s, VT = self.usv
             X = self._rsvd.draw(self.rank, self.update_rank, self.W[0])
@@ -473,9 +513,10 @@ class CPMSDTLROptimizer(CPMSDTOptimizer):
         if refresh:
             U, s, VT = self.usv
             top = lr_update_cache(self.V, self.cached_tensors[left], U, s,
-                                  VT, left_index=left)
+                                  VT, left_index=left, layout=self.layout)
         else:
-            top = chain_top(self.V, self.W[left], left_index=left)
+            top = chain_top(self.V, self.W[left], left_index=left,
+                            layout=self.layout)
             self.is_cached[left] = True
         self.cached_tensors[left] = top
         self.old_W[left] = self.W[left]
@@ -487,7 +528,7 @@ class CPMSDTLROptimizer(CPMSDTOptimizer):
         else:
             self.W, self.grads = chain_step(
                 self.V, top, self.W, lam, left_index=left,
-                positions=positions, solver="chol")
+                positions=positions, solver="chol", layout=self.layout)
             self.usv = None
             self.low_rank_decomp = False
         return (order - 1) / order
@@ -502,10 +543,14 @@ class CPD(Decomposition):
         self.optimizer = optimizer
         self.gradnorm = float("inf")
         self.history: list = []
+        self.layout = None
 
-    def init(self, V, W: Sequence, lam: float = 0.0):
+    def init(self, V, W: Sequence, lam: float = 0.0, layout=None):
+        """``layout`` (``run -mesh``): V and W are this rank's blocks, and
+        ``sizes`` their block sizes."""
         super().init(V, W)
-        self.optimizer.configure(self.V, self.W, lam)
+        self.layout = layout
+        self.optimizer.configure(self.V, self.W, lam, layout)
 
     def als(self, tol: float, timelimit: float, maxsweep: int,
             resprint: int, plot: Optional[PlotFile] = None,
@@ -521,13 +566,24 @@ class CPD(Decomposition):
         The JAX package also excludes steps that block the host beyond
         50 ms, up to 3 per mode, as compiles; the port compiles nothing,
         so every step counts toward dtime. A COO V takes the sparse
-        engine's norm and diagnostics (models/sparse_cp.py)."""
-        V = self.V
+        engine's norm and diagnostics (models/sparse_cp.py).
+
+        Under the layout of :meth:`init` the norm and the diagnostics are
+        summed over the ranks' blocks (``cp.cp_diagnostics(layout=)``),
+        the time limit reads rank 0's clock (every rank leaves at the
+        same row) and the CSV's dimension column is the unsharded
+        tensor's, as ``models/cp.py``'s engines write it."""
+        V, layout = self.V, self.layout
         if isinstance(V, sparse.SparseTensor):
             V_norm_sq, diagnostics = (sparse.norm_sq(V),
                                       sparse_cp.sparse_diagnostics)
         else:
-            V_norm_sq, diagnostics = contract.norm_sq(V), cp.cp_diagnostics
+            V_norm_sq = contract.norm_sq(V, layout)
+
+            def diagnostics(*a):
+                return cp.cp_diagnostics(*a, layout=layout)
+        dim = V.shape[0] if layout is None else layout.orig_shape[0]
+        mesh = None if layout is None else layout.mesh
         clock = SweepClock()
         opt = self.optimizer
         macro = macro and hasattr(opt, "step_cycle")
@@ -544,10 +600,10 @@ class CPD(Decomposition):
                         "cp.diagnostics", diagnostics, V_norm_sq, V,
                         opt.W, opt._lam(opt.W[0].dtype))
                     self.gradnorm, diffV = float(gn), float(dV)
-                dtime = clock.dtime()
+                dtime = collectives.agreed_dtime(clock, mesh, opt.W[0].device)
                 if plot is not None:
-                    plot.row(V.shape[0], sweeps, self.gradnorm, tol, 0,
-                             diffV, dtime)
+                    plot.row(dim, sweeps, self.gradnorm, tol, 0, diffV,
+                             dtime)
                 history.append(dict(sweeps=sweeps, gradnorm=self.gradnorm,
                                     diffV=diffV, dtime=dtime))
                 if self.gradnorm < tol or dtime > timelimit:

@@ -156,14 +156,21 @@ class ChainTreeSweep:
     factor. Node axes: the remaining positions' modes in *position order*,
     then the rank axis. ``top`` presets the first level (the LR
     optimizers' cached tensor, cp_dt_lr_optimizer.cxx:95-100).
+
+    ``layout`` (parallel/mesh.py): V and the factors are this rank's
+    blocks. The top and every inner node stay partial sums over the
+    sharded modes they contracted (the top over a sharded hold-out), and
+    only a leaf is summed, over the axes of the sharded modes other than
+    its own, as :class:`BinaryTreeSweep` sums its leaves.
     """
 
     def __init__(self, V, factors: Sequence, indexes: Sequence[int],
-                 left_index: int, top=None):
+                 left_index: int, top=None, layout=None):
         self.V = V
         self.factors = list(factors)
         self.indexes = list(indexes)
         self.left_index = left_index
+        self.layout = layout
         n = V.ndim - 1
         self.parent, self.contract_pos = chain_tree(n)
         self._top = tuple(range(n))
@@ -202,4 +209,5 @@ class ChainTreeSweep:
 
     def mttkrp(self, pos: int):
         """M of the mode at tree position ``pos`` (leaf node (pos,))."""
-        return self.node((pos,))
+        return collectives.reduce_modes([self.node((pos,))], self.layout,
+                                        (self.indexes[pos],))[0]

@@ -20,8 +20,14 @@ matrices S are tiny (R x R), so they are solved on the device with
                              unfolding and their column signs
                              (als_Tucker.cxx:12-23, 632-643).
 
-None of them synchronizes with the host: where the JAX package branches
-with ``lax.cond`` the port selects with ``torch.where``.
+Where the JAX package branches with ``lax.cond`` the port selects with
+``torch.where``, so no branch reads a value back. The factorizations do
+synchronize on a CUDA device: ``torch.linalg.eigh`` and
+``torch.linalg.svd`` document that they synchronize the device with the
+CPU (their error check reads ``info`` back), so every
+``svd_solve`` (``_psd_pinv``), ``truncated_eigh`` and ``truncated_svd``
+waits for the card; ``cholesky_ex`` does not, and neither do the
+Cholesky solves.
 """
 
 from __future__ import annotations
@@ -176,31 +182,45 @@ def sign_match(U, W_ref, layout=None, mode: int = None):
     return U * torch.where(d > 0, 1.0, -1.0).to(U.dtype)
 
 
-def randomized_svd(A, r: int, X, n_iter: int = 1):
+def randomized_svd(A, r: int, X, n_iter: int = 1, layout=None,
+                   mode: int = None):
     """Randomized range-finder truncated SVD (common.cxx:691-708).
     Returns (U[m, r], s[r], VT[r, n]).
 
     ``X`` is the (n, r) uniform test matrix. The JAX package draws it from
     ``jax.random`` inside; torch cannot reproduce those bits, so callers
     draw it (the optimizers from a seeded CPU ``torch.Generator``) and a
-    parity test can pass in the JAX package's draw."""
+    parity test can pass in the JAX package's draw.
+
+    ``layout``: A is this rank's row block of the factor of ``mode``. Each
+    power iteration's ``A^T (A Q)`` is summed over the rows (one
+    all_reduce where the mode is sharded), so every rank takes the same
+    n x r QR; U is this rank's rows."""
     Q, _ = torch.linalg.qr(X.to(A.dtype))
     for _ in range(n_iter):
         # X = A^T A Q  (power iteration on the Gram)
-        Q, _ = torch.linalg.qr(A.T @ (A @ Q))
-    U, s, VT_small = truncated_svd(A @ Q, r)
+        Q, _ = torch.linalg.qr(collectives.row_sum(
+            [A.T @ (A @ Q)], [mode], layout)[0])
+    U, s, VT_small = truncated_svd(A @ Q, r, layout, mode)
     return U, s, VT_small @ Q.T
 
 
-def truncated_svd(A, r: int):
+def truncated_svd(A, r: int, layout=None, mode: int = None):
     """Exact truncated SVD. Tall matrices (m >= 4n, as the LR kit's dW of
     shape (s_i, R)) take the Gram-eigh route: G = A^T A is n x n and
     U = A V diag(1/sigma), the same leading factors, as the JAX package
     computes them; the rest take ``torch.linalg.svd``. Column signs may
-    differ from the JAX package's; (U s) VT does not."""
-    m, n = A.shape
+    differ from the JAX package's; (U s) VT does not.
+
+    ``layout``: A is this rank's row block of the factor of ``mode``; m is
+    the padded global row count (the JAX package's route). The Gram is
+    summed over the rows; the other route takes ``torch.linalg.svd`` of
+    the rows gathered whole, and each rank keeps its own rows of U."""
+    m = A.shape[0] if layout is None else layout.padded_shape[mode]
+    n = A.shape[1]
     if m >= 4 * n:
-        lam, Q = torch.linalg.eigh(A.T @ A)
+        G = collectives.row_sum([A.T @ A], [mode], layout)[0]
+        lam, Q = torch.linalg.eigh(G)
         lam, Q = lam.flip(0)[:r], Q.flip(1)[:, :r]
         floor = torch.finfo(A.dtype).eps * torch.clamp(lam[0], min=1e-30) * n
         sigma = torch.sqrt(torch.clamp(lam, min=0.0))
@@ -208,28 +228,36 @@ def truncated_svd(A, r: int):
                           1.0 / torch.clamp(sigma, min=1e-30),
                           torch.zeros_like(sigma))
         return (A @ Q) * inv[None, :], sigma, Q.T
-    U, s, VT = torch.linalg.svd(A, full_matrices=False)
+    U, s, VT = torch.linalg.svd(collectives.gather_rows(A, mode, layout),
+                                full_matrices=False)
+    if collectives.is_sharded(layout, mode):
+        lo, hi = layout.span(mode)
+        U = U[lo:hi]
     return U[:, :r], s[:r], VT[:r, :]
 
 
-def rankR_update_cholesky(M, A, S, r: int, X=None):
+def rankR_update_cholesky(M, A, S, r: int, X=None, layout=None,
+                          mode: int = None):
     """Rank-``r`` factorization (U, s, VT) of dW = M pinv(S) - A
     (``get_rankR_update_cholesky``, common.cxx:768-786), dW computed by a
     Cholesky solve of M - A S, then truncated: by :func:`randomized_svd`
-    with the test matrix ``X`` when one is given, else exactly."""
+    with the test matrix ``X`` when one is given, else exactly.
+    ``layout``: M and A are this rank's row blocks of the factor of
+    ``mode`` (S is whole), and so is U."""
     dW = cholesky_solve(M - A @ S, S)
     if X is not None:
-        return randomized_svd(dW, r, X, n_iter=1)
-    return truncated_svd(dW, r)
+        return randomized_svd(dW, r, X, n_iter=1, layout=layout, mode=mode)
+    return truncated_svd(dW, r, layout, mode)
 
 
-def rankR_update_svd(M, A, S, r: int, X=None):
+def rankR_update_svd(M, A, S, r: int, X=None, layout=None,
+                     mode: int = None):
     """:func:`rankR_update_cholesky` whitened through the eigendecomposition
     of S instead (common.cxx:788-813)."""
     dW = (M - A @ S) @ _psd_pinv(S)
     if X is not None:
-        return randomized_svd(dW, r, X, n_iter=1)
-    return truncated_svd(dW, r)
+        return randomized_svd(dW, r, X, n_iter=1, layout=layout, mode=mode)
+    return truncated_svd(dW, r, layout, mode)
 
 
 def gauss_seidel(A, F, Gamma, maxits: int):

@@ -55,6 +55,24 @@ backend, device, its kernels' launch counts, and per task:
   ``dt_hosvd_max`` sets tucker.HOSVD_EXACT_EIGH_MAX for this task
   alone): ``tucker.als_tucker_pp`` with ``mesh_layout``, the same
   records and its core (``dtk_*/<dtype>``);
+- ``drun`` (``dr_V`` or ``dr_vfile``, factors ``dr_W<i>``, ``dr_runs``: a
+  JSON list of runs, each ``tag``, ``pp`` (run's -pp), ``steps`` (or
+  ``maxiter`` and ``resprint``: the whole ``cli.run_cpd``, whose history
+  is kept as ``run_hist/<dtype>/<tag>``), and optionally ``opts``
+  (cli.run_optimizer's options), ``lam``, ``macro`` (step_cycle),
+  ``each`` (record every step's factors) and ``config`` (config
+  overrides); ``dr_lefts``: the hold-outs of one
+  ``optimizers.msdt_cycle``; ``dr_svd``: a JSON list of low-rank kit
+  checks, each ``name``, ``A`` (the key of a whole matrix, cut into this
+  rank's rows of mode ``mode``), ``r`` and ``X`` (the key of the
+  randomized SVD's test matrix, or null for the exact truncation)): the
+  run optimizers on this rank's block with ``configure(..., layout)``,
+  their factors gathered whole (padded) at the end (``run/<dtype>/<tag>
+  /W/<m>``) and with ``each`` after every step (``.../<step>/<m>``),
+  scope statistics, wall seconds, kernel launches and peak device memory;
+  the cycle's factors
+  (``cycle/<dtype>/<m>``); each check's (U s) VT gathered whole
+  (``svd/<dtype>/<name>``);
 - ``cli`` (``cli_argv``, a JSON list of argument lists, and optionally
   ``cli_config``, a JSON list of config overrides, one a run, and
   ``io_shapes``, utils/io.py's dataset file shapes to use): ``cli.main``
@@ -550,6 +568,92 @@ def _dtucker_runs(data, res, mesh, dtypes, device):
         res.put(f"dtk_core/{d}", r.core, keep=True)
 
 
+def _drun_one(spec, Vb, Wb, layout, device, record):
+    """One ``drun`` run: with ``maxiter``, ``cli.run_cpd`` (run's ALS loop,
+    a diagnostics row every ``resprint`` steps); else ``steps`` steps of
+    the optimizer, ``record(k, factors)`` after each with ``each``.
+    Returns (factors, history rows (sweeps, gradnorm, diffV) or None, wall
+    seconds, scope statistics, kernel launches)."""
+    from pairwise_perturbation_tpu_torch import cli
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    opts, macro = spec.get("opts", {}), spec.get("macro", False)
+    if "maxiter" in spec:
+        model, wall, stats, launches = _run_counted(lambda: cli.run_cpd(
+            Vb, list(Wb), spec["pp"], tol=0.0, maxiter=spec["maxiter"],
+            resprint=spec.get("resprint", 1), lam=spec.get("lam", 0.0),
+            macro=macro, layout=layout, **opts), device)
+        return (model.W, _history(model.history,
+                                  ("sweeps", "gradnorm", "diffV")),
+                wall, stats, launches)
+    o = cli.run_optimizer(spec["pp"], Vb.ndim, Wb[0].shape[1], **opts)
+    o.configure(Vb, list(Wb), spec.get("lam", 0.0), layout)
+    fn = o.step_cycle if macro else o.step
+    scope = f"{type(o).__name__}.{fn.__name__}"
+
+    def run():
+        for k in range(spec["steps"]):
+            tracing.timed(scope, fn)
+            if spec.get("each"):
+                record(k, o.W)
+
+    _, wall, stats, launches = _run_counted(run, device)
+    return o.W, None, wall, stats, launches
+
+
+def task_drun(data, res, mesh, dtypes, device):
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import optimizers as opt
+    from pairwise_perturbation_tpu_torch.ops import solve
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    runs = json.loads(str(data["dr_runs"])) if "dr_runs" in data else []
+    for dtype in dtypes:
+        d = _dtype_name(dtype)
+        layout, Vb, Wb, _, _ = _dense_inputs(data, "dr_", mesh, dtype,
+                                             device, False)
+        order = Vb.ndim
+
+        def put(key, Ws):
+            for m, W in enumerate(Ws):
+                res.put(f"{key}/{m}", _whole(W, [(0, m)], layout), keep=True)
+
+        if "dr_lefts" in data:
+            put(f"cycle/{d}", opt.msdt_cycle(
+                Vb, list(Wb), 0.0, lefts=tuple(int(x) for x in
+                                               data["dr_lefts"]),
+                layout=layout)[0])
+        for spec in runs:
+            tag = spec["tag"]
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            with config.override(**spec.get("config", {})):
+                W, hist, wall, stats, launches = _drun_one(
+                    spec, Vb, Wb, layout, device,
+                    lambda k, Ws: put(f"run/{d}/{tag}/{k}", Ws))
+            put(f"run/{d}/{tag}/W", W)
+            if hist is not None:
+                res.put(f"run_hist/{d}/{tag}", hist, keep=True)
+            res.meta(f"run_stats/{d}/{tag}", stats)
+            res.meta(f"run_wall/{d}/{tag}", wall)
+            res.meta(f"run_launches/{d}/{tag}", json.dumps(launches))
+            res.meta(f"run_peak/{d}/{tag}",
+                     torch.cuda.max_memory_allocated(device)
+                     if device.type == "cuda" else 0)
+        for chk in json.loads(str(data["dr_svd"])) if "dr_svd" in data \
+                else ():
+            m, A = chk["mode"], data[chk["A"]]
+            Ab = pmesh._padded_block(A, [layout.span(m), (0, A.shape[1])],
+                                     device, None).to(dtype)
+            if chk["X"] is None:
+                U, sv, VT = solve.truncated_svd(Ab, chk["r"], layout, m)
+            else:
+                X = torch.from_numpy(data[chk["X"]]).to(dtype).to(device)
+                U, sv, VT = solve.randomized_svd(Ab, chk["r"], X,
+                                                 layout=layout, mode=m)
+            res.put(f"svd/{d}/{chk['name']}",
+                    _whole((U * sv) @ VT, [(0, m)], layout), keep=True)
+
+
 def _cli_runs(data, res):
     """cli.main of each ``cli_argv`` entry, under its ``cli_config``
     overrides; exit codes and kernel launches per run."""
@@ -579,7 +683,7 @@ def main(argv=None) -> int:
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--tasks", default="functions",
                     help="comma-separated: functions, cp, tucker, als, "
-                         "dense, dfunctions, dcp, dtucker, cli")
+                         "dense, dfunctions, dcp, dtucker, drun, cli")
     ap.add_argument("--dtypes", default="float64,float32")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--arrays", action="store_true",
@@ -618,13 +722,14 @@ def main(argv=None) -> int:
             task_als(data, res, mesh, device)
         if "dense" in tasks:
             task_dense(data, res, device)
-        dense = [t for t in ("dfunctions", "dcp", "dtucker") if t in tasks]
+        dense = [t for t in ("dfunctions", "dcp", "dtucker", "drun")
+                 if t in tasks]
         if dense:
             dmesh = pmesh.make_mesh(tuple(int(s) for s in data["dd_mesh"]),
                                     device_type=device.type)
             res.meta("coordinate", dmesh.get_coordinate())
             tasks_of = {"dfunctions": task_dfunctions, "dcp": task_dcp,
-                        "dtucker": task_dtucker}
+                        "dtucker": task_dtucker, "drun": task_drun}
             for t in dense:
                 tasks_of[t](data, res, dmesh, dtypes, device)
         if "cli" in tasks:

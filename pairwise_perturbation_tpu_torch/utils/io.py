@@ -23,16 +23,17 @@ permute for), and so do both packages' checkpoints.
 
 ``read_dense_sharded`` is the per-rank read of the parallel layer
 (parallel/mesh.py): each rank reads only its block's span of the file and
-returns it as a tensor. No path calls it yet: the dense engines' ``-mesh``
-(with the sharded o1/o2 load of JAX cli.py:80-110) waits for ROADMAP
-A15's dense half. Not copied: ``build_coil100_binary`` /
-``build_time_lapse_binary``, which convert the downloaded PNG and MAT
-files of the datasets (none is in the repository).
+returns it as a tensor; ``-mesh`` with ``-tensor o1/o2`` reads V through
+it (cli._load_tensor_sharded, as JAX cli.py:80-110 loads it).
+``build_coil100_binary`` / ``build_time_lapse_binary`` convert the
+downloaded PNG and MAT files of the datasets into those binaries (PIL and
+scipy imported when called, as in the JAX package).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -121,6 +122,41 @@ def load_coil100(path: str = "coil-100.bin", out_dtype=np.float32):
 def load_time_lapse(path: str = "time-lapse.bin", out_dtype=np.float32):
     """-> (33, 1344, 1024, 9): (band, col, row, time)."""
     return _load_ctf_ordered(path, TIME_LAPSE_FILE_SHAPE, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dataset builders (replacements for script/imageloader.py, script/matloader.py)
+# ---------------------------------------------------------------------------
+
+
+def build_coil100_binary(png_dir: str, out_path: str = "coil-100.bin"):
+    """PNG directory -> float64 binary of shape (7200, 128, 128, 3)
+    (imageloader.py:26-31). Requires PIL."""
+    from PIL import Image  # gated: PIL is optional
+    files = sorted(f for f in os.listdir(png_dir) if f.endswith(".png"))
+    arr = np.zeros((len(files), 128, 128, 3), dtype=np.float64)
+    for i, f in enumerate(files):
+        img = Image.open(os.path.join(png_dir, f)).convert("RGB")
+        arr[i] = np.asarray(img.resize((128, 128)), dtype=np.float64)
+    arr.tofile(out_path)
+    return out_path
+
+
+def build_time_lapse_binary(mat_dir: str, out_path: str = "time-lapse.bin"):
+    """9 .mat HSI files -> float64 binary (9, 1024, 1344, 33)
+    (matloader.py:1-45). Requires scipy."""
+    from scipy.io import loadmat  # gated: scipy is optional
+    files = sorted(f for f in os.listdir(mat_dir) if f.endswith(".mat"))
+    out = None
+    for i, f in enumerate(files):
+        m = loadmat(os.path.join(mat_dir, f))
+        key = [k for k in m if not k.startswith("__")][0]
+        data = np.asarray(m[key], dtype=np.float64)
+        if out is None:
+            out = np.zeros((len(files),) + data.shape, dtype=np.float64)
+        out[i] = data
+    out.tofile(out_path)
+    return out_path
 
 
 # ---------------------------------------------------------------------------

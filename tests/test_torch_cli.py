@@ -71,13 +71,16 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,step", [
     (["run", "-issparse", "1", "-resume", "ck.npz"], "reads no checkpoint"),
-    (["pp_bench", "-model", "Tucker", "-device_loop", "1"], "A14"),
+    (["pp_bench", "-model", "Tucker", "-device_loop", "1"],
+     "ignores the flag"),
     (["-issparse", "1", "-model", "Tucker", "-resume", "ck.npz"],
      "reads no checkpoint"),
-    (["run", "-mesh", "4"], "A15"),
-    (["-issparse", "1", "-model", "Tucker", "-device_loop", "1"], "A14"),
+    (["run", "-mesh", "4"], "nproc_per_node 4"),
+    (["-issparse", "1", "-model", "Tucker", "-device_loop", "1"],
+     "ignores the flag"),
     (["-mesh", "4"], "A15"),
-    (["-device_loop", "1"], "A14"), (["-device_loop", "2"], "A14"),
+    (["-device_loop", "1"], "ignores the flag"),
+    (["-pp", "1", "-device_loop", "2"], "A14"),
     (["-layouts", "1"], "A16"),
     (["pp_bench", "-resume", "ck.npz"], "reads no checkpoint"),
     (["-issparse", "1", "-resume", "ck.npz"], "reads no checkpoint"),
@@ -92,6 +95,50 @@ def test_cli_refuses_unported_features(argv, step):
         argv = ["test_als", "-device", "cpu"] + argv
     with pytest.raises(SystemExit, match=step):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv,match", [
+    # where the JAX package ignores -device_loop, the refusal says so
+    (["pp_bench", "-device_loop", "1"], "pp_bench times host-driven sweeps"),
+    (["test_als", "-pp", "0", "-device_loop", "1"],
+     "-pp 0 runs the host-driven engine; the JAX package ignores"),
+    (["test_als", "-pp", "2", "-device_loop", "1"],
+     "-pp 2 runs the host-driven engine; the JAX package ignores"),
+    (["test_als", "-issparse", "1", "-pp", "1", "-device_loop", "1"],
+     "sparse engines .* the JAX package ignores"),
+    (["test_als", "-model", "Tucker", "-pp", "0", "-device_loop", "2"],
+     "Tucker -pp 0 .* the JAX package ignores"),
+    # where the JAX package has an engine the port lacks: A14's rest
+    (["test_als", "-pp", "1", "-device_loop", "2"],
+     "fused machine.*ROADMAP A14's rest"),
+    (["test_als", "-model", "Tucker", "-pp", "1", "-device_loop", "1"],
+     "for Tucker .*ROADMAP A14's rest"),
+    (["test_als", "-pp", "1", "-device_loop", "1", "-mesh", "2"],
+     "mesh half.*ROADMAP A14's rest"),
+])
+def test_cli_device_loop_refusals_follow_jax(argv, match):
+    """-device_loop >= 1 where the port has no device-resident engine:
+    each refusal says whether the JAX package ignores the flag there or
+    names the ROADMAP step that brings the engine."""
+    with pytest.raises(SystemExit, match=match):
+        cli.main(argv + ["-device", "cpu"])
+
+
+def test_cli_device_loop_runs_cp_pp1(tmp_path):
+    """test_als -pp 1 -device_loop 1 runs the device-resident engine (its
+    phase scopes) and writes PP rows."""
+    tracing.reset()
+    try:
+        rc, rows = _run(tmp_path, "-pp", "1", "-device_loop", "1",
+                        "-profile", "1")
+    finally:
+        tracing.enable(False)
+    assert rc == 0
+    assert {r[4] for r in rows[1:]} == {"0", "1"}
+    stats = tracing.stats()
+    assert stats["cp.dt_phase_device"][0] > 0
+    assert stats["cp.pp_phase_device"][0] > 0
+    assert "cp.dt_sweep" not in stats
 
 
 def test_cli_cuda_device_required(tmp_path):

@@ -129,6 +129,38 @@ def test_dataset_loaders_match_original(tmp_path, small_datasets, loader,
         assert got.flags.c_contiguous
 
 
+@pytest.mark.parametrize("kind", ["coil100", "time_lapse"])
+def test_dataset_builders_write_the_same_bytes(tmp_path, kind):
+    """build_coil100_binary (PNGs of other sizes and modes, resized to
+    128 x 128 RGB) and build_time_lapse_binary (.mat files, one array
+    each) write the JAX package's bytes from the same small files."""
+    rng = np.random.default_rng(5)
+    src = tmp_path / "src"
+    src.mkdir()
+    if kind == "coil100":
+        from PIL import Image
+        for i, (size, mode) in enumerate([((20, 16), "RGB"),
+                                          ((128, 128), "RGB"),
+                                          ((33, 40), "L")]):
+            shape = size[::-1] + ((3,) if mode == "RGB" else ())
+            Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8),
+                            mode).save(src / f"obj{i}__0.png")
+        (src / "notes.txt").write_text("not an image")
+    else:
+        from scipy.io import savemat
+        for i in range(3):
+            savemat(src / f"scene_{i}.mat", {"hsi": rng.random((4, 5, 6))})
+    build = f"build_{kind}_binary"
+    outs = [str(tmp_path / f"{who}.bin") for who in ("jax", "port")]
+    assert getattr(jio, build)(str(src), outs[0]) == outs[0]
+    assert getattr(tio, build)(str(src), outs[1]) == outs[1]
+    with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+        want, got = a.read(), b.read()
+    assert got == want
+    assert len(got) == 8 * (3 * 128 * 128 * 3 if kind == "coil100"
+                            else 3 * 4 * 5 * 6)
+
+
 def test_checkpoint_files_load_in_either_package(tmp_path):
     rng = np.random.default_rng(2)
     factors = [rng.random((s, 3)) for s in (4, 5, 6)]

@@ -421,15 +421,16 @@ def test_cli_mesh_csv_matches_unsharded(tmp_path, model):
     (["test_als", "-issparse", "1", "-mesh", "2x1"], "on a 1D mesh"),
     (["run", "-issparse", "1", "-mesh", "2"], "on a 1D mesh"),
     (["test_als", "-mesh", "2"], "torchrun --standalone --nproc_per_node 2"),
-    (["run", "-mesh", "2"], "A15, `run` half"),
+    (["run", "-mesh", "2"], "torchrun --standalone --nproc_per_node 2"),
     (["pp_bench", "-mesh", "2x2"], "world of 1: launch 4 ranks"),
-    (["test_als", "-mesh", "2", "-device_loop", "1"], "ROADMAP A14"),
-    (["pp_bench", "-mesh", "2", "-device_loop", "2"], "ROADMAP A14"),
+    (["test_als", "-mesh", "2", "-pp", "1", "-device_loop", "1"],
+     "ROADMAP A14"),
+    (["pp_bench", "-mesh", "2", "-device_loop", "2"], "ignores the flag"),
 ])
 def test_cli_mesh_refusals(argv, match):
-    """What -mesh refuses, each naming its ROADMAP step, and the dense
-    engines' -mesh (accepted since A15's dense half) outside torchrun,
-    which says how to launch it."""
+    """What -mesh refuses, each naming its ROADMAP step or saying that the
+    JAX package ignores the flag, and the dense engines' and run's -mesh
+    (accepted since A15) outside torchrun, which says how to launch it."""
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["-device", "cpu"])
 

@@ -805,13 +805,14 @@ def test_pp_bench_tucker_factors_match_jax(rng):
 
 
 @pytest.mark.parametrize("argv,step", [
-    (["-model", "Tucker", "-device_loop", "1"], "A14"),
+    (["-model", "Tucker", "-pp", "1", "-device_loop", "1"], "A14"),
     (["-model", "Tucker", "-layouts", "1"], "A16"),
     (["-model", "Tucker", "-resume", "ck.npz"], "reads no checkpoint"),
     (["-model", "Tucker", "-mesh", "4"], "A15"),
     (["-model", "Tucker", "-tensor", "o1", "-tensorfile", "missing.bin"],
      "not a float64 binary"),
-    (["pp_bench", "-model", "Tucker", "-device_loop", "1"], "A14"),
+    (["pp_bench", "-model", "Tucker", "-device_loop", "1"],
+     "ignores the flag"),
 ])
 def test_cli_tucker_refusals_name_their_step(argv, step):
     if argv[0] == "pp_bench":
