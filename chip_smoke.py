@@ -261,6 +261,31 @@ traceback and exits nonzero:
    device phase.
    ``--phases 14`` runs phases 1, 2 and 14 alone.
 
+15. The fused machines (``-device_loop 2``), Tucker's device engines and
+   the ported bench_pp_e2e, f32. Rows of the three engines are held to
+   the fused run's (rows_beside_fused: the fused row L is the state after
+   L sweeps; the host engine's row L the same state, its flag one row
+   earlier; the phase engine's row L the fused row L + 1): where the
+   flags agree, factors bit for bit, else the fit.
+   15a. test_als -model CP -pp 1 at 200^3 rank 10, -device_loop 0, 1 and
+   2 from the same factors: rows, final factors (-checkpoint), K1-K3
+   1/1/2 a logged row (and the fused engine's final exact call),
+   [dtime], body steps by kind, pulls a sweep, -profile scope medians.
+   15b. The coil shape under use_kernels_triple, cp.als_cp_pp against
+   cp.als_cp_pp_fused: K6 and K5 once a cache build; rows and factors,
+   or the fit within DEVICE_LOOP_COIL_DIFFV.
+   15c. Tucker -device_loop 0, 1 and 2 at the coil shape, ranks (3, 10,
+   10, 70), and through the 200^3 CLI (tensor r2): rows beside the fused
+   run's, fits by a float64 reconstruction no worse than HOSVD's, the
+   phase and fused engines' factors bit for bit where their decisions
+   agree, no port kernel launched.
+   15d. One chunk of each fused machine at 200^3 under
+   set_sync_debug_mode("warn"): syncs a body step by source, pulls.
+   15e. bench_pp_e2e --quick into a temporary directory: DT and PP times
+   to the target, the rule, pp_row_fraction; finite rows asserted, no
+   claim on the speed-up.
+   ``--phases 15`` runs phases 1, 2 and 15 alone.
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -3970,6 +3995,423 @@ def run_phase14(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the fused machines (test_als -device_loop 2), Tucker's device
+# engines and bench_pp_e2e
+# ---------------------------------------------------------------------------
+
+# Body steps of 15d's single chunks (DT steps, a cache build, PP steps).
+FUSED_PROBE_CHUNK = 24
+FUSED_STEPS = ("cp.fused_dt_step", "cp.fused_build_step", "cp.fused_pp_step",
+               "cp.diagnostics")
+# 15c's Tucker runs: 20 sweeps from HOSVD, every row logged.
+TUCKER_DEVICE_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=1)
+
+
+def hist_rows(history, metric):
+    """An engine's history as CSV-like rows (values by repr, as the CSV
+    writes them; no dim, tol or dtime)."""
+    return [["header"]] + [["", str(h["iter"]), repr(h[metric]), "",
+                            str(h["pp"]), repr(h["diffV"]), ""]
+                           for h in history]
+
+
+# Why the engines' decisions may part, by model: CP's guard floor is
+# seeded with the DT gradnorm in the fused machine and the host engine
+# (which reads the last DT sweep's gradnorm first) and at inf in the
+# phase engine; the fused Tucker machine caps a PP phase at 15 sweeps,
+# the host and phase engines do not.
+PART_REASONS = {
+    "CP": "the fused machine and the host engine seed the PP guard's floor "
+          "with the DT gradnorm, the phase engine at inf: JAX "
+          "cp.py:1150-1156",
+    "Tucker": "the fused Tucker machine caps a PP phase at 15 sweeps (JAX "
+              "tucker.py:1081), the host and phase engines do not"}
+
+
+def rows_beside_fused(label, rows, model="CP"):
+    """Hold -device_loop 0's and 1's rows ({loop: CSV rows}) to 2's. The
+    fused row L is the state after L sweeps, flagged by the sweep that
+    made it; the host engine's row L is the same state, flagged by the
+    phase about to run (so its flag at L - 1 is the fused one at L); the
+    phase engine's row L is the state after L + 1 sweeps, flagged as the
+    fused row L + 1. The decisions agree while the flags do; prints, for
+    each engine, the rows compared, the largest relative difference of
+    their two value columns and the first row whose flag parts (returned,
+    None where none does)."""
+    fused = {int(float(r[1])): r for r in rows["2"][1:]}
+    parted = {}
+    for loop, shift in (("0", 0), ("1", 1)):
+        if loop not in rows:
+            continue
+        body = rows[loop][1:]
+        by = {int(float(r[1])): r for r in body}
+        first, n, rel = None, 0, 0.0
+        for r in body:
+            it = int(float(r[1]))
+            want = fused.get(it + shift)
+            if want is None:
+                continue
+            if want[4] != (r[4] if shift else by.get(it - 1, want)[4]):
+                first = (it, r, want)
+                break
+            n += 1
+            for c in (2, 5):
+                a, b = float(r[c]), float(want[c])
+                if a != b:
+                    rel = max(rel, abs(a - b) / max(abs(b), 1e-300))
+        if first is None and n < len(body) - 1:
+            raise AssertionError(f"{label}: -device_loop {loop} has "
+                                 f"{len(body)} rows, {n} beside the fused")
+        parted[loop] = first
+        line = (f"{label}: -device_loop {loop} beside 2: {n} rows with the "
+                f"same decisions, values at most {rel:.3e} apart")
+        if first is not None:
+            it, r, want = first
+            line += (f"; parts at its row {it}: {r[1:6]} against the fused "
+                     f"row {want[1:6]} (from there other decisions; a "
+                     f"likely reason: {PART_REASONS[model]})")
+        print(line)
+    return parted
+
+
+def fused_cp_cli(tmp, smi):
+    """15a: the 200^3 CLI, f32, -device_loop 0, 1 and 2 from the same
+    factors (each after a 3-sweep warm-up): the rows beside the fused
+    run's, final factors bit for bit where no row parts (else the last
+    diffV within DEVICE_LOOP_COIL_DIFFV of the host engine's), K1-K3 1/1/2
+    a logged row plus the final call; each engine again in reverse order
+    (its [dtime], its rows unchanged); then -profile runs for ms a body
+    step. Returns K1-K3's launches of the first runs."""
+    import numpy as np
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
+    from pairwise_perturbation_tpu_torch.utils import io, tracing
+    rows, factors, launches, counts = {}, {}, {}, {}
+    for loop in ("0", "1", "2"):
+        argv = DEVICE_LOOP_CLI + ["-device_loop", loop]
+        cli_csv(argv + ["-maxiter", "3"], os.path.join(tmp, "warm.csv"))
+        mttkrp3.reset_launch_counts()
+        cp.reset_device_loop_counts()
+        ck = os.path.join(tmp, f"f{loop}")
+        rows[loop] = cli_csv(argv + ["-maxiter", "40", "-checkpoint", ck],
+                             os.path.join(tmp, f"f{loop}.csv"))
+        check_csv(rows[loop], f"15a test_als -pp 1 -device_loop {loop} "
+                  "200^3 f32")
+        factors[loop] = io.load_checkpoint(ck + ".npz")["factors"]
+        launches[loop] = [mttkrp3.LAUNCHES[m] for m in range(3)]
+        counts[loop] = dict(cp.DEVICE_LOOP_COUNTS)
+    parted = rows_beside_fused("15a 200^3", rows)
+    dist = {loop: max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                      for a, b in zip(factors[loop], factors["2"]))
+            for loop in ("0", "1")}
+    print("15a final factors against the fused run's: " + ", ".join(
+        f"-device_loop {k} {d:.3e}" for k, d in dist.items())
+        + "; [dtime] at the last row: " + ", ".join(
+            f"-device_loop {k} {rows[k][-1][6]} s ({rows[k][-1][1]})"
+            for k in rows) + f" ({smi})")
+    for loop, first in parted.items():
+        if first is None and dist[loop] != 0.0:
+            raise AssertionError(f"15a: the same rows, other factors "
+                                 f"(-device_loop {loop})")
+        if first is not None:
+            a, b = float(rows["2"][-1][5]), float(rows[loop][-1][5])
+            print(f"15a -device_loop {loop}: last diffV {b!r}, fused {a!r}")
+            if not abs(a - b) <= DEVICE_LOOP_COIL_DIFFV * b:
+                raise AssertionError("15a: other decisions and another fit")
+    for loop in rows:
+        n = len(rows[loop]) - 1 + (loop == "2")
+        want = [n, n, 2 * n]
+        print(f"15a -device_loop {loop}: K1-K3 launches {launches[loop]} "
+              f"(expected {want}: 1/1/2 a logged row"
+              + (", and the final exact call)" if loop == "2" else ")"))
+        if launches[loop] != want:
+            raise AssertionError(f"15a: K1-K3 {launches[loop]}")
+    # [dtime] again in turns (fused, phase, host), the same rows
+    for loop in ("2", "1", "0"):
+        again = cli_csv(DEVICE_LOOP_CLI + ["-device_loop", loop, "-maxiter",
+                                           "40"],
+                        os.path.join(tmp, "again.csv"))
+        print(f"15a -device_loop {loop} again: [dtime] at the last row "
+              f"{again[-1][6]} s ({smi})")
+        if [r[:6] for r in again] != [r[:6] for r in rows[loop]]:
+            raise AssertionError(f"15a -device_loop {loop}: a rerun "
+                                 "changed the rows")
+    c = counts["2"]
+    sweeps = c["fused_dt"] + c["fused_pp"]
+    print(f"15a fused body steps: DT {c['fused_dt']}, cache builds "
+          f"{c['fused_build']}, PP {c['fused_pp']} in {c['fused_chunks']} "
+          f"chunks; pulls {c['fused_pulls']} ({c['fused_pulls'] / sweeps:.2f}"
+          f" a sweep; the phase engine's {counts['1']['pulls'] / sweeps:.2f},"
+          " the host engine's 1 ratio pull a sweep)")
+    for loop, names in (("0", CP_PHASES), ("1", DEVICE_PHASES),
+                        ("2", FUSED_STEPS)):
+        tracing.reset()
+        cli_csv(DEVICE_LOOP_CLI + ["-device_loop", loop, "-maxiter", "40",
+                                   "-profile", "1"],
+                os.path.join(tmp, "profile.csv"))
+        tracing.enable(False)
+        print(f"15a -device_loop {loop} -profile 1 scope medians, ms "
+              f"({smi}): " + scope_line(tracing.stats(), names))
+    return {f"K{m + 1}": sum(l[m] for l in launches.values())
+            for m in range(3)}
+
+
+def fused_cp_coil(V, smi):
+    """15b: the coil shape, f32, use_kernels_triple: cp.als_cp_pp and
+    cp.als_cp_pp_fused from the same factors; K6 and K5 once a cache
+    build in each; the rows beside each other, and the same factors where
+    they never part, else the fit within DEVICE_LOOP_COIL_DIFFV. Returns
+    {kernel id: launches}."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config, native
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.scripts import _bench
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    split, _, _ = native.plan_tree_split_traffic(COIL_SHAPE, 10)
+    cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=1,
+                      tree_split=split)
+    out, launches = {}, {"K5": 0, "K6": 0}
+    for eng, fn in (("0", cp.als_cp_pp), ("2", cp.als_cp_pp_fused)):
+        Ws = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
+        with config.override(use_kernels_triple=True):
+            fn(V, [W.clone() for W in Ws], cp.CPConfig(
+                tol=0.0, pp_res_tol=0.1, maxiter=2, resprint=1,
+                tree_split=split))                      # warm
+            tracing.reset()
+            _bench.reset_launch_counts()
+            cp.reset_device_loop_counts()
+            tracing.enable()
+            t0 = time.perf_counter()
+            res = fn(V, Ws, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tracing.enable(False)
+        stats, counts = tracing.stats(), _bench.launch_counts()
+        c = dict(cp.DEVICE_LOOP_COUNTS)
+        builds = c["fused_build"] if eng == "2" else \
+            stats.get("cp.pp_cache_build", (0,))[0]
+        k6, k5 = counts["triple_roots.triple_roots"], \
+            counts["last_contract.last_contract"]
+        print(f"15b coil -device_loop {eng}: {len(res.history)} rows "
+              f"({sum(h['pp'] for h in res.history)} PP), {res.iters} sweeps "
+              f"in {wall:.3f} s ({smi}); K6 {k6}, K5 {k5}, cache builds "
+              f"{builds}; scope medians, ms: "
+              + scope_line(stats, CP_PHASES if eng == "0" else FUSED_STEPS))
+        if not k6 == k5 == builds > 0:
+            raise AssertionError(f"15b {eng}: K6 {k6}, K5 {k5}, builds "
+                                 f"{builds}")
+        launches["K6"] += k6
+        launches["K5"] += k5
+        out[eng] = res
+    rows = {e: hist_rows(r.history, "gradnorm") for e, r in out.items()}
+    parted = rows_beside_fused("15b coil", rows)["0"]
+    dist = factor_distance(out["0"].factors, out["2"].factors, False)
+    a, b = out["2"].diffV, out["0"].diffV
+    print(f"15b final factors {dist:.3e} apart; exact diffV of the final "
+          f"factors: host {b!r}, fused {a!r} ({abs(a - b) / b:.3e} apart)")
+    if parted is None and dist != 0.0:
+        raise AssertionError("15b: the same rows, other factors")
+    if parted is not None and not abs(a - b) <= DEVICE_LOOP_COIL_DIFFV * b:
+        raise AssertionError("15b: other decisions and a worse fit")
+    return launches
+
+
+# The scopes of Tucker's engines, by -device_loop.
+TUCKER_SCOPES = {
+    "0": TUCKER_PHASES,
+    "1": ("tucker.hosvd", "tucker.dt_phase_device", "tucker.pp_phase_device",
+          "tucker.pp_cache_build", "tucker.diagnostics"),
+    "2": ("tucker.hosvd", "tucker.fused_dt_step", "tucker.fused_build_step",
+          "tucker.fused_pp_step", "tucker.diagnostics")}
+
+
+def tucker_held(label, V, ranks, rows, factors):
+    """15c's checks: the rows ({loop: CSV rows}) beside the fused run's;
+    every engine's fit ({loop: factors}) by a float64 reconstruction no
+    worse than HOSVD's (F64_RECON_MARGIN); the phase and fused engines'
+    factors bit for bit where their decisions agree (both run maxiter + 1
+    sweeps; the host engine stops at maxiter)."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import tucker
+    parted = rows_beside_fused(label, rows, "Tucker")
+    start = direct_residual(V, tucker.hosvd(V, ranks)[1])
+    ends = {k: direct_residual(V, f) for k, f in factors.items()}
+    print(f"{label}: ||V - V^|| by float64 reconstruction, HOSVD {start!r}; "
+          + ", ".join(f"-device_loop {k} {e!r}" for k, e in ends.items()))
+    for k, e in ends.items():
+        if not e <= start * (1.0 + F64_RECON_MARGIN):
+            raise AssertionError(f"{label} -device_loop {k}: worse fit")
+    same = all(torch.equal(a, b) for a, b in zip(factors["1"],
+                                                  factors["2"]))
+    print(f"{label}: -device_loop 1 and 2 final factors bit for bit {same}")
+    if parted["1"] is None and not same:
+        raise AssertionError(f"{label}: the same decisions, other factors")
+
+
+def tucker_device_coil(smi):
+    """15c at the coil shape, ranks (3, 10, 10, 70), f32: phase 9a's
+    seeded low-Tucker-rank tensor plus 1% noise, the three engines from
+    HOSVD (each timed with its scopes, no port kernel launched)."""
+    from pairwise_perturbation_tpu_torch.models import tucker
+    V = low_tucker_rank_tensor(COIL_SHAPE, COIL_TUCKER_RANKS, seed=15)
+    rows, factors = {}, {}
+    for loop, fn in (("0", tucker.als_tucker_pp),
+                     ("1", tucker.als_tucker_pp_device),
+                     ("2", tucker.als_tucker_pp_fused)):
+        label = f"15c Tucker coil -device_loop {loop}"
+        start_tucker_trace()
+        t0 = time.perf_counter()
+        res = fn(V, COIL_TUCKER_RANKS, tucker.TuckerConfig(
+            **TUCKER_DEVICE_CFG))
+        wall = time.perf_counter() - t0
+        print(f"{label}: {len(res.history)} rows "
+              f"({sum(h['pp'] for h in res.history)} PP), {res.iters} "
+              f"sweeps in {wall:.3f} s")
+        tucker_report(label, smi, names=TUCKER_SCOPES[loop])
+        rows[loop] = hist_rows(res.history, "diffnorm")
+        factors[loop] = res.factors
+    tucker_held("15c Tucker coil", V, COIL_TUCKER_RANKS, rows, factors)
+
+
+def tucker_device_cli(tmp, smi):
+    """15c: the 200^3 Tucker CLI (tensor r2, -pp 1, f32) under
+    -device_loop 0, 1 and 2: CSVs checked, rows beside the fused run's,
+    fits by a float64 reconstruction of the -checkpoint factors."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.utils import io, synth
+    rows, factors = {}, {}
+    for loop in ("0", "1", "2"):
+        label = ("15c CLI test_als -model Tucker -tensor r2 -device_loop "
+                 f"{loop}")
+        start_tucker_trace()
+        ck = os.path.join(tmp, f"t{loop}")
+        rows[loop] = cli_csv(TUCKER_CLI + ["-tensor", "r2", "-pp", "1",
+                                           "-dtype", "float32",
+                                           "-device_loop", loop,
+                                           "-checkpoint", ck],
+                             os.path.join(tmp, f"t{loop}.csv"))
+        # the fused run's row 0 holds diffnorm inf (no earlier core norm),
+        # as the JAX engine's does
+        check_tucker_csv(rows[loop][:1] + rows[loop][1 + (loop == "2"):],
+                         label, pp=True, fit=False)
+        tucker_report(label, smi, names=TUCKER_SCOPES[loop])
+        factors[loop] = [torch.from_numpy(w).cuda() for w in
+                         io.load_checkpoint(ck + ".npz")["factors"]]
+    V = torch.from_numpy(synth.make_tensor("r2", 3, 200, 10, seed=0,
+                                           dtype=np.float32)).cuda()
+    tucker_held("15c CLI 200^3", V, (10, 10, 10), rows, factors)
+
+
+def fused_syncs(smi):
+    """15d: one chunk of FUSED_PROBE_CHUNK body steps of each fused
+    machine at 200^3 rank 10, f32, from its start (DT steps, a cache
+    build, PP steps), under count_syncs: syncs per body step by source,
+    the steps by kind and the pulls of the chunk; then the host loop's
+    pulls a chunk (history, ring count, labels: 3)."""
+    import numpy as np
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp, tucker
+    from pairwise_perturbation_tpu_torch.ops import contract
+    from pairwise_perturbation_tpu_torch.utils import synth
+    V = torch.from_numpy(synth.make_tensor("r", 3, 200, 10, seed=0,
+                                           dtype=np.float32)).cuda()
+    Ws = cp.init_factors(V.shape, 10, seed=0, device="cuda")
+    vn2 = contract.norm_sq(V)
+    V2 = torch.from_numpy(synth.make_tensor("r2", 3, 200, 10, seed=0,
+                                            dtype=np.float32)).cuda()
+    for name, make, step in (
+            ("CP", lambda: cp.pp_fused_init(V, Ws, 42, 12),
+             lambda c: cp.pp_fused_chunk(
+                 V, c, 0.0, 1.0, 0.1, 0.0, 40, 10.0,
+                 chunk=FUSED_PROBE_CHUNK, resprint=1, n_slots=12,
+                 V_norm_sq=vn2)),
+            ("Tucker", lambda: tucker.tucker_fused_init(
+                V2, tucker.hosvd(V2, (10, 10, 10))[1], (10, 10, 10), 42, 12,
+                0.3),
+             lambda c: tucker.tucker_fused_chunk(
+                 V2, c, 0.0, 40, 0.9, 5e-3, ranks=(10, 10, 10),
+                 chunk=FUSED_PROBE_CHUNK, resprint=1, n_slots=12))):
+        step(make())                                    # warm
+        carry = make()
+        cp.reset_device_loop_counts()
+        torch.cuda.synchronize()
+        _, syncs = count_syncs(lambda: step(carry))
+        c = cp.DEVICE_LOOP_COUNTS
+        steps = c["fused_dt"] + c["fused_build"] + c["fused_pp"]
+        print(f"15d fused {name} 200^3, one chunk of {steps} body steps "
+              f"(DT {c['fused_dt']}, build {c['fused_build']}, PP "
+              f"{c['fused_pp']}): syncs a body step "
+              f"{sync_line(syncs, steps)}; register pulls {c['fused_pulls']}"
+              " in the chunk (one a DT or PP step), and the host loop's 3 a "
+              f"chunk (history, ring count, labels) ({smi})")
+
+
+def run_bench_pp_e2e(tmp, smi):
+    """15e: the ported bench_pp_e2e --quick on the card, writing only
+    into ``tmp``: each config's DT and PP times to the target, the rule
+    and pp_row_fraction; asserts finite rows (no claim on the speed-up).
+    Returns {kernel id: launches} of the run."""
+    from pairwise_perturbation_tpu_torch.scripts import _bench, bench_pp_e2e
+    _bench.reset_launch_counts()
+    out = os.path.join(tmp, "e2e")
+    t0 = time.perf_counter()
+    if bench_pp_e2e.main(["--quick", "--out", out]) != 0:
+        raise AssertionError("bench_pp_e2e --quick failed")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "pp_e2e.json")) as fh:
+        entries = json.load(fh)
+    for name, e in sorted(entries.items()):
+        print(f"15e {name} {e['shape']} rank {e['rank']}: DT "
+              f"{e['dt_time_to_target']} s, PP {e['pp_time_to_target']} s to "
+              f"{e['target_diffV']!r} ({e['fitness_rule']}); full runs DT "
+              f"{e['dt_total_dtime']!r} s, PP {e['pp_total_dtime']!r} s "
+              f"({e['dt_iters']}, {e['pp_iters']} sweeps); pp_row_fraction "
+              f"{e['pp_row_fraction']:.3f}; speed-up {e['speedup']} ({smi})")
+        if not (e["dt_rows_finite"] and e["pp_rows_finite"]):
+            raise AssertionError(f"15e {name}: non-finite rows")
+    if len(entries) != 4:
+        raise AssertionError(f"15e: {sorted(entries)}")
+    counts = _bench.launch_counts()
+    print(f"15e: {wall:.1f} s; kernel launches "
+          f"{ {k: n for k, n in counts.items() if n} or 'none'}")
+    return {f"K{m + 1}": counts[f"mttkrp3.{m}"] for m in range(3)}
+
+
+def run_phase15(smi):
+    """Phase 15 (15a-15e); returns {kernel id: launches}."""
+    import torch
+    t_phase = time.perf_counter()
+    phase("15a. test_als -model CP -pp 1 -device_loop 2 beside -device_loop "
+          "0 and 1, 200^3 rank 10 f32")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = fused_cp_cli(tmp, smi)
+    phase("15b. the fused machine beside the host engine at the coil shape, "
+          "f32, use_kernels_triple")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    launches.update(fused_cp_coil(V, smi))
+    del V
+    torch.cuda.empty_cache()
+    phase("15c. Tucker -device_loop 0, 1, 2: coil ranks (3, 10, 10, 70) and "
+          "the 200^3 CLI, f32")
+    tucker_device_coil(smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tucker_device_cli(tmp, smi)
+    phase("15d. syncs per body step by source and pulls per chunk, fused CP "
+          "and Tucker at 200^3")
+    fused_syncs(smi)
+    phase("15e. bench_pp_e2e --quick (DT against the fused machine)")
+    with tempfile.TemporaryDirectory() as tmp:
+        for kid, n in run_bench_pp_e2e(tmp, smi).items():
+            launches[kid] += n
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -4012,7 +4454,9 @@ def main(argv=None) -> int:
                          "datasets, checkpoints and traces, 11 for the "
                          "nnz-sharded engines under torchrun, 12 for the "
                          "dense engines on a block-sharded V, 13 for run "
-                         "-mesh and 14 for test_als -device_loop 1)"
+                         "-mesh, 14 for test_als -device_loop 1 and 15 "
+                         "for -device_loop 2, Tucker's device engines and "
+                         "bench_pp_e2e)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
@@ -4022,7 +4466,7 @@ def main(argv=None) -> int:
         names = args.phases.split(",")
         unknown = [n for n in names
                    if n not in KERNEL_PHASES
-                   and n not in ("9", "10", "11", "12", "13", "14")]
+                   and n not in ("9", "10", "11", "12", "13", "14", "15")]
         if unknown:
             ap.error(f"unknown phases {unknown}")
         smi = run_kernel_phases([n for n in names if n in KERNEL_PHASES])
@@ -4038,6 +4482,8 @@ def main(argv=None) -> int:
             print(f"phase 13 launches: {run_phase13(smi)}")
         if "14" in names:
             print(f"phase 14 launches: {run_phase14(smi)}")
+        if "15" in names:
+            print(f"phase 15 launches: {run_phase15(smi)}")
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -4132,6 +4578,9 @@ def main(argv=None) -> int:
     for kid, n in run_phase14(smi).items():
         launches[kid] += n
         by_phase.setdefault(kid, {})["14"] = n
+    for kid, n in run_phase15(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["15"] = n
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]

@@ -6,11 +6,14 @@
   PP-partupdate (each PP sweep solves the ``-update_percentage_pp`` share
   of the modes that moved most), host-driven phases; ``-pp 1
   -device_loop 1`` keeps each phase's loop state on the device
-  (``cp.als_cp_pp_device``). ``-issparse 1`` runs
+  (``cp.als_cp_pp_device``), ``-device_loop 2`` the whole DT <-> PP
+  machine's (``cp.als_cp_pp_fused``). ``-issparse 1`` runs
   the COO engine (models/sparse_cp.py) on V's nonzeros instead: plain ALS
   sweeps with -pp 0, PP with plain-ALS preconditioning with -pp 1.
   ``-model Tucker`` (models/tucker.py): -pp 0 DT-ALS from HOSVD, any
-  other -pp Tucker-PP; ``-tucker_subspace`` picks the factor extraction
+  other -pp Tucker-PP (``-device_loop 1`` and ``2`` as for CP:
+  ``tucker.als_tucker_pp_device`` and ``als_tucker_pp_fused``);
+  ``-tucker_subspace`` picks the factor extraction
   (-1 AUTO, 0 exact eigh, k subspace iterations) and ``-tucker_pp_skip``
   the quiet-mode skip of PP sweeps; the CSV has ``[diffnorm]`` in place
   of ``[gradnorm]``. With ``-issparse 1`` (models/sparse_tucker.py):
@@ -101,7 +104,8 @@ RUN_OPTIMIZERS = ("DT", "MSDT", "DT-LR", "MSDT-LR", "Simple")
 def _device_loop_refusal(args, cmd):
     """Why ``-device_loop`` >= 1 is refused for this command, or None.
     Where the JAX package ignores the flag, the refusal says so; where it
-    has an engine the port lacks, it names ROADMAP A14's rest."""
+    has an engine the port lacks (the device engines under -mesh), it
+    names ROADMAP A14's rest."""
     if args.device_loop < 1 or cmd == "run":
         return None
     ignored = "; the JAX package ignores the flag there. Use -device_loop 0"
@@ -116,16 +120,12 @@ def _device_loop_refusal(args, cmd):
     if args.model == "Tucker" and args.pp == 0:
         return ("-device_loop: test_als -model Tucker -pp 0 (DT-ALS) runs "
                 "the host-driven engine" + ignored)
-    if args.model == "Tucker":
-        return ("-device_loop >= 1 for Tucker (JAX tucker.py:635-1184) is "
-                "not ported yet (ROADMAP A14's rest); use -device_loop 0")
-    if args.device_loop >= 2:
-        return ("-device_loop 2 (the fused machine, JAX cp.py:1031-1375) "
-                "is not ported yet (ROADMAP A14's rest); -device_loop 1 runs "
-                "the device-resident phase loops")
     if args.mesh:
-        return ("-device_loop 1 with -mesh (the device engines' mesh half) "
-                "is not ported yet (ROADMAP A14's rest); use -device_loop 0 "
+        engine = "the fused machine" if args.device_loop >= 2 \
+            else "the device-resident phase loops"
+        return (f"-device_loop {args.device_loop} ({engine}) for "
+                f"{args.model} with -mesh (the device engines' mesh half) is "
+                "not ported yet (ROADMAP A14's rest); use -device_loop 0 "
                 "under -mesh")
     return None
 
@@ -482,7 +482,11 @@ def _test_als_tucker(args, V, Vnorm, device, layout=None) -> int:
                                   subspace_iters=args.tucker_subspace,
                                   pp_quiet_frac=args.tucker_pp_skip,
                                   mesh_layout=layout)
-        solve = tucker.als_tucker if args.pp == 0 else tucker.als_tucker_pp
+        # -device_loop 1 and 2 route -pp >= 1, as JAX cli.py:272-278 does
+        # (_unsupported refuses them with -pp 0)
+        solve = tucker.als_tucker if args.pp == 0 else (
+            tucker.als_tucker_pp, tucker.als_tucker_pp_device,
+            tucker.als_tucker_pp_fused)[min(args.device_loop, 2)]
     res = _solved(solve, _plot(args, PlotFile.TUCKER_HEADER), X,
                   _tucker_ranks(args, X.ndim), cfg, **kw)
     _save_checkpoint(args, _unsharded(res, layout), "Tucker", core=res.core)
@@ -524,10 +528,11 @@ def cmd_test_als(args) -> int:
         split = None
     else:
         X = V
-        # -device_loop 1 routes -pp 1 alone, as JAX cli.py:237-242 does
-        # (_unsupported refuses it elsewhere)
+        # -device_loop 1 and 2 route -pp 1 alone, as JAX cli.py:235-242
+        # does (_unsupported refuses them elsewhere)
         solve = (cp.als_cp_dt,
-                 cp.als_cp_pp_device if args.device_loop else cp.als_cp_pp,
+                 (cp.als_cp_pp, cp.als_cp_pp_device, cp.als_cp_pp_fused)[
+                     min(args.device_loop, 2)],
                  functools.partial(cp.als_cp_pp, partial_update=True))[
             min(args.pp, 2)]
         # planned on the padded global shape under -mesh

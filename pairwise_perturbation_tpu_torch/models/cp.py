@@ -1,6 +1,6 @@
 """CP-ALS solvers: plain, dimension-tree (DT), pairwise perturbation (PP)
-and PP with partial updates — port of the host-driven half of
-``pairwise_perturbation_tpu/models/cp.py`` (lines 50-300, 408-662).
+and PP with partial updates — port of
+``pairwise_perturbation_tpu/models/cp.py``.
 
 - :func:`als_cp`    <-> ``alsCP`` (als_CP.cxx:20-115)
 - :func:`als_cp_dt` <-> ``alsCP_DT`` (als_CP.cxx:127-320)
@@ -8,6 +8,10 @@ and PP with partial updates — port of the host-driven half of
                         state machine (als_CP.cxx:418-833, 1082-1137);
                         with ``partial_update``, ``alsCP_PP_partupdate``
                         (als_CP.cxx:852-1073, 1146-1207)
+- :func:`als_cp_pp_device` and :func:`als_cp_pp_fused`: the same machine
+                        with its loop state on the device, a phase a call
+                        or a chunk of body steps a call (JAX
+                        cp.py:665-1375; ``-device_loop 1`` and ``2``)
 
 Each sweep (DT sweep, PP cache build, PP sweep) is eager PyTorch on the
 tensors' device; the DT <-> PP phase machine, restart tolerances and CSV
@@ -544,10 +548,13 @@ DEVICE_LOOP_CHUNK = 2
 
 #: Host pulls of loop state (a chunk's flag, a phase's history, ring count
 #: and labels, its last gradnorm), and by phase kind the sweeps issued and
-#: the sweeps masked (issued after the stop) by the device-resident engine
-#: since the last reset.
+#: the sweeps masked (issued after the stop) by the device-resident phase
+#: loops since the last reset; of the fused machines, the body steps by
+#: kind, the chunks and the pulls (a step's register, a chunk's history,
+#: ring count and labels).
 DEVICE_LOOP_COUNTS = dict(pulls=0, dt_issued=0, dt_masked=0, pp_issued=0,
-                          pp_masked=0)
+                          pp_masked=0, fused_dt=0, fused_build=0, fused_pp=0,
+                          fused_chunks=0, fused_pulls=0)
 
 
 def reset_device_loop_counts():
@@ -555,9 +562,9 @@ def reset_device_loop_counts():
         DEVICE_LOOP_COUNTS[k] = 0
 
 
-def _pull(x):
-    """One counted host read of device loop state."""
-    DEVICE_LOOP_COUNTS["pulls"] += 1
+def _pull(x, key: str = "pulls"):
+    """One host read of device loop state, counted under ``key``."""
+    DEVICE_LOOP_COUNTS[key] += 1
     return x.cpu()
 
 
@@ -609,6 +616,16 @@ def _snap_ring_init(Ws, n_slots: int):
                          device=dev) for W in Ws],
             torch.full((slots,), -1, dtype=torch.int32, device=dev),
             torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _ring_overflow(sn: int, n_slots: int, what: str):
+    """Warn when a ring counted more logged rows than it has slots (its
+    overflow rows keep the in-loop estimates), as the JAX engines do."""
+    if sn > n_slots:
+        import warnings
+        warnings.warn(f"{what} snapshot ring overflow: {sn} logged rows > "
+                      f"{n_slots} slots; {sn - n_slots} rows fall back to "
+                      "in-loop estimates")
 
 
 def _logged(it: int, resprint: int, log_mark: int) -> bool:
@@ -786,8 +803,6 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     clock starts; the port compiles nothing. Scopes ``cp.dt_phase_device``
     and ``cp.pp_phase_device`` time each phase; DEVICE_LOOP_COUNTS counts
     its pulls and masked sweeps."""
-    import warnings
-
     Ws = list(Ws)
     clock = clock or SweepClock()
     lam = _in_dtype(cfg.lam, V.dtype)
@@ -808,10 +823,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
         exact = {}
         with clock.exclude():
             sn = int(_pull(count))
-            if sn > n_slots:
-                warnings.warn(f"phase snapshot ring overflow: {sn} logged "
-                              f"rows > {n_slots} slots; overflow rows fall "
-                              "back to in-loop estimates")
+            _ring_overflow(sn, n_slots, "phase")
             if sn > 0:
                 labels_h = _pull(labels).tolist()
                 for slot in range(min(sn, n_slots)):
@@ -857,3 +869,276 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
         if gn < cfg.tol or t1 > cfg.timelimit:
             break
     return CPResult(Ws, gn, diffV, it, gn < cfg.tol, history)
+
+
+# ---------------------------------------------------------------------------
+# The fused DT <-> PP machine (JAX cp.py:1010-1375; test_als -device_loop 2)
+# ---------------------------------------------------------------------------
+#
+# The whole outer machine of alsCP_PP (als_CP.cxx:1082-1137) as one carry
+# with a phase register: 0 a DT sweep (every ratio below tol_init -> 1),
+# 1 a PP cache build (-> 2; a body step that is no iteration), 2 a PP
+# sweep (a ratio above tol_init, the pp_cap-th sweep since the build or
+# the guard -> 0). JAX runs ``chunk`` body steps as one lax.while_loop
+# over a lax.switch. Eager PyTorch has no device-side switch, and running
+# the three branches masked would pay a DT sweep, a cache build and a PP
+# sweep every step, so the device decides and the host dispatches: each
+# DT or PP step writes the next phase and the stop flag into a register
+# on the card, and the host reads it in one counted pull before it issues
+# the next step (a build step's successor is always a PP step: no pull).
+# From that sequence the host keeps the iteration, the PP sweeps since
+# the build and the ring's slot itself; the factors, dWs, W_init, the
+# caches, the gradnorm estimate and its guard floor, the history and the
+# snapshot ring stay on the card, read once a chunk as in JAX.
+#
+# This is not one dispatch a chunk: the R x R solves still synchronize
+# the card (torch.linalg.eigh in ops/solve.py, 3-4 times a sweep), and a
+# chunk cannot be captured as a CUDA graph while they do. The register
+# pull costs one more sync a step.
+
+#: Body steps of the fused machine between two reads of its history
+#: (the JAX CLI's chunk).
+FUSED_CHUNK = 64
+
+def _pair_keys(order: int):
+    return [(i, j) for i in range(order) for j in range(i + 1, order)]
+
+
+def pp_fused_init(V, Ws, max_hist: int, n_slots: int = 0):
+    """The initial carry of :func:`pp_fused_chunk` (JAX cp.py:1035-1061):
+    host ints (``it`` the completed sweeps, ``age`` the PP sweeps since
+    the build, ``slot`` the ring's next slot, and ``phase`` and ``stop``,
+    the host's last read of the device's register ``reg``) and device
+    tensors (the factors, W_prev, dWs, W_init, the caches, made at the
+    first build, the gradnorm estimate ``gn`` and the guard floor, the
+    history ``hist[it] = [gn, diffV, pp_flag]`` and the snapshot ring:
+    ``snaps``, ``labels``, ``count``)."""
+    Ws = list(Ws)
+    dev, dtype = Ws[0].device, Ws[0].dtype
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    snaps, labels, count = _snap_ring_init(Ws, n_slots)
+    return dict(it=0, age=0, slot=0, phase=0, stop=False,
+                reg=torch.zeros(2, dtype=torch.int64, device=dev), Ws=Ws,
+                W_prev=[torch.zeros_like(W) for W in Ws],
+                dWs=[torch.zeros_like(W) for W in Ws], W_init=list(Ws),
+                single=None, pair=None, gn=inf, gn_floor=inf,
+                hist=torch.zeros((max_hist, 3), dtype=dtype, device=dev),
+                snaps=snaps, labels=labels, count=count)
+
+
+def _fused_row(c, it2, gn2, dv2, pp_flag, Ws2, resprint, maxiter, n_slots):
+    """Sweep ``it2``'s history row and, on a row the host will log
+    (it2 % resprint == 0, or it2 >= maxiter), its factor snapshot (JAX
+    cp.py:1093-1111). The host knows it2 and the slot: nothing is read
+    back."""
+    idx = min(it2, c["hist"].shape[0] - 1)
+    c["hist"][idx] = torch.stack([gn2, dv2, torch.full_like(gn2, pp_flag)])
+    if resprint and n_slots and (it2 % resprint == 0 or it2 >= maxiter):
+        slot = min(c["slot"], n_slots - 1)
+        for s, w in zip(c["snaps"], Ws2):
+            s[slot] = w
+        # fill_ takes the label as a kernel argument; an item assignment
+        # would copy it from the host and synchronize
+        c["labels"][slot].fill_(it2)
+        c["count"] = c["count"] + 1
+        c["slot"] += 1
+
+
+def _fused_register(c, phase2, stop2):
+    """Write the next phase and the stop flag into the device register
+    and read both in one counted pull."""
+    c["reg"] = torch.stack([phase2.to(torch.int64), stop2.to(torch.int64)])
+    c["phase"], stop = _pull(c["reg"], "fused_pulls").tolist()
+    c["stop"] = bool(stop)
+
+
+def _drain_ring(c, clock, n_slots: int, diag):
+    """After a chunk: the history rows (host lists) and {label:
+    diag(snapshot factors)} of the ring's snapshots, the diagnostics
+    inside the clock's excluded window; then the ring is reset (JAX
+    cp.py:1318-1348)."""
+    rows = _pull(c["hist"], "fused_pulls").tolist()
+    by_label = {}
+    with clock.exclude():
+        n = int(_pull(c["count"], "fused_pulls"))
+        _ring_overflow(n, n_slots, "fused")
+        if n > 0:
+            labels = _pull(c["labels"], "fused_pulls").tolist()
+            for slot in range(min(n, len(labels))):
+                by_label[labels[slot]] = diag([s[slot] for s in c["snaps"]])
+    if n > 0:
+        c["count"] = torch.zeros_like(c["count"])
+        c["slot"] = 0
+    return rows, by_label
+
+
+def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
+                   gn_guard=0.0, rcond=None, *, solver: str = "svd",
+                   chunk: int = FUSED_CHUNK, resprint: int = 10,
+                   pp_cap: int = 15, root_split: int = None,
+                   n_slots: int = 0, V_norm_sq=None):
+    """Advance the fused machine by up to ``chunk`` body steps, or to the
+    stop (JAX cp.py:1064-1222); returns the carry, updated in place.
+
+    The sweep taking ``it -> it + 1`` writes ``hist[it + 1]``, the
+    estimates of the post-sweep state (:func:`_sweep_norm_stats` after a
+    DT sweep, :func:`_pp_sweep_norm_stats` after a PP sweep). A cache
+    build (:func:`pp_build_caches`: K6, with K5 as its O3, under
+    ``use_kernels_triple``) zeroes dWs, anchors W_init and seeds the
+    guard floor with the DT gradnorm estimate (JAX cp.py:1150-1156; the
+    phase engine's floor starts at inf). The guard (``gn_guard`` > 0)
+    reverts a PP sweep whose estimate passes gn_guard x the floor, or
+    whose largest ratio passes max(5 tol_init, 0.5); its row keeps
+    ``hist[it]``'s diffV. A PP step that returns to DT zeroes W_prev.
+    The run stops at gn < gn_tol or it > maxiter. Scopes
+    ``cp.fused_dt_step``, ``cp.fused_build_step`` and ``cp.fused_pp_step``
+    time the body steps; DEVICE_LOOP_COUNTS counts them and the pulls."""
+    c = carry
+    if V_norm_sq is None:
+        V_norm_sq = contract.norm_sq(V)
+    bound = max(_in_dtype(5.0 * tol_init, c["gn"].dtype), 0.5)
+    dtype = c["gn"].dtype
+
+    def dt_step():
+        Ws2, grads = dt_sweep(V, c["Ws"], lam, rcond, solver=solver,
+                              root_split=root_split)
+        dWs2 = [a - b for a, b in zip(Ws2, c["W_prev"])]
+        quiet = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2))
+                          < tol_init)
+        gn2, dv2 = _sweep_norm_stats(V_norm_sq, Ws2, grads, lam)
+        gn2, dv2 = gn2.to(dtype), dv2.to(dtype)
+        it2 = c["it"] + 1
+        _fused_row(c, it2, gn2, dv2, 0.0, Ws2, resprint, maxiter, n_slots)
+        stop2 = (gn2 < gn_tol) | (it2 > maxiter)
+        c.update(it=it2, Ws=Ws2, W_prev=Ws2, dWs=dWs2, gn=gn2)
+        _fused_register(c, torch.where(quiet & ~stop2, 1, 0), stop2)
+
+    def build_step():
+        c["single"], c["pair"] = pp_build_caches(V, c["Ws"])
+        c.update(phase=2, age=0, dWs=[torch.zeros_like(W) for W in c["Ws"]],
+                 W_init=list(c["Ws"]), gn_floor=c["gn"])
+
+    def pp_step():
+        Ws, dWs = c["Ws"], c["dWs"]
+        Ws2, dWs2, grads = pp_sweep(c["single"], c["pair"], Ws, c["W_init"],
+                                    dWs, lam, ratio_step, rcond,
+                                    solver=solver)
+        ratios = torch.abs(factor_norm_ratios(Ws2, dWs2))
+        broke = torch.any(ratios > tol_init)
+        gn2, dv2 = _pp_sweep_norm_stats(V_norm_sq, c["single"], c["pair"],
+                                        Ws2, dWs2, grads)
+        gn2, dv2 = gn2.to(dtype), dv2.to(dtype)
+        it, age2 = c["it"], c["age"] + 1
+        if gn_guard > 0:
+            blown = (gn2 > gn_guard * c["gn_floor"]) | \
+                (torch.max(ratios) > bound)
+            Ws2 = [torch.where(blown, a, b) for a, b in zip(Ws, Ws2)]
+            dWs2 = [torch.where(blown, a, b) for a, b in zip(dWs, dWs2)]
+            gn2 = torch.where(blown, c["gn"], gn2)
+            dv2 = torch.where(blown, c["hist"][min(it, c["hist"].shape[0]
+                                                   - 1), 1], dv2)
+            broke = broke | blown
+        _fused_row(c, it + 1, gn2, dv2, 1.0, Ws2, resprint, maxiter,
+                   n_slots)
+        stop2 = (gn2 < gn_tol) | (it + 1 > maxiter)
+        c.update(it=it + 1, age=age2, Ws=Ws2, dWs=dWs2, gn=gn2,
+                 gn_floor=torch.minimum(c["gn_floor"], gn2))
+        _fused_register(c, torch.where(broke | (age2 >= pp_cap), 0, 2),
+                        stop2)
+        if c["phase"] == 0:
+            # DT starts from W_prev = 0 (alsCP_DT_sub), so its first
+            # sweep never reads as quiet
+            c["W_prev"] = [torch.zeros_like(W) for W in Ws2]
+
+    steps = {0: ("dt", dt_step), 1: ("build", build_step), 2: ("pp", pp_step)}
+    DEVICE_LOOP_COUNTS["fused_chunks"] += 1
+    for _ in range(chunk):
+        if c["stop"]:
+            break
+        kind, step = steps[c["phase"]]
+        DEVICE_LOOP_COUNTS[f"fused_{kind}"] += 1
+        tracing.timed(f"cp.fused_{kind}_step", step)
+    return c
+
+
+def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
+                    clock: Optional[SweepClock] = None,
+                    chunk: int = FUSED_CHUNK) -> CPResult:
+    """The fused DT <-> PP solver (``test_als -pp 1 -device_loop 2``; JAX
+    cp.py:1225-1375): :func:`pp_fused_chunk` until the stop, the time
+    limit, iteration maxiter + 1 or a chunk that made no progress.
+
+    After each chunk the host pulls the history, the ring's count and
+    labels, computes EXACT (gradnorm, diffV) by :func:`cp_diagnostics`
+    (K1-K3 for an order-3 float32 V) from each snapshot inside the clock's
+    excluded window, warns if the ring overflowed (its rows then keep the
+    estimates), and resets the ring. Rows are logged where label %
+    resprint == 0 or label == maxiter, each ``dtime`` interpolated across
+    its chunk; the iteration-0 row and the final result are exact too.
+    lam, ratio_step, the tolerances, gn_guard and ``cfg.rcond`` (passed
+    on, unlike the phase engine) are rounded to the factors' dtype, as
+    the JAX engine's scalars are. The JAX engine compiles and warms the
+    machine on a stopped carry first; the port compiles nothing."""
+    Ws = list(Ws)
+    clock = clock or SweepClock()
+    dtype = Ws[0].dtype
+    lam = _in_dtype(cfg.lam, dtype)
+    ratio_step = _in_dtype(cfg.ratio_step, dtype)
+    tol_init = _in_dtype(cfg.pp_res_tol, dtype)
+    gn_tol = _in_dtype(cfg.tol, dtype)
+    gn_guard = _in_dtype(cfg.gn_guard, dtype)
+    rcond = None if cfg.rcond is None else _in_dtype(cfg.rcond, dtype)
+    V_norm_sq = contract.norm_sq(V)
+    max_hist = cfg.maxiter + 2
+    # the ring covers one chunk's logged rows: drained after every chunk
+    n_slots = min(cfg.maxiter // max(cfg.resprint, 1) + 4,
+                  chunk // max(cfg.resprint, 1) + 4)
+    history: list = []
+
+    def exact(Ws_):
+        gn_, dv_ = tracing.timed("cp.diagnostics", cp_diagnostics,
+                                 V_norm_sq, V, Ws_, lam)
+        return float(gn_), float(dv_)
+
+    with clock.exclude():
+        carry = pp_fused_init(V, Ws, max_hist, n_slots)
+        gn, diffV = exact(Ws)
+    if plot is not None:
+        plot.row(V.shape[0], 0, gn, cfg.tol, 0, diffV, clock.dtime())
+    history.append(dict(iter=0, gradnorm=gn, diffV=diffV,
+                        dtime=clock.dtime(), pp=0))
+
+    prev_it = 0
+    t_prev = clock.dtime()
+    while True:
+        pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol,
+                       cfg.maxiter, gn_guard, rcond, solver=cfg.solver,
+                       chunk=chunk, resprint=cfg.resprint,
+                       pp_cap=cfg.pp_cache_sweeps, root_split=cfg.tree_split,
+                       n_slots=n_slots, V_norm_sq=V_norm_sq)
+        it_now, stop = carry["it"], carry["stop"]
+        _sync()
+        t_now = clock.dtime()
+        if it_now > prev_it:
+            rows_all, by_label = _drain_ring(carry, clock, n_slots, exact)
+            for off, label in enumerate(range(prev_it + 1, it_now + 1)):
+                dt_row = t_prev + (t_now - t_prev) * (off + 1) / (
+                    it_now - prev_it)
+                gn, diffV, ppf = rows_all[label]
+                ppf = int(ppf > 0.5)
+                gn, diffV = by_label.get(label, (gn, diffV))
+                if label % cfg.resprint == 0 or label == cfg.maxiter:
+                    if plot is not None:
+                        plot.row(V.shape[0], label, gn, cfg.tol, ppf, diffV,
+                                 dt_row)
+                    history.append(dict(iter=label, gradnorm=gn,
+                                        diffV=diffV, dtime=dt_row, pp=ppf))
+        done = stop or it_now > cfg.maxiter or t_now > cfg.timelimit \
+            or it_now == prev_it
+        prev_it, t_prev = it_now, t_now
+        if done:
+            break
+    Ws_f = carry["Ws"]
+    with clock.exclude():
+        gn, diffV = exact(Ws_f)
+    return CPResult(Ws_f, gn, diffV, prev_it, gn < cfg.tol, history)

@@ -1,6 +1,6 @@
 """Tucker decomposition: HOSVD init, HOOI, dimension-tree ALS and
-pairwise-perturbation ALS with SVD sign-fixing — port of the host-driven
-half of ``pairwise_perturbation_tpu/models/tucker.py`` (lines 1-625).
+pairwise-perturbation ALS with SVD sign-fixing — port of
+``pairwise_perturbation_tpu/models/tucker.py``.
 
 - :func:`hosvd`         <-> ``hosvd`` / ``get_factor_matrices`` /
                             ``get_core_tensor`` (als_Tucker.cxx:12-70)
@@ -37,8 +37,12 @@ extracted on the small side of its unfolding from reduced Grams, with
 the sign fix gathered along the axis; on the mode side the unfolding's
 rows are gathered first. HOSVD's Gram of a sharded mode is applied
 matrix-free on the subspace route and assembled block by block on the
-exact route (see :func:`hosvd`). Not ported: the JAX package's
-device-resident and fused phase loops (ROADMAP A14).
+exact route (see :func:`hosvd`).
+
+:func:`als_tucker_pp_device` and :func:`als_tucker_pp_fused` (``-device_loop
+1`` and ``2``) keep the machine's loop state on the device, as
+models/cp.py's engines do; they run unsharded (their mesh half is ROADMAP
+A14's rest).
 """
 
 from __future__ import annotations
@@ -643,3 +647,406 @@ def als_tucker_pp(V, ranks, cfg: TuckerConfig,
     return TuckerResult(Ws, state["core"], state["diffnorm"], state["diffV"],
                         state["iter"], reason == "converged",
                         state["history"])
+
+
+# ---------------------------------------------------------------------------
+# Device-resident phase loops (JAX tucker.py:627-849; -device_loop 1)
+# ---------------------------------------------------------------------------
+#
+# As models/cp.py's (cp.dt_phase_device, cp.pp_phase_device): a phase's
+# loop state stays on the device, the host issues sweeps in chunks of
+# cp.DEVICE_LOOP_CHUNK through cp._issue_chunks, each sweep evaluates the
+# JAX while-loop's condition on the device and commits through
+# torch.where, and one pull a chunk reads the flag.
+
+
+def _core_stats(V_norm_sq, core, cn_prev):
+    """(||core||, |that - cn_prev|, diffV) of a sweep's core."""
+    cn = torch.linalg.vector_norm(core)
+    return cn, torch.abs(cn - cn_prev), torch.sqrt(
+        torch.clamp(V_norm_sq - cn * cn, min=0.0))
+
+
+def tucker_dt_phase_device(V, Ws, tol_init, diff_tol, it_budget: int, *,
+                           ranks: Tuple[int, ...], max_sweeps: int = 256,
+                           subspace_iters: int = 0):
+    """DT Tucker sweeps (sign-matched to the previous sweep's factors, the
+    first to zeros) with their loop on the device until every mode is
+    quiet (||dW||/||W|| < tol_init), the core-norm change falls below
+    ``diff_tol``, or ``it_budget`` sweeps ran (JAX tucker.py:633-671).
+    Returns (n_sweeps, Ws, dWs, core, diffnorm, quiet, hist[max_sweeps,
+    2]), hist rows [diffnorm, diffV] (exact: a DT sweep's core is)."""
+    V_norm_sq = contract.norm_sq(V)
+    core0 = contract.ttmc(V, list(Ws), skip_mode=-1)
+    st, _, _ = cpm._loop_state(
+        Ws, max_sweeps, 0, W_prev=[torch.zeros_like(W) for W in Ws],
+        cn=torch.linalg.vector_norm(core0), core=core0,
+        quiet=torch.zeros((), dtype=torch.bool, device=V.device))
+    st["dn"] = st["gn"]
+
+    def sweep(j):
+        on = st["on"]
+        Ws2, core2 = tucker_dt_sweep(V, st["Ws"], st["W_prev"], ranks=ranks,
+                                     use_sign=True,
+                                     subspace_iters=subspace_iters)
+        dWs2 = [a - b for a, b in zip(Ws2, st["W_prev"])]
+        quiet2 = torch.all(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+                           < tol_init)
+        cn, dn2, diffV = _core_stats(V_norm_sq, core2, st["cn"])
+        cpm._record(st, j, on, torch.stack([dn2, diffV]).to(st["dn"].dtype),
+                    Ws2, 0, 0, -1, 0, None, None)
+        cpm._commit(st, on, Ws=Ws2, W_prev=Ws2, dWs=dWs2, cn=cn, dn=dn2,
+                    quiet=quiet2, core=core2)
+        st["on"] = on & ~quiet2 & (dn2 >= diff_tol)
+
+    n = cpm._issue_chunks(sweep, st, it_budget, "dt")
+    return n, st["Ws"], st["dWs"], st["core"], st["dn"], st["quiet"], \
+        st["hist"]
+
+
+def tucker_pp_phase_device(V, Ws, tol_init, diff_tol, it_budget: int,
+                           it0: int = 0, quiet_tol: float = 0.0, *,
+                           ranks: Tuple[int, ...], max_sweeps: int = 64,
+                           subspace_iters: int = 0, resprint: int = 0,
+                           n_slots: int = 0):
+    """Build the Tucker PP caches, then PP sweeps with their loop on the
+    device until a factor drifts past tol_init, the sweep is stationary
+    (every mode quiet-skipped: :func:`tucker_pp_sweep`'s host bool, ORed
+    into the flag), the core-norm change falls below ``diff_tol``, or
+    ``it_budget`` sweeps ran (JAX tucker.py:674-731). The quiet skip's age
+    is the sweep's issue index. A sweep's core is the PP-corrected one;
+    sweep k snapshots the factors into the ring where (it0 + k) %
+    resprint == 0 (no maxiter mark, unlike CP's). Returns (n_sweeps, Ws,
+    dWs, core, diffnorm, hist, snaps, labels, count)."""
+    V_norm_sq = contract.norm_sq(V)
+    single, pair = tracing.timed("tucker.pp_cache_build",
+                                 tucker_build_caches, V, list(Ws))
+    W_init = list(Ws)
+    core0 = contract.ttmc(V, list(Ws), skip_mode=-1)
+    st, snaps, labels = cpm._loop_state(
+        Ws, max_sweeps, n_slots, cn=torch.linalg.vector_norm(core0),
+        core=core0)
+    st["dn"] = st["gn"]
+
+    def sweep(j):
+        on = st["on"]
+        Ws2, dWs2, core2, stationary = tucker_pp_sweep(
+            single, pair, st["Ws"], W_init, st["dWs"], quiet_tol, j,
+            ranks=ranks, subspace_iters=subspace_iters)
+        broke2 = torch.any(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+                           > tol_init) | stationary
+        cn, dn2, diffV = _core_stats(V_norm_sq, core2, st["cn"])
+        cpm._record(st, j, on, torch.stack([dn2, diffV]).to(st["dn"].dtype),
+                    Ws2, it0, resprint, -1, n_slots, snaps, labels)
+        cpm._commit(st, on, Ws=Ws2, dWs=dWs2, cn=cn, dn=dn2, core=core2)
+        st["on"] = on & ~broke2 & (dn2 >= diff_tol)
+
+    n = cpm._issue_chunks(sweep, st, it_budget, "pp")
+    return (n, st["Ws"], st["dWs"], st["core"], st["dn"], st["hist"], snaps,
+            labels, st["count"])
+
+
+def _exact_core_norm(V, Ws):
+    """||TTMc(V, W)|| of a snapshot, as a host float."""
+    return float(torch.linalg.vector_norm(tracing.timed(
+        "tucker.diagnostics", contract.ttmc, V, list(Ws), skip_mode=-1)))
+
+
+def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
+                         plot: Optional[PlotFile] = None,
+                         Ws: Optional[List] = None,
+                         clock: Optional[SweepClock] = None) -> TuckerResult:
+    """Device-resident Tucker DT <-> PP machine (``test_als -model Tucker
+    -pp 1 -device_loop 1``; JAX tucker.py:734-849): the phase machine of
+    :func:`als_tucker_pp`, one :func:`tucker_dt_phase_device` or
+    :func:`tucker_pp_phase_device` call a phase, tol_init decayed by
+    TOL_INIT_DECAY (to TOL_INIT_FLOOR) after each PP phase.
+
+    Rows come from the phases' history buffers, ``dtime`` interpolated
+    within each phase. A DT row carries its exact core norm; a logged PP
+    row's core norm is recomputed EXACTLY from the ring's snapshot inside
+    the clock's excluded window, its diffV from it, and its diffnorm
+    against the latest exact norm of an earlier logged row. A PP phase's
+    maxiter row, which the ring does not snapshot, keeps the estimates
+    (as in JAX). tol_init and the tolerances are rounded to V's dtype, as
+    the JAX engine's scalars are. The clock starts where
+    :func:`als_tucker_pp`'s does, after HOSVD: the JAX engine runs
+    zero-budget phases to compile them and then resets it, and the port
+    compiles nothing."""
+    ranks = tuple(int(r) for r in ranks)
+    core, Ws = _init(V, ranks, Ws)
+    clock = clock or SweepClock()
+    V_norm_sq = contract.norm_sq(V)
+    vn2 = float(V_norm_sq)
+    tol_init = cfg.pp_res_tol
+    diff_tol = cpm._in_dtype(cfg.tol, V.dtype)
+    history: list = []
+    it = 0
+    dn = diffV = float("inf")
+    # snapshot ring slots: enough for every logged row of one PP phase
+    n_slots = cfg.maxiter // max(cfg.resprint, 1) + 3
+    cn_by_it: dict = {}     # exact core norms of logged rows
+
+    def log(hist, n, pp_flag, t0, t1, ring=None):
+        nonlocal it, dn, diffV
+        h = cpm._pull(hist)[:n].tolist()
+        exact = {}
+        if ring is not None:
+            snaps, labels, count = ring
+            with clock.exclude():
+                sn = int(cpm._pull(count))
+                cpm._ring_overflow(sn, n_slots, "phase")
+                if sn > 0:
+                    labels_h = cpm._pull(labels).tolist()
+                    for slot in range(min(sn, n_slots)):
+                        exact[labels_h[slot]] = _exact_core_norm(
+                            V, [s[slot] for s in snaps])
+        for i in range(n):
+            dn, diffV = h[i]
+            dt_row = t0 + (t1 - t0) * (i + 1) / max(n, 1)
+            if it % cfg.resprint == 0 or it == cfg.maxiter:
+                if it in exact:
+                    cn_s = cn_by_it[it] = exact[it]
+                    diffV = float(np.sqrt(max(vn2 - cn_s * cn_s, 0.0)))
+                    prev = [v for k, v in cn_by_it.items() if k < it]
+                    if prev:
+                        dn = abs(cn_s - prev[-1])
+                elif pp_flag == 0:
+                    cn_by_it[it] = float(np.sqrt(max(vn2 - diffV * diffV,
+                                                     0.0)))
+                if plot is not None:
+                    plot.row(V.shape[0], it, dn, cfg.tol, pp_flag, diffV,
+                             dt_row)
+                history.append(dict(iter=it, diffnorm=dn, diffV=diffV,
+                                    dtime=dt_row, pp=pp_flag))
+            it += 1
+
+    while it <= cfg.maxiter:
+        t0 = clock.dtime()
+        n, Ws, dWs, core, dn_d, _, hist = tracing.timed(
+            "tucker.dt_phase_device", tucker_dt_phase_device, V, Ws,
+            cpm._in_dtype(tol_init, V.dtype), diff_tol, cfg.maxiter + 1 - it,
+            ranks=ranks, max_sweeps=cfg.maxiter + 1,
+            subspace_iters=cfg.subspace_iters)
+        t1 = clock.dtime()
+        log(hist, n, 0, t0, t1)
+        dn_dt = float(cpm._pull(dn_d))
+        if dn_dt < cfg.tol or it > cfg.maxiter or t1 > cfg.timelimit:
+            dn = dn_dt
+            break
+        t0 = clock.dtime()
+        n, Ws, dWs, core, dn_d, hist, *ring = tracing.timed(
+            "tucker.pp_phase_device", tucker_pp_phase_device, V, Ws,
+            cpm._in_dtype(tol_init, V.dtype), diff_tol, cfg.maxiter + 1 - it,
+            it, cpm._in_dtype(cfg.pp_quiet_frac * tol_init, V.dtype),
+            ranks=ranks, max_sweeps=cfg.maxiter + 1,
+            subspace_iters=cfg.subspace_iters, resprint=cfg.resprint,
+            n_slots=n_slots)
+        t1 = clock.dtime()
+        log(hist, n, 1, t0, t1, ring)
+        dn = float(cpm._pull(dn_d))
+        if dn < cfg.tol or t1 > cfg.timelimit:
+            break
+        if tol_init > TOL_INIT_FLOOR:
+            tol_init *= TOL_INIT_DECAY
+    return TuckerResult(Ws, core, dn, diffV, it, dn < cfg.tol, history)
+
+
+# ---------------------------------------------------------------------------
+# The fused Tucker machine (JAX tucker.py:852-1184; -device_loop 2)
+# ---------------------------------------------------------------------------
+#
+# cp.pp_fused_chunk's design for alsTucker_PP (als_Tucker.cxx:906-962):
+# phase 0 a DT sweep, 1 a TTMc cache build, 2 a PP sweep; the device
+# writes the next phase and the stop flag, the host reads them in one
+# pull a DT or PP step and issues the next step. tol_init rides in the
+# carry and decays on each PP -> DT transition; the PP cache cap is 15.
+
+#: The fused Tucker machine's PP sweeps per cache build (JAX
+#: tucker.py:1081 hard-codes it).
+TUCKER_PP_CAP = 15
+
+
+def _tucker_pair_keys(order: int):
+    return [(i, j) for i in range(order) for j in range(i + 1, order)]
+
+
+def tucker_fused_init(V, Ws, ranks, max_hist: int, n_slots: int = 0,
+                      tol_init: float = 1e-2):
+    """The initial carry of :func:`tucker_fused_chunk` (JAX
+    tucker.py:865-895, with tol_init, which the JAX solver appends): the
+    host ints of cp.pp_fused_init and ``tol_init``, and device tensors:
+    the factors, W_prev, dWs, W_init, the caches (made at the first
+    build), the core and its norm ``cn``, the core-norm change ``dn``,
+    the history ``hist[it] = [dn, diffV, pp_flag]`` and the ring."""
+    c = cpm.pp_fused_init(V, Ws, max_hist, n_slots)
+    c["core"] = contract.ttmc(V, list(Ws), skip_mode=-1)
+    c["cn"] = torch.linalg.vector_norm(c["core"])
+    c["dn"] = c.pop("gn")
+    del c["gn_floor"]
+    c["tol_init"] = tol_init
+    return c
+
+
+def tucker_fused_chunk(V, carry, diff_tol, maxiter: int, decay, floor,
+                       quiet_frac: float = 0.0, *, ranks: Tuple[int, ...],
+                       subspace_iters: int = 0, chunk: int = cpm.FUSED_CHUNK,
+                       resprint: int = 1, pp_cap: int = TUCKER_PP_CAP,
+                       n_slots: int = 0, V_norm_sq=None):
+    """Advance the fused Tucker machine by up to ``chunk`` body steps, or
+    to the stop (JAX tucker.py:898-1030); returns the carry, updated in
+    place. Rows hold the sweep's own core-norm statistics (exact after a
+    DT sweep, PP-corrected after a PP sweep); rows the host will log
+    (label % resprint == 0, or label >= maxiter) snapshot the factors. A
+    PP sweep returns to DT when a factor drifts past tol_init, the sweep
+    is stationary, or it is the pp_cap-th since the build; then W_prev is
+    zeroed and tol_init decays by ``decay`` while above ``floor``. The
+    run stops at a core-norm change below ``diff_tol`` or it > maxiter.
+    Scopes ``tucker.fused_{dt,build,pp}_step``."""
+    c = carry
+    if V_norm_sq is None:
+        V_norm_sq = contract.norm_sq(V)
+    dtype = c["dn"].dtype
+
+    def stats(core2, it2, pp_flag, Ws2):
+        cn, dn2, diffV = _core_stats(V_norm_sq, core2, c["cn"])
+        dn2, diffV = dn2.to(dtype), diffV.to(dtype)
+        cpm._fused_row(c, it2, dn2, diffV, pp_flag, Ws2, resprint, maxiter,
+                       n_slots)
+        c.update(it=it2, cn=cn, dn=dn2, core=core2)
+        return (dn2 < diff_tol) | (it2 > maxiter)
+
+    def dt_step():
+        Ws2, core2 = tucker_dt_sweep(V, c["Ws"], c["W_prev"], ranks=ranks,
+                                     use_sign=True,
+                                     subspace_iters=subspace_iters)
+        dWs2 = [a - b for a, b in zip(Ws2, c["W_prev"])]
+        quiet = torch.all(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+                          < c["tol_init"])
+        stop2 = stats(core2, c["it"] + 1, 0.0, Ws2)
+        c.update(Ws=Ws2, W_prev=Ws2, dWs=dWs2)
+        cpm._fused_register(c, torch.where(quiet & ~stop2, 1, 0), stop2)
+
+    def build_step():
+        c["single"], c["pair"] = tucker_build_caches(V, c["Ws"])
+        c.update(phase=2, age=0, dWs=[torch.zeros_like(W) for W in c["Ws"]],
+                 W_init=list(c["Ws"]))
+
+    def pp_step():
+        tol = c["tol_init"]
+        Ws2, dWs2, core2, stationary = tucker_pp_sweep(
+            c["single"], c["pair"], c["Ws"], c["W_init"], c["dWs"],
+            cpm._in_dtype(quiet_frac * tol, dtype), c["age"], ranks=ranks,
+            subspace_iters=subspace_iters)
+        broke = torch.any(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+                          > tol) | stationary
+        c["age"] += 1
+        stop2 = stats(core2, c["it"] + 1, 1.0, Ws2)
+        c.update(Ws=Ws2, dWs=dWs2)
+        cpm._fused_register(c, torch.where(broke | (c["age"] >= pp_cap), 0,
+                                           2), stop2)
+        if c["phase"] == 0:
+            c["W_prev"] = [torch.zeros_like(W) for W in Ws2]
+            if tol > floor:
+                # the decay on PP -> DT (als_Tucker.cxx:947-948), in the
+                # factors' dtype
+                c["tol_init"] = cpm._in_dtype(tol * decay, dtype)
+
+    steps = {0: ("dt", dt_step), 1: ("build", build_step), 2: ("pp", pp_step)}
+    cpm.DEVICE_LOOP_COUNTS["fused_chunks"] += 1
+    for _ in range(chunk):
+        if c["stop"]:
+            break
+        kind, step = steps[c["phase"]]
+        cpm.DEVICE_LOOP_COUNTS[f"fused_{kind}"] += 1
+        tracing.timed(f"tucker.fused_{kind}_step", step)
+    return c
+
+
+def als_tucker_pp_fused(V, ranks, cfg: TuckerConfig,
+                        plot: Optional[PlotFile] = None,
+                        Ws: Optional[List] = None,
+                        clock: Optional[SweepClock] = None,
+                        chunk: int = cpm.FUSED_CHUNK) -> TuckerResult:
+    """The fused Tucker DT <-> PP solver (``test_als -model Tucker -pp 1
+    -device_loop 2``; JAX tucker.py:1033-1184): :func:`tucker_fused_chunk`
+    until the stop, the time limit, iteration maxiter + 1 or a chunk that
+    made no progress.
+
+    After each chunk the host pulls the history and the ring, computes
+    each snapshot's EXACT core norm inside the clock's excluded window,
+    and resets the ring. A logged row takes its exact diffV, and its
+    exact diffnorm where the row before it has an exact norm too
+    (resprint 1); the iteration-0 row (diffnorm inf) and the final diffV
+    are exact. The tolerances are rounded to the factors' dtype, as the
+    JAX engine's scalars are. The clock starts as :func:`als_tucker_pp`'s
+    does, after HOSVD; the port runs no compile warm-up."""
+    ranks = tuple(int(r) for r in ranks)
+    core, Ws = _init(V, ranks, Ws)
+    clock = clock or SweepClock()
+    dtype = Ws[0].dtype
+    V_norm_sq = contract.norm_sq(V)
+    vn2 = float(V_norm_sq)
+    max_hist = cfg.maxiter + 2
+    # the ring covers one chunk's logged rows: drained after every chunk
+    n_slots = min(cfg.maxiter // max(cfg.resprint, 1) + 4,
+                  chunk // max(cfg.resprint, 1) + 4)
+    history: list = []
+
+    def diff_v(cn):
+        return float(np.sqrt(max(vn2 - cn * cn, 0.0)))
+
+    with clock.exclude():
+        carry = tucker_fused_init(V, Ws, ranks, max_hist, n_slots,
+                                  cpm._in_dtype(cfg.pp_res_tol, dtype))
+        cn0 = float(torch.linalg.vector_norm(core))
+        diffV = diff_v(cn0)
+    dn = float("inf")
+    if plot is not None:
+        plot.row(V.shape[0], 0, dn, cfg.tol, 0, diffV, clock.dtime())
+    history.append(dict(iter=0, diffnorm=dn, diffV=diffV,
+                        dtime=clock.dtime(), pp=0))
+
+    prev_it = 0
+    cn_by_label = {0: cn0}  # exact core norms, for exact diffnorm rows
+    t_prev = clock.dtime()
+    while True:
+        tucker_fused_chunk(
+            V, carry, cpm._in_dtype(cfg.tol, dtype), cfg.maxiter,
+            cpm._in_dtype(TOL_INIT_DECAY, dtype),
+            cpm._in_dtype(TOL_INIT_FLOOR, dtype),
+            cpm._in_dtype(cfg.pp_quiet_frac, dtype),
+            ranks=ranks, subspace_iters=cfg.subspace_iters, chunk=chunk,
+            resprint=cfg.resprint, n_slots=n_slots, V_norm_sq=V_norm_sq)
+        it_now, stop = carry["it"], carry["stop"]
+        cpm._sync()
+        t_now = clock.dtime()
+        if it_now > prev_it:
+            rows_all, exact = cpm._drain_ring(
+                carry, clock, n_slots, lambda Ws_: _exact_core_norm(V, Ws_))
+            cn_by_label.update(exact)
+            for off, label in enumerate(range(prev_it + 1, it_now + 1)):
+                dt_row = t_prev + (t_now - t_prev) * (off + 1) / (
+                    it_now - prev_it)
+                dn, diffV, ppf = rows_all[label]
+                ppf = int(ppf > 0.5)
+                if label in exact:
+                    diffV = diff_v(exact[label])
+                    if label - 1 in cn_by_label:
+                        dn = abs(cn_by_label[label] - cn_by_label[label - 1])
+                if label % cfg.resprint == 0 or label == cfg.maxiter:
+                    if plot is not None:
+                        plot.row(V.shape[0], label, dn, cfg.tol, ppf, diffV,
+                                 dt_row)
+                    history.append(dict(iter=label, diffnorm=dn,
+                                        diffV=diffV, dtime=dt_row, pp=ppf))
+        done = stop or it_now > cfg.maxiter or t_now > cfg.timelimit \
+            or it_now == prev_it
+        prev_it, t_prev = it_now, t_now
+        if done:
+            break
+    Ws_f = carry["Ws"]
+    with clock.exclude():
+        diffV = diff_v(_exact_core_norm(V, Ws_f))
+    return TuckerResult(Ws_f, carry["core"], dn, diffV, prev_it,
+                        dn < cfg.tol, history)

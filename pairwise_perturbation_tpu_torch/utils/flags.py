@@ -11,11 +11,10 @@ The reference parses single-dash long options with a hand-rolled scan
 
 plus the JAX package's additions (-dtype, -mesh, -seed, -checkpoint,
 -resume, -device_loop, -layouts, -profile, -trace_dir, ...) and -device.
-Flags whose code is not ported yet (-mesh on the dense engines, which
-waits for ROADMAP A15's dense half, -device_loop >= 1 of test_als and
-pp_bench, -layouts 1) are accepted by the parser and refused by the CLI
-with the ROADMAP step that brings them. -mesh N is ported for test_als
--model {CP,Tucker} -issparse 1 (a 1D mesh of N ranks under torchrun).
+Flags whose code is not ported yet (-device_loop >= 1 with -mesh,
+-layouts 1), or that the JAX package ignores on a path, are accepted by
+the parser and refused by the CLI, with the ROADMAP step that brings
+them or the reason.
 Defaults and clamping follow test_ALS.cxx:64-196 / run.cxx:67-214.
 """
 

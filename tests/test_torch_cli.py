@@ -80,7 +80,7 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
      "ignores the flag"),
     (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "ignores the flag"),
-    (["-pp", "1", "-device_loop", "2"], "A14"),
+    (["-pp", "1", "-device_loop", "2", "-mesh", "2"], "A14"),
     (["-layouts", "1"], "A16"),
     (["pp_bench", "-resume", "ck.npz"], "reads no checkpoint"),
     (["-issparse", "1", "-resume", "ck.npz"], "reads no checkpoint"),
@@ -108,10 +108,12 @@ def test_cli_refuses_unported_features(argv, step):
      "sparse engines .* the JAX package ignores"),
     (["test_als", "-model", "Tucker", "-pp", "0", "-device_loop", "2"],
      "Tucker -pp 0 .* the JAX package ignores"),
-    # where the JAX package has an engine the port lacks: A14's rest
-    (["test_als", "-pp", "1", "-device_loop", "2"],
+    # where the JAX package has an engine the port lacks: A14's rest,
+    # the device engines under -mesh
+    (["test_als", "-pp", "1", "-device_loop", "2", "-mesh", "2"],
      "fused machine.*ROADMAP A14's rest"),
-    (["test_als", "-model", "Tucker", "-pp", "1", "-device_loop", "1"],
+    (["test_als", "-model", "Tucker", "-pp", "1", "-device_loop", "1",
+      "-mesh", "2"],
      "for Tucker .*ROADMAP A14's rest"),
     (["test_als", "-pp", "1", "-device_loop", "1", "-mesh", "2"],
      "mesh half.*ROADMAP A14's rest"),
@@ -139,6 +141,30 @@ def test_cli_device_loop_runs_cp_pp1(tmp_path):
     assert stats["cp.dt_phase_device"][0] > 0
     assert stats["cp.pp_phase_device"][0] > 0
     assert "cp.dt_sweep" not in stats
+
+
+@pytest.mark.parametrize("argv,scopes", [
+    (["-pp", "1", "-device_loop", "2"],
+     ("cp.fused_dt_step", "cp.fused_build_step", "cp.fused_pp_step")),
+    (["-model", "Tucker", "-tensor", "r2", "-pp", "1", "-device_loop", "1"],
+     ("tucker.dt_phase_device", "tucker.pp_phase_device")),
+    (["-model", "Tucker", "-tensor", "r2", "-pp", "2", "-device_loop", "2"],
+     ("tucker.fused_dt_step", "tucker.fused_build_step",
+      "tucker.fused_pp_step")),
+])
+def test_cli_device_loop_runs_the_other_engines(tmp_path, argv, scopes):
+    """-device_loop 2 (CP -pp 1) and -device_loop 1 and 2 (Tucker -pp >=
+    1, as JAX cli.py:272-278 routes them) run their device engines (their
+    scopes) and write PP rows."""
+    tracing.reset()
+    try:
+        rc, rows = _run(tmp_path, *argv, "-profile", "1")
+    finally:
+        tracing.enable(False)
+    assert rc == 0
+    assert {r[4] for r in rows[1:]} == {"0", "1"}
+    stats = tracing.stats()
+    assert all(stats[s][0] > 0 for s in scopes), stats
 
 
 def test_cli_cuda_device_required(tmp_path):

@@ -805,7 +805,8 @@ def test_pp_bench_tucker_factors_match_jax(rng):
 
 
 @pytest.mark.parametrize("argv,step", [
-    (["-model", "Tucker", "-pp", "1", "-device_loop", "1"], "A14"),
+    (["-model", "Tucker", "-pp", "1", "-device_loop", "1", "-mesh", "2"],
+     "A14"),
     (["-model", "Tucker", "-layouts", "1"], "A16"),
     (["-model", "Tucker", "-resume", "ck.npz"], "reads no checkpoint"),
     (["-model", "Tucker", "-mesh", "4"], "A15"),
