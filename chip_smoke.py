@@ -286,6 +286,32 @@ traceback and exits nonzero:
    claim on the speed-up.
    ``--phases 15`` runs phases 1, 2 and 15 alone.
 
+16. dtime's warm-ups, the device engines under -mesh, -layouts 1.
+   16a. test_als at 200^3 f32 (-pp 1, -device_loop 0, 1 and 2) and CP-PP
+   at the coil shape with use_kernels_triple, each in a fresh process,
+   with the engines' warm-ups (models/cp.warm_run) and with each made a
+   no-op: the first DT step (row 1's dtime less row 0's) against the
+   median of the later DT steps; held to 2x for -device_loop 0; each
+   warm-up's seconds by function and _build.load()'s.
+   16b. the CP device engines (-device_loop 1, 2) on 2 ranks over gloo on
+   the card at 200^3 (f64 by rows and factors, f32 by the fit; K1-K3 on
+   each rank's block in the exact rows, 1/1/2 a row and a warm-up's), a
+   world of one on NCCL bit for bit, then at the coil shape with K6 (f32,
+   K6 and K5 once an in-loop build and once in the warm-ups) beside
+   Tucker's device engines (f32); mesh.all_reduce calls and seconds.
+   16c. -layouts 1: als_cp_dt and the fused machine at the coil shape
+   and test_als -pp 0 and -pp 1 -device_loop 2 at 512^3, f32, layouts off
+   then on: DT sweep medians, the copy kernels' device ms in one DT sweep
+   (torch.profiler), peak memory, the last diffV held to the off run's.
+   ``--phases 16`` runs phases 1, 2 and 16 alone.
+
+Every engine runs its warm-ups before its loop (models/cp.warm_run, out
+of dtime), and the kernels they reach count: where a check holds a
+kernel's launches to the scopes of a run, the warm-ups' launches are
+counted apart (scripts/_bench.warm_launches) and held to their own number
+(a warm DT sweep's K4, a warm cache build's K6 and K5, a warm exact row's
+K1-K3, a warm sparse sweep's and cache build's K7).
+
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
 S1-S5), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -309,6 +335,7 @@ import sys
 import tempfile
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "pairwise_perturbation_tpu_torch/ops/kernels/csrc/"
 PALLAS = "pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py:"
 COO_REPLACES = "pairwise_perturbation_tpu/ops/kernels/coo_pallas.py:145"
@@ -398,8 +425,11 @@ COO_CHECKS = [("sparse200_4_nnz1.6M", SPARSE_SHAPE, SPARSE_NNZ, 10, False),
               ("NELL-2 shape", NELL2_SHAPE, NELL2_NNZ, 10, False)]
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 _FLUSH = []
@@ -1292,13 +1322,16 @@ def run_cli_512(dtype, first, beside=None):
     kernel on, each DT sweep's node (1, 2) is one rank-minor launch and
     nothing launches the rank-major layout."""
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+    from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
     label = f"CLI 512^3 {dtype} use_kernels_first={first}"
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, f"cp_pp_512_{dtype}.csv")
         tracing.reset()
         mid_contract.reset_launch_counts()
-        rc = cli_512(dtype, first, 20, out, "-resprint", "1", "-profile", "1")
+        with _bench.warm_launches() as warm:
+            rc = cli_512(dtype, first, 20, out, "-resprint", "1",
+                         "-profile", "1")
         minor = mid_contract.LAUNCHES["rank_minor"]
         major = mid_contract.LAUNCHES["rank_major"]
         with open(out) as fh:
@@ -1310,10 +1343,9 @@ def run_cli_512(dtype, first, beside=None):
     stats = tracing.stats()
     if first:
         n_dt = stats.get("cp.dt_sweep", (0,))[0]
-        print(f"K4 rank-minor launches {minor}, rank-major {major}, "
-              f"DT sweeps {n_dt}")
-        if not minor == n_dt > 0:
-            raise AssertionError("K4 launches differ from the DT sweeps")
+        held_apart(f"{label} K4 rank-minor (rank-major {major})", minor,
+                   warm.get("mid_contract.rank_minor", 0), n_dt, 1,
+                   "DT sweeps")
     print_phase_times(stats, beside)
     return stats, minor, major
 
@@ -1400,7 +1432,8 @@ def run_coil_order4(dtype="float32", triple=False, beside=None,
         out = os.path.join(tmp, "coil.csv")
         plot = PlotFile(out, echo=False) if partial else None
         t0 = time.perf_counter()
-        with config.override(use_kernels_triple=triple):
+        with config.override(use_kernels_triple=triple), \
+                _bench.warm_launches() as warm:
             res = cp.als_cp_pp(V, Ws, cfg, plot,
                                partial_update=partial is not None)
         torch.cuda.synchronize()
@@ -1433,11 +1466,11 @@ def run_coil_order4(dtype="float32", triple=False, beside=None,
                                  "full PP sweep")
     if triple:
         n_builds = stats.get("cp.pp_cache_build", (0,))[0]
-        print(f"K6 launches {launches}, PP cache builds {n_builds}; every "
-              f"kernel launch of the run: "
+        print(f"every kernel launch of the run: "
               f"{ {k: n for k, n in counts.items() if n} }")
-        if not launches == n_builds > 0:
-            raise AssertionError("K6 launches differ from the cache builds")
+        # the warm build is the first build of the solve, reused
+        held_apart("K6", launches, warm.get("triple_roots.triple_roots", 0),
+                   n_builds, 1, "in-loop cache builds")
         # each K6 call: O1 and O2 by rank-outer mid_contract, O3 by K5
         if (counts["mid_contract.rank_outer"], counts[
                 "last_contract.last_contract"]) != (2 * launches, launches):
@@ -1669,6 +1702,25 @@ def expected_coo_launches(stats, order):
             * stats.get("sparse.pp_cache_build", (0,))[0])
 
 
+def coo_warm_launches(order, pp):
+    """K7 launches of a sparse CP engine's warm-ups (models/sparse_cp:
+    cp.warm_run before the loop, out of dtime): one exact sweep, and for
+    the PP engine one cache build, discarded."""
+    return order + (order + math.comb(order, 2) if pp else 0)
+
+
+def held_apart(label, total, warm, scoped, warm_want, what):
+    """A kernel's launches in a run with its warm-ups' counted apart: the
+    rest must be ``scoped`` (one a scope call of ``what``), the warm-ups'
+    ``warm_want`` (models/cp.warm_run, before the loop), and the kernel
+    must have launched."""
+    print(f"{label}: {total} launches, {warm} in the warm-ups (expected "
+          f"{warm_want}), {total - warm} in the loop ({scoped} {what})")
+    if total - warm != scoped or warm != warm_want or total <= 0:
+        raise AssertionError(f"{label}: launches {total} (warm-ups {warm})"
+                             f" against {scoped} {what} and {warm_want}")
+
+
 def run_sparse_cli():
     """test_als -model CP -issparse 1 -pp 1 on the folded Poisson tensor
     (100^4) at rank 10; returns the K7 launches of the run, its CSV rows
@@ -1695,9 +1747,11 @@ def run_sparse_cli():
     check_csv(rows, "sparse CLI -tensor p -dim 8 -size 10")
     stats = tracing.stats()
     want = expected_coo_launches(stats, 4)
+    warm = coo_warm_launches(4, True)
     print(f"K7 launches {launches}, expected {want} (4 per exact sweep, "
-          "5 per diagnostics row, 10 per cache build)")
-    if not launches == want > 0:
+          f"5 per diagnostics row, 10 per cache build) and {warm} in the "
+          "warm-ups (a sweep and a cache build)")
+    if not launches == want + warm or want <= 0:
         raise AssertionError("K7 launches differ from the phase machine's")
     print_phase_times(stats, names=SPARSE_PHASES)
     return launches, rows, stats
@@ -1741,7 +1795,8 @@ def run_sparse(st, shape, engine, maxiter, resprint, use_kernels,
         raise AssertionError("non-finite gradnorm or diffV")
     if not gns[-1] < gns[0]:
         raise AssertionError("gradnorm did not decrease")
-    want = expected_coo_launches(stats, len(shape)) if use_kernels else 0
+    want = expected_coo_launches(stats, len(shape)) + coo_warm_launches(
+        len(shape), engine == "als_cp_pp_sparse") if use_kernels else 0
     if launches != want:
         raise AssertionError(f"K7 launches {launches}, expected {want}")
     print_phase_times(stats, beside, names=SPARSE_PHASES)
@@ -2573,7 +2628,8 @@ def run_o1(tmp):
             "1", "-profile", "1"]
     tracing.reset()
     _bench.reset_launch_counts()
-    with config.override(use_kernels_triple=True):
+    with config.override(use_kernels_triple=True), \
+            _bench.warm_launches() as warm:
         rows = cli_csv(argv + ["-maxiter", "12", "-checkpoint", ck],
                        os.path.join(tmp, "o1.csv"))
     tracing.enable(False)
@@ -2581,9 +2637,8 @@ def run_o1(tmp):
     k6 = _bench.launch_counts()["triple_roots.triple_roots"]
     stats = tracing.stats()
     builds = stats.get("cp.pp_cache_build", (0,))[0]
-    print(f"K6 launches {k6}, PP cache builds {builds}")
-    if not k6 == builds > 0:
-        raise AssertionError("K6 launches differ from the o1 cache builds")
+    held_apart("o1 K6", k6, warm.get("triple_roots.triple_roots", 0),
+               builds, 1, "in-loop cache builds")
     ckpt = io.load_checkpoint(ck)
     Ws = [torch.from_numpy(f).cuda() for f in ckpt["factors"]]
     if [tuple(w.shape) for w in Ws] != [(s, 10) for s in COIL_SHAPE] or \
@@ -2962,7 +3017,8 @@ def run_mesh_engines(st, W0, results, smi):
         for r, res in enumerate(results):
             n = int(res[f"cp_k7/{dtype}"])
             want = expected_coo_launches(json.loads(str(
-                res[f"cp_stats/{dtype}"])), 4) if dtype == "float32" else 0
+                res[f"cp_stats/{dtype}"])), 4) + coo_warm_launches(4, True) \
+                if dtype == "float32" else 0
             if n != want:
                 failures.append(f"11a CP {dtype} rank {r}: K7 launches {n}, "
                                 f"expected {want}")
@@ -3028,7 +3084,8 @@ def run_phase11(smi):
               "rank 10, maxiter 3, 2 ranks")
         for r, res in enumerate(a):
             stats = json.loads(str(res["als_stats"]))
-            want = expected_coo_launches(stats, 3)
+            want = expected_coo_launches(stats, 3) + coo_warm_launches(
+                3, False)
             n = int(res["als_k7"])
             red = stats.get("mesh.all_reduce", (0, 0.0))
             hist = res["als_hist"]
@@ -3223,15 +3280,19 @@ def run_dense_cp(a, Vc, Wc, smi):
             n = json.loads(str(res[f"dcp1_launches/{d}"]))
             stats = json.loads(str(res[f"dcp1_stats/{d}"]))
             builds = stats.get("cp.pp_cache_build", (0,))[0]
+            warm = json.loads(str(res[f"dcp1_warm/{d}"]))
             k6, k5 = n["triple_roots.triple_roots"], \
                 n["last_contract.last_contract"]
-            print(f"  rank {r} {d}: {builds} cache builds, K6 launches {k6}"
-                  f", K5 (O3) {k5}; medians ms: "
+            w6, w5 = warm.get("triple_roots.triple_roots", 0), \
+                warm.get("last_contract.last_contract", 0)
+            print(f"  rank {r} {d}: {builds} in-loop cache builds, K6 "
+                  f"launches {k6}, K5 (O3) {k5}, of them {w6} and {w5} in "
+                  "the warm-up build (reused as the first); medians ms: "
                   f"{scope_line(stats, CP_PHASES + ('mesh.all_reduce',))}")
-            want = builds if d == "float32" else 0
-            if not k6 == k5 == want or (d == "float32" and builds == 0):
+            want, wwant = (builds, 1) if d == "float32" else (0, 0)
+            if not k6 - w6 == k5 - w5 == want or not w6 == w5 == wwant:
                 failures.append(f"12a rank {r} {d}: K6 {k6}, K5 {k5}, "
-                                f"cache builds {builds}")
+                                f"warm {w6}, {w5}, cache builds {builds}")
             launches["K6"] += k6
             launches["K5"] += k5
     half = COIL_SHAPE[3] // MESH_RANKS
@@ -3870,9 +3931,13 @@ def device_loop_cli(tmp, smi):
     n_rows = len(r0) - 1
     for loop, launches in (("0", l0), ("1", l1)):
         got = [launches[m] for m in range(3)]
+        # the phase engine warms the exact row statistics once (1/1/2)
+        w = int(loop == "1")
+        want = [n_rows + w, n_rows + w, 2 * (n_rows + w)]
         print(f"14a -device_loop {loop}: K1-K3 launches {got} (expected "
-              f"{[n_rows, n_rows, 2 * n_rows]}: 1/1/2 a logged row)")
-        if got != [n_rows, n_rows, 2 * n_rows]:
+              f"{want}: 1/1/2 a logged row" + (", and the warm-up's)"
+                                                  if w else ")"))
+        if got != want:
             raise AssertionError(f"14a -device_loop {loop}: K1-K3 {got}")
     device_loop_report("14a 200^3", "host", s0, None, smi)
     device_loop_report("14a 200^3", "device", s1, c1, smi)
@@ -3923,7 +3988,8 @@ def device_loop_coil(V, smi):
             cp.reset_device_loop_counts()
             tracing.enable()
             t0 = time.perf_counter()
-            res = fn(V, Ws, cfg)
+            with _bench.warm_launches() as warm:
+                res = fn(V, Ws, cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             tracing.enable(False)
@@ -3933,11 +3999,13 @@ def device_loop_coil(V, smi):
             counts["last_contract.last_contract"]
         print(f"14b coil {eng} engine: {len(res.history)} rows "
               f"({sum(h['pp'] for h in res.history)} PP), {res.iters} "
-              f"sweeps in {wall:.3f} s; K6 {k6}, K5 {k5}, cache builds "
-              f"{builds}")
-        if not k6 == k5 == builds > 0:
-            raise AssertionError(f"14b {eng}: K6 {k6}, K5 {k5}, builds "
-                                 f"{builds}")
+              f"sweeps in {wall:.3f} s")
+        # one warm-up build each: the host engine's is its first build,
+        # the phase engine's is discarded
+        for kid, n, key in (("K6", k6, "triple_roots.triple_roots"),
+                            ("K5", k5, "last_contract.last_contract")):
+            held_apart(f"14b {eng} {kid}", n, warm.get(key, 0), builds, 1,
+                       "in-loop cache builds")
         launches["K6"] += k6
         launches["K5"] += k5
         device_loop_report("14b coil", eng, stats,
@@ -4120,11 +4188,14 @@ def fused_cp_cli(tmp, smi):
             if not abs(a - b) <= DEVICE_LOOP_COIL_DIFFV * b:
                 raise AssertionError("15a: other decisions and another fit")
     for loop in rows:
-        n = len(rows[loop]) - 1 + (loop == "2")
+        # the final exact call of the fused machine, and one warm-up of
+        # the exact statistics in each device engine
+        n = len(rows[loop]) - 1 + (loop == "2") + (loop != "0")
         want = [n, n, 2 * n]
         print(f"15a -device_loop {loop}: K1-K3 launches {launches[loop]} "
               f"(expected {want}: 1/1/2 a logged row"
-              + (", and the final exact call)" if loop == "2" else ")"))
+              + (", the final exact call" if loop == "2" else "")
+              + (" and the warm-up's)" if loop != "0" else ")"))
         if launches[loop] != want:
             raise AssertionError(f"15a: K1-K3 {launches[loop]}")
     # [dtime] again in turns (fused, phase, host), the same rows
@@ -4183,7 +4254,8 @@ def fused_cp_coil(V, smi):
             cp.reset_device_loop_counts()
             tracing.enable()
             t0 = time.perf_counter()
-            res = fn(V, Ws, cfg)
+            with _bench.warm_launches() as warm:
+                res = fn(V, Ws, cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             tracing.enable(False)
@@ -4195,12 +4267,14 @@ def fused_cp_coil(V, smi):
             counts["last_contract.last_contract"]
         print(f"15b coil -device_loop {eng}: {len(res.history)} rows "
               f"({sum(h['pp'] for h in res.history)} PP), {res.iters} sweeps "
-              f"in {wall:.3f} s ({smi}); K6 {k6}, K5 {k5}, cache builds "
-              f"{builds}; scope medians, ms: "
+              f"in {wall:.3f} s ({smi}); scope medians, ms: "
               + scope_line(stats, CP_PHASES if eng == "0" else FUSED_STEPS))
-        if not k6 == k5 == builds > 0:
-            raise AssertionError(f"15b {eng}: K6 {k6}, K5 {k5}, builds "
-                                 f"{builds}")
+        # one warm-up build each: the host engine's is its first build,
+        # the fused machine's (on a carry of its own) is discarded
+        for kid, n, key in (("K6", k6, "triple_roots.triple_roots"),
+                            ("K5", k5, "last_contract.last_contract")):
+            held_apart(f"15b {eng} {kid}", n, warm.get(key, 0), builds, 1,
+                       "in-loop cache builds")
         launches["K6"] += k6
         launches["K5"] += k5
         out[eng] = res
@@ -4412,6 +4486,493 @@ def run_phase15(smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: dtime's warm-ups (C12), the device engines under -mesh, -layouts
+# ---------------------------------------------------------------------------
+
+# 16a: each run in a fresh process, with the engines' warm-ups
+# (models/cp.warm_run) and with each replaced by a no-op: the first DT
+# step of a -device_loop 0 run must stay within C12_FIRST_STEP_MAX of the
+# later DT steps' median.
+C12_FIRST_STEP_MAX = 2.0
+C12_CLI = ["test_als", "-model", "CP", "-tensor", "r", "-pp", "1", "-dim",
+           "3", "-size", "200", "-rank", "10", "-maxiter", "30",
+           "-resprint", "1", "-pp_res_tol", "0.1"]
+# The fresh process: argv[1] is a JSON spec ("cli": test_als's argv, or
+# "coil": CP-PP at the coil shape with use_kernels_triple; "warm": whether
+# the warm-ups run). It times each warm-up by the function it warms and
+# the kernels' library load, and prints one JSON line: the logged rows
+# [iter, pp, dtime], those seconds, and the card's name.
+C12_PROGRAM = r'''
+import csv, json, os, sys, tempfile, time
+spec = json.loads(sys.argv[1])
+import torch
+from pairwise_perturbation_tpu_torch import cli, config, native
+from pairwise_perturbation_tpu_torch.models import cp
+from pairwise_perturbation_tpu_torch.ops.kernels import _build
+parts, loads = {}, []
+real_warm, real_load = cp.warm_run, _build.load
+
+def warm(fn, *a, **k):
+    if not spec["warm"]:
+        return None
+    t0 = time.perf_counter()
+    try:
+        return real_warm(fn, *a, **k)
+    finally:
+        name = getattr(fn, "__name__", "?")
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+
+def load():
+    if _build._lib is not None:
+        return _build._lib
+    t0 = time.perf_counter()
+    try:
+        return real_load()
+    finally:
+        loads.append(time.perf_counter() - t0)
+
+cp.warm_run, _build.load = warm, load
+config.apply_fp32_pins()
+if spec.get("cli"):
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "c12.csv")
+        if cli.main(spec["cli"] + ["-quiet", "-filename", out]) != 0:
+            raise SystemExit("test_als failed")
+        with open(out) as fh:
+            rows = [[float(r[1]), float(r[4]), float(r[6])]
+                    for r in list(csv.reader(fh))[1:]]
+else:
+    shape = tuple(spec["coil"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    V = torch.rand(shape, generator=gen, device="cuda")
+    Ws = cp.init_factors(shape, 10, seed=0, device="cuda")
+    split = native.plan_tree_split_traffic(shape, 10)[0]
+    cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=1,
+                      tree_split=split)
+    with config.override(use_kernels_triple=True):
+        res = cp.als_cp_pp(V, Ws, cfg)
+    rows = [[h["iter"], h["pp"], h["dtime"]] for h in res.history]
+print(json.dumps(dict(rows=rows, parts=parts, loads=loads,
+                      card=torch.cuda.get_device_name(0))))
+'''
+# 16b: two ranks on the card, as phases 12-13 run them; the rows and
+# factors of each sharded device engine held to one process's run.
+DL_MESH_CP_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=20, resprint=1)
+DL_MESH_COIL_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
+DL_MESH_TK_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
+DL_ENGINES = {"dcl1": "als_cp_pp_device", "dcl2": "als_cp_pp_fused",
+              "dtl1": "als_tucker_pp_device", "dtl2": "als_tucker_pp_fused"}
+# 16c: layouts off, then on; each run's last diffV within this of the off
+# run's (float32; the copies change the order of no sum, but a contraction
+# over a copy may round in another order).
+LAYOUTS_DIFFV = 1e-3
+LAYOUTS_512 = ["test_als", "-model", "CP", "-tensor", "r", "-dim", "3",
+               "-size", "512", "-rank", "10", "-maxiter", "12",
+               "-resprint", "1", "-pp_res_tol", "0.1"]
+
+
+def c12_steps(rows):
+    """(first DT step, median of the later DT steps, DT steps) of rows
+    [iter, pp, dtime]: a DT row's step is its dtime less the row before's,
+    where both are consecutive DT rows."""
+    steps = [b[2] - a[2] for a, b in zip(rows, rows[1:])
+             if a[1] == 0 and b[1] == 0 and b[0] == a[0] + 1]
+    if len(steps) < 3:
+        raise AssertionError(f"16a: {len(steps)} DT steps in {rows}")
+    return steps[0], statistics.median(steps[1:]), len(steps)
+
+
+def c12_fresh(spec):
+    """C12_PROGRAM in a fresh process on ``spec``; its JSON line."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", C12_PROGRAM,
+                          json.dumps(spec)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"16a fresh process {spec}: exit "
+                             f"{out.returncode}\n{out.stderr[-4000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["wall"] = time.perf_counter() - t0
+    return got
+
+
+def run_c12(smi):
+    """16a: the first DT step against the later ones, fresh processes,
+    warm-ups on and off."""
+    cases = [(f"200^3 -device_loop {loop}",
+              dict(cli=C12_CLI + ["-device_loop", str(loop)]), loop == 0)
+             for loop in (0, 1, 2)]
+    cases.append(("coil use_kernels_triple -device_loop 0",
+                  dict(coil=list(COIL_SHAPE)), True))
+    failures = []
+    for label, spec, held in cases:
+        # without warm-ups only where the first step is held: the device
+        # engines' rows share a phase's or a chunk's time
+        res = {w: c12_fresh(dict(spec, warm=w))
+               for w in ((False, True) if held else (True,))}
+        f1, m1, n1 = c12_steps(res[True]["rows"])
+        print(f"16a {label} ({smi}): first DT step {1e3 * f1:.3f} ms, "
+              f"median of the later {n1 - 1} DT steps {1e3 * m1:.3f} ms "
+              f"(ratio {f1 / m1:.2f}" + (f", held to {C12_FIRST_STEP_MAX})"
+                                         if held else ", not held: rows "
+                                         "share a phase's or a chunk's "
+                                         "time)"))
+        if held:
+            f0, m0, _ = c12_steps(res[False]["rows"])
+            print(f"  without warm-ups {1e3 * f0:.3f} / {1e3 * m0:.3f} ms "
+                  f"(ratio {f0 / m0:.2f}): the warm-ups removed "
+                  f"{1e3 * (f0 - f1):.3f} ms of the first step's excess "
+                  f"{1e3 * (f0 - m0):.3f} ms")
+
+        def ms(xs):
+            return ", ".join(f"{1e3 * x:.3f}" for x in xs) or "not called"
+        print("  warm-up seconds by function: " + ", ".join(
+            f"{k} {1e3 * v:.3f} ms" for k, v in res[True]["parts"].items())
+            + f"; _build.load() {ms(res[True]['loads'])} ms inside a "
+            "warm-up" + (f", {ms(res[False]['loads'])} ms without warm-ups"
+                         " (inside dtime)" if held else "")
+            + "; process walls " + ", ".join(
+                f"{r['wall']:.1f}" for r in res.values()) + " s")
+        if held and not f1 <= C12_FIRST_STEP_MAX * m1:
+            failures.append(f"16a {label}: first DT step {f1} s against "
+                            f"the median {m1} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def dl_mesh_inputs(path, tmp, V, Ws, Vt=None, loops=(1, 2), config=None,
+                   cfg=None, mesh=(MESH_RANKS,)):
+    """A 16b cluster's inputs: V (and Tucker's Vt) as .npy files each rank
+    memory-maps its block of, the CP factors, the device engines to run."""
+    import numpy as np
+    d = dict(dd_mesh=np.asarray(mesh), dc_vfile=os.path.join(tmp, "V.npy"),
+             dc_cfg=json.dumps(cfg), dc_pp=np.asarray([], np.int64),
+             dc_loops=np.asarray(loops),
+             dc_config=json.dumps(config or {}))
+    np.save(d["dc_vfile"], V.cpu().numpy())
+    for i, W in enumerate(Ws):
+        d[f"dc_W{i}"] = W.cpu().numpy()
+    if Vt is not None:
+        d.update(dt_vfile=os.path.join(tmp, "Vt.npy"),
+                 dt_ranks=np.asarray(COIL_TUCKER_RANKS), dt_host=0,
+                 dt_loops=np.asarray(loops),
+                 dt_tk_cfg=json.dumps(DL_MESH_TK_CFG))
+        np.save(d["dt_vfile"], Vt.cpu().numpy())
+    np.savez(path, **d)
+
+
+def dl_one(tag, V, Ws, d, cfg, over=None):
+    """One process's run of the device engine ``tag`` (DL_ENGINES): its
+    result, scope stats and wall seconds."""
+    import torch
+    from pairwise_perturbation_tpu_torch import config
+    from pairwise_perturbation_tpu_torch.models import cp, tucker
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    dtype = getattr(torch, d)
+    tracing.reset()
+    tracing.enable()
+    t0 = time.perf_counter()
+    with config.override(**(over or {})):
+        if tag.startswith("dc"):
+            res = getattr(cp, DL_ENGINES[tag])(
+                V.to(dtype), [W.to(dtype) for W in Ws], cp.CPConfig(**cfg))
+        else:
+            res = getattr(tucker, DL_ENGINES[tag])(
+                V.to(dtype), COIL_TUCKER_RANKS,
+                tucker.TuckerConfig(**DL_MESH_TK_CFG))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracing.enable(False)
+    return res, tracing.stats(), wall
+
+
+def dl_held(label, res, tags, dtypes, V, Ws, cfg, smi, over=None, Vt=None):
+    """Each device engine ``tags`` x ``dtypes`` of a cluster against one
+    process's run: the ranks bit for bit, then held_engine (float64 by the
+    rows and factors, float32 CP by the fit, float32 Tucker by the rows,
+    the factor subspaces and a float64 reconstruction of the fit).
+    Returns the failures."""
+    failures = []
+    for tag in tags:
+        tucker = tag.startswith("dt")
+        for d in dtypes:
+            check_ranks_equal(res, f"{label} {tag} {d}",
+                              [f"sha/{tag}_hist/{d}"] + [
+                                  f"sha/{tag}_W/{d}/{i}"
+                                  for i in range(len(Ws))])
+            one, stats, wall = dl_one(tag, Vt if tucker else V, Ws, d, cfg,
+                                      over)
+            # float32 Tucker's CSV diffV (the norm identity) does not
+            # resolve the fit at the coil shape: it is held as 9a holds
+            # it, by the factor subspaces and a float64 reconstruction
+            f32_tucker = tucker and d == "float32"
+            label_e = f"{label} {DL_ENGINES[tag]} mesh=2 {d}"
+            _, bad = held_engine(
+                label_e, res[0], tag, d, one, stats, wall, smi,
+                tucker=tucker,
+                names=(TUCKER_SCOPES["1"] + TUCKER_SCOPES["2"][1:]) if tucker
+                else DEVICE_PHASES + FUSED_STEPS,
+                tol=dict(float32=F32_SUBSPACE_TOL) if f32_tucker
+                else DENSE_FACTOR_TOL,
+                by_fit=d == "float32" and not tucker, same_iters=False)
+            failures += [bad] if bad else []
+            if f32_tucker:
+                import torch
+                mine = [torch.from_numpy(res[0][f"{tag}_W/{d}/{i}"]).cuda()
+                        for i in range(len(one.factors))]
+                r2 = direct_residual(Vt, mine)
+                r1 = direct_residual(Vt, one.factors)
+                rel = abs(r2 - r1) / r1
+                print(f"  ||V - V^|| by float64 reconstruction: 2 ranks "
+                      f"{r2!r}, one process {r1!r}, relative {rel:.3e} (tol "
+                      f"{F32_RESIDUAL_TOL:g})")
+                if rel > F32_RESIDUAL_TOL:
+                    failures.append(f"{label_e}: the fit left one "
+                                    "process's")
+    return failures
+
+
+def run_dl_mesh(tmp, smi):
+    """16b: the device engines on 2 ranks (200^3 CP f64 and f32, K1-K3 on
+    each rank's block in the exact rows; the coil CP f32 with K6, and coil
+    Tucker f32), a world of one on NCCL; returns {kernel id: launches}."""
+    import torch
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.scripts.multiprocess_worker import \
+        WORKER
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, "K6": 0}
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    V = torch.rand((200, 200, 200), generator=gen, device="cuda")
+    Ws = cp.init_factors(V.shape, 10, seed=0, dtype=torch.float64,
+                         device="cuda")
+    inp = os.path.join(tmp, "c.npz")
+    dl_mesh_inputs(inp, tmp, V, Ws, cfg=DL_MESH_CP_CFG)
+    run_mesh_cluster(MESH_RANKS, WORKER + [
+        "--inputs", inp, "--outdir", os.path.join(tmp, "c"), "--tasks",
+        "dcp"], "16b cluster C (200^3 CP device engines)")
+    c = worker_results(os.path.join(tmp, "c"))
+    failures += dl_held("16b 200^3", c, ("dcl1", "dcl2"),
+                        ("float64", "float32"), V, Ws, DL_MESH_CP_CFG, smi)
+    for r, res in enumerate(c):
+        for tag in ("dcl1", "dcl2"):
+            n = json.loads(str(res[f"{tag}_launches/float32"]))
+            k = [n[f"mttkrp3.{m}"] for m in range(3)]
+            rows = len(res[f"{tag}_hist/float32"])
+            # 1/1/2 a logged row, the warm-up's, and the fused machine's
+            # final exact call
+            w = rows + 1 + (tag == "dcl2")
+            print(f"16b rank {r} {DL_ENGINES[tag]} f32: K1-K3 {k} on its "
+                  f"block (100, 200, 200), expected {[w, w, 2 * w]}")
+            if k != [w, w, 2 * w]:
+                failures.append(f"16b rank {r} {tag}: K1-K3 {k}")
+            for m in range(3):
+                launches[f"K{m + 1}"] += k[m]
+    for tag in ("dcl1", "dcl2"):
+        stats = json.loads(str(c[0][f"{tag}_stats/float64"]))
+        red = stats.get("mesh.all_reduce", (0, 0.0))
+        print(f"16b {DL_ENGINES[tag]} 200^3 f64 rank 0 ({smi}): "
+              f"mesh.all_reduce {red[0]} calls, {red[1]:.3f} s of "
+              f"{float(c[0][f'{tag}_wall/float64']):.3f} s")
+    del c
+    phase("16b. world of one on NCCL: torchrun --nproc_per_node 1, the "
+          "200^3 CP device engines f64 on a (1,) mesh, bit for bit")
+    inp1 = os.path.join(tmp, "c1.npz")
+    dl_mesh_inputs(inp1, tmp, V, Ws, cfg=DL_MESH_CP_CFG, mesh=(1,))
+    out = run_mesh_cluster(1, WORKER + [
+        "--inputs", inp1, "--outdir", os.path.join(tmp, "c1"), "--tasks",
+        "dcp", "--dtypes", "float64"], "16b world of one")
+    one = worker_results(os.path.join(tmp, "c1"), 1)[0]
+    if str(one["backend"]) != "nccl":
+        raise AssertionError(f"16b world of one: backend {one['backend']}")
+    for tag in ("dcl1", "dcl2"):
+        ref, _, _ = dl_one(tag, V, Ws, "float64", DL_MESH_CP_CFG)
+        want = [[h["iter"], h["gradnorm"], h["diffV"], h["pp"]]
+                for h in ref.history]
+        got = one[f"{tag}_hist/float64"].tolist()
+        stats = json.loads(str(one[f"{tag}_stats/float64"]))
+        red = stats.get("mesh.all_reduce", (0, 0.0))
+        print(f"16b world of one {DL_ENGINES[tag]}: rows bit for bit "
+              f"{got == want} ({len(got)} rows); mesh.all_reduce "
+              f"{red[0]} calls {red[1]:.3f} s")
+        if got != want:
+            failures.append(f"16b world of one {tag}: rows differ")
+    del V
+    torch.cuda.empty_cache()
+    phase("16b. the coil shape on 2 ranks: CP device engines f32 with K6 "
+          "(use_kernels_triple), Tucker's at ranks (3, 10, 10, 70) f32")
+    Vc = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    Wc = cp.init_factors(COIL_SHAPE, 10, seed=0, dtype=torch.float64,
+                         device="cuda")
+    Vt = low_tucker_rank_tensor(COIL_SHAPE, COIL_TUCKER_RANKS, seed=16)
+    over = dict(use_kernels_triple=True)
+    inp = os.path.join(tmp, "d.npz")
+    dl_mesh_inputs(inp, tmp, Vc, Wc, Vt, config=over, cfg=DL_MESH_COIL_CFG)
+    run_mesh_cluster(MESH_RANKS, WORKER + [
+        "--inputs", inp, "--outdir", os.path.join(tmp, "d"), "--tasks",
+        "dcp,dtucker", "--dtypes", "float32"],
+        "16b cluster D (coil device engines)")
+    dres = worker_results(os.path.join(tmp, "d"))
+    failures += dl_held("16b coil", dres, ("dcl1", "dcl2", "dtl1", "dtl2"),
+                        ("float32",), Vc, Wc, DL_MESH_COIL_CFG, smi, over,
+                        Vt)
+    for r, res in enumerate(dres):
+        for tag in ("dcl1", "dcl2"):
+            n = json.loads(str(res[f"{tag}_launches/float32"]))
+            warm = json.loads(str(res[f"{tag}_warm/float32"]))
+            stats = json.loads(str(res[f"{tag}_stats/float32"]))
+            builds = stats.get("cp.pp_cache_build", (0,))[0] \
+                if tag == "dcl1" else stats.get("cp.fused_build_step",
+                                                (0,))[0]
+            for kid, key in (("K6", "triple_roots.triple_roots"),
+                             ("K5", "last_contract.last_contract")):
+                try:
+                    held_apart(f"16b rank {r} {tag} {kid}", n[key],
+                               warm.get(key, 0), builds, 1, "cache builds")
+                except AssertionError as e:
+                    failures.append(str(e))
+                launches[kid] += n[key]
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def layouts_run(label, fn, smi):
+    """One -layouts run: ``fn()`` -> (rows [iter, pp, diffV], DT sweep
+    samples s) under the scopes, with the card's peak memory."""
+    import torch
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracing.reset()
+    tracing.enable()
+    try:
+        rows, scope = fn()
+    finally:
+        tracing.enable(False)
+    samples = tracing.samples(scope)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(samples[1:] or samples)
+    print(f"16c {label} ({smi}): {len(rows)} rows, last diffV "
+          f"{rows[-1][2]!r}; {scope} median {1e3 * med:.3f} ms "
+          f"({len(samples)} calls); peak memory {peak:.2f} GiB")
+    return rows, med, peak
+
+
+def layouts_copy_ms(label, V, Ws, split, layouts, smi):
+    """Device ms of one DT sweep and of its copy kernels (torch.profiler,
+    device events only)."""
+    from pairwise_perturbation_tpu_torch import phase_profile
+    from pairwise_perturbation_tpu_torch.models import cp
+    busy, per = phase_profile.profile(lambda: cp.dt_sweep(
+        V, Ws, 0.0, root_split=split, layouts=layouts), "cuda", 5)
+    copy = sum(v for k, v in per.items() if "copy" in k.lower())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    print(f"16c {label} DT sweep ({smi}): device {busy:.3f} ms, copy "
+          f"kernels {copy:.3f} ms ({100 * copy / busy:.1f}%); top kernels "
+          + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
+    return busy, copy
+
+
+def run_layouts(tmp, smi):
+    """16c: test_als -pp 0 and -pp 1 -device_loop 2 at the coil shape and
+    at 512^3, f32, -layouts 0 then 1: DT sweep medians, the copy kernels'
+    device ms, peak memory; each layouts-on run held to its off run by
+    the last diffV."""
+    import torch
+    from pairwise_perturbation_tpu_torch import native
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops import contract
+    failures = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    split = native.plan_tree_split_traffic(COIL_SHAPE, 10)[0]
+    W0 = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
+    modes = contract.chain_root_modes_dt(COIL_SHAPE, split)
+    print(f"16c coil: tree split {split}, DT chain roots {modes}, PP chain "
+          f"roots {contract.chain_root_modes_pp(COIL_SHAPE)}; a copy of V "
+          f"is {V.numel() * 4 / 2**30:.2f} GiB")
+    layouts_copy_ms("coil layouts off", V, W0, split, None, smi)
+    copies = contract.prepare_layouts(V, modes)
+    layouts_copy_ms("coil layouts on", V, W0, split, copies, smi)
+    del copies     # the runs below make their own and report the peak
+    for engine, scope in (("als_cp_dt", "cp.sweep"),
+                          ("als_cp_pp_fused", "cp.fused_dt_step")):
+        got = {}
+        for on in (False, True):
+            cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=12,
+                              resprint=1, tree_split=split,
+                              precompute_layouts=on)
+
+            def fn():
+                res = getattr(cp, engine)(V, [W.clone() for W in W0], cfg)
+                return ([[h["iter"], h["pp"], h["diffV"]]
+                         for h in res.history], scope)
+            got[on] = layouts_run(f"coil {engine} layouts {int(on)}", fn,
+                                  smi)
+        a, b = got[True][0][-1][2], got[False][0][-1][2]
+        print(f"16c coil {engine}: DT median {1e3 * got[False][1]:.3f} -> "
+              f"{1e3 * got[True][1]:.3f} ms, peak {got[False][2]:.2f} -> "
+              f"{got[True][2]:.2f} GiB, last diffV {abs(a - b) / b:.3e} "
+              f"apart (tol {LAYOUTS_DIFFV})")
+        if not abs(a - b) <= LAYOUTS_DIFFV * b:
+            failures.append(f"16c coil {engine}: diffV {a} against {b}")
+    del V
+    torch.cuda.empty_cache()
+    for extra, scope in ((["-pp", "0"], "cp.sweep"),
+                         (["-pp", "1", "-device_loop", "2"],
+                          "cp.fused_dt_step")):
+        got = {}
+        for on in ("0", "1"):
+            def fn():
+                rows = cli_csv(LAYOUTS_512 + extra + ["-layouts", on,
+                                                      "-profile", "1"],
+                               os.path.join(tmp, "layouts.csv"))
+                return ([[float(r[1]), float(r[4]), float(r[5])]
+                         for r in rows[1:]], scope)
+            got[on] = layouts_run(f"512^3 {' '.join(extra)} -layouts {on}",
+                                  fn, smi)
+        a, b = got["1"][0][-1][2], got["0"][0][-1][2]
+        print(f"16c 512^3 {' '.join(extra)}: DT median "
+              f"{1e3 * got['0'][1]:.3f} -> {1e3 * got['1'][1]:.3f} ms, peak "
+              f"{got['0'][2]:.2f} -> {got['1'][2]:.2f} GiB, last diffV "
+              f"{abs(a - b) / b:.3e} apart (tol {LAYOUTS_DIFFV})")
+        if not abs(a - b) <= LAYOUTS_DIFFV * b:
+            failures.append(f"16c 512^3 {extra}: diffV {a} against {b}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    V = torch.rand((512, 512, 512), generator=gen, device="cuda")
+    W5 = cp.init_factors(V.shape, 10, seed=0, device="cuda")
+    layouts_copy_ms("512^3 layouts off", V, W5, None, None, smi)
+    copies = contract.prepare_layouts(V, contract.chain_root_modes_dt(V.shape))
+    layouts_copy_ms("512^3 layouts on", V, W5, None, copies, smi)
+    del V, copies
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def run_phase16(smi):
+    """Phase 16 (16a-16c); returns {kernel id: launches}."""
+    t_phase = time.perf_counter()
+    phase("16a. C12: the first DT step of a fresh process against the "
+          "later DT steps, warm-ups on and off, f32")
+    run_c12(smi)
+    phase("16b. the device engines on a block-sharded V, 2 ranks over gloo "
+          "on one card: CP -device_loop 1 and 2 at 200^3 (f64, f32)")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = run_dl_mesh(tmp, smi)
+    phase("16c. -layouts 1: mode-minor copies of V, coil and 512^3 f32, "
+          "off then on")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_layouts(tmp, smi)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 # Rows of the table on the port's paths that this slice drives (the CLI
 # main path, its 512^3 run with use_kernels_first, and the benchmark
 # scripts); K6 serves the coil PP path and K7 the sparse path.
@@ -4454,9 +5015,10 @@ def main(argv=None) -> int:
                          "datasets, checkpoints and traces, 11 for the "
                          "nnz-sharded engines under torchrun, 12 for the "
                          "dense engines on a block-sharded V, 13 for run "
-                         "-mesh, 14 for test_als -device_loop 1 and 15 "
+                         "-mesh, 14 for test_als -device_loop 1, 15 "
                          "for -device_loop 2, Tucker's device engines and "
-                         "bench_pp_e2e)"
+                         "bench_pp_e2e, 16 for dtime's warm-ups, the device "
+                         "engines under -mesh and -layouts 1)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
@@ -4466,7 +5028,8 @@ def main(argv=None) -> int:
         names = args.phases.split(",")
         unknown = [n for n in names
                    if n not in KERNEL_PHASES
-                   and n not in ("9", "10", "11", "12", "13", "14", "15")]
+                   and n not in ("9", "10", "11", "12", "13", "14", "15",
+                                 "16")]
         if unknown:
             ap.error(f"unknown phases {unknown}")
         smi = run_kernel_phases([n for n in names if n in KERNEL_PHASES])
@@ -4484,6 +5047,8 @@ def main(argv=None) -> int:
             print(f"phase 14 launches: {run_phase14(smi)}")
         if "15" in names:
             print(f"phase 15 launches: {run_phase15(smi)}")
+        if "16" in names:
+            print(f"phase 16 launches: {run_phase16(smi)}")
         print(json.dumps({"results": {k: v for k, v in RESULTS.items()
                                       if len(v) > 1}}))
         print(smi)
@@ -4581,6 +5146,9 @@ def main(argv=None) -> int:
     for kid, n in run_phase15(smi).items():
         launches[kid] += n
         by_phase.setdefault(kid, {})["15"] = n
+    for kid, n in run_phase16(smi).items():
+        launches[kid] += n
+        by_phase.setdefault(kid, {})["16"] = n
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]

@@ -60,15 +60,18 @@ for time-lapse; its checkpoints are written back in the natural order, so
 core) to PATH.npz; ``-resume PATH`` starts dense CP test_als from a
 checkpoint's factors, the only path where the JAX package reads it.
 ``-profile 1 -trace_dir DIR`` also writes a torch.profiler trace of the
-command to DIR (utils/tracing.device_trace). What is not ported yet is
-refused with the ROADMAP step that brings it.
+command to DIR (utils/tracing.device_trace). ``-layouts 1`` makes
+mode-minor copies of V for dense CP ``test_als -pp 0`` and ``-pp 1
+-device_loop 1`` or ``2`` (``CPConfig.precompute_layouts``). A flag
+that the JAX package ignores on a path is refused there, saying so.
 
 ``-mesh N`` (or ``AxB``) runs ``test_als`` and ``pp_bench`` over a mesh
 of ranks (parallel/mesh.py), one process per rank, started by torchrun;
 rank 0 alone prints and writes the CSV (and the checkpoint, of the
 unsharded factors). The dense engines take V block-sharded over its
 largest modes (zero-padded; ``-tensor o1/o2`` read block by block from
-the file), CP and Tucker, every -pp and dtype of the unsharded run;
+the file), CP and Tucker, every -pp, dtype and ``-device_loop`` of the
+unsharded run;
 ``-issparse 1`` takes an nnz-sharded COO over a 1D mesh:
 
     torchrun --standalone --nproc_per_node 2 \
@@ -102,10 +105,8 @@ RUN_OPTIMIZERS = ("DT", "MSDT", "DT-LR", "MSDT-LR", "Simple")
 
 
 def _device_loop_refusal(args, cmd):
-    """Why ``-device_loop`` >= 1 is refused for this command, or None.
-    Where the JAX package ignores the flag, the refusal says so; where it
-    has an engine the port lacks (the device engines under -mesh), it
-    names ROADMAP A14's rest."""
+    """Why ``-device_loop`` >= 1 is refused for this command, or None:
+    where the JAX package ignores the flag, the refusal says so."""
     if args.device_loop < 1 or cmd == "run":
         return None
     ignored = "; the JAX package ignores the flag there. Use -device_loop 0"
@@ -120,14 +121,30 @@ def _device_loop_refusal(args, cmd):
     if args.model == "Tucker" and args.pp == 0:
         return ("-device_loop: test_als -model Tucker -pp 0 (DT-ALS) runs "
                 "the host-driven engine" + ignored)
-    if args.mesh:
-        engine = "the fused machine" if args.device_loop >= 2 \
-            else "the device-resident phase loops"
-        return (f"-device_loop {args.device_loop} ({engine}) for "
-                f"{args.model} with -mesh (the device engines' mesh half) is "
-                "not ported yet (ROADMAP A14's rest); use -device_loop 0 "
-                "under -mesh")
     return None
+
+
+def _layouts_refusal(args, cmd):
+    """Why ``-layouts 1`` is refused, or None: the JAX package reads it
+    (CPConfig.precompute_layouts) only in dense CP test_als with -pp 0
+    (DT-ALS) and with -pp 1 -device_loop 1 or 2 (the device engines), and
+    ignores it everywhere else."""
+    if not args.layouts:
+        return None
+    if cmd == "test_als" and args.model == "CP" and not args.issparse:
+        if args.pp == 0 or (args.pp == 1 and args.device_loop >= 1):
+            return None
+        where = (f"test_als -model CP -pp {args.pp}"
+                 + (" -device_loop 0 (the host-driven engine)"
+                    if args.pp == 1 else " (PP-partupdate)"))
+    elif cmd == "test_als":
+        where = ("the sparse engines (-issparse 1)" if args.issparse
+                 else "test_als -model Tucker")
+    else:
+        where = cmd
+    return (f"-layouts 1: {where} never reads it; the JAX package ignores "
+            "the flag there. Use -layouts 0 (the flag serves dense CP "
+            "test_als -pp 0, and -pp 1 with -device_loop 1 or 2)")
 
 
 def _unsupported(args, cmd):
@@ -152,6 +169,7 @@ def _unsupported(args, cmd):
              "sparse engine, in the JAX package either"),
         ]
     loop = _device_loop_refusal(args, cmd)
+    layouts = _layouts_refusal(args, cmd)
     checks += [
         (loop is not None, loop),
         (bool(args.mesh) and bool(args.issparse)
@@ -161,8 +179,7 @@ def _unsupported(args, cmd):
          "only for test_als CP/Tucker on a 1D mesh (nnz-sharded COO, "
          "parallel/mesh.shard_coo). Re-run without -issparse or "
          "adjust -mesh."),
-        (bool(args.layouts), "-layouts 1 is not ported (ROADMAP A16): "
-         "its mode-minor copies of V serve the TPU's tiling"),
+        (layouts is not None, layouts),
         (bool(args.resume) and not resumes,
          "-resume seeds only dense CP test_als: the JAX package reads no "
          "checkpoint on this path either"),
@@ -552,7 +569,8 @@ def cmd_test_als(args) -> int:
                       maxiter=args.maxiter, timelimit=args.timelimit,
                       resprint=args.resprint,
                       update_percentage=args.update_percentage_pp,
-                      tree_split=split, mesh_layout=layout)
+                      tree_split=split, mesh_layout=layout,
+                      precompute_layouts=bool(args.layouts))
     res = _solved(solve, _plot(args, PlotFile.CP_HEADER), X,
                   _sharded_factors(Ws, layout), cfg, **kw)
     _save_checkpoint(args, _unsharded(res, layout), "CP")

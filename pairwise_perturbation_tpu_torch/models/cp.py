@@ -16,9 +16,16 @@ and PP with partial updates — port of
 Each sweep (DT sweep, PP cache build, PP sweep) is eager PyTorch on the
 tensors' device; the DT <-> PP phase machine, restart tolerances and CSV
 logging run on the host at per-sweep granularity, reading a few scalars
-per sweep. There is no compile step to warm up and no relay round-trip to
-calibrate, so the JAX package's ``warm_compile`` and ``calibrate_rtt``
-have no counterpart.
+per sweep. Nothing is compiled, but the first call of a sweep function in
+a process pays first-use costs all the same: cuBLAS and cuSOLVER handles
+and workspaces, the caching allocator's first blocks, the kernels' build
+and load (ops/kernels/_build.load). The JAX package keeps its compile
+out of ``dtime`` by running each sweep function once before its loop
+(``warm_compile``); the port runs them once the same way
+(:func:`warm_run`), at the same places, inside the clock's excluded
+window, and its device engines start their clocks after the warm-ups, as
+the JAX engines do. There is no relay round-trip, so ``calibrate_rtt``
+has no counterpart.
 
 Numerics: factor updates solve W S = M with S the Hadamard-of-Grams R x R
 matrix; ``solver='svd'`` matches the legacy engine, ``solver='chol'`` the
@@ -86,6 +93,10 @@ class CPConfig:
     # ShardedLayout of a -mesh run (parallel/mesh.plan_layout): V and the
     # factors are this rank's blocks; None = unsharded.
     mesh_layout: object = None
+    # Mode-minor copies of V (contract.prepare_layouts) for the DT tree's
+    # and the PP caches' chain roots, made once before the loop; read by
+    # als_cp_dt and the device engines, as in the JAX package (-layouts 1).
+    precompute_layouts: bool = False
 
 
 @dataclass
@@ -104,18 +115,20 @@ class CPResult:
 
 
 def dt_sweep(V, Ws, lam, rcond=None, *, solver: str = "svd",
-             normalize: bool = True, root_split: int = None, layout=None):
+             normalize: bool = True, root_split: int = None, layout=None,
+             layouts=None):
     """One full DT-ALS sweep: per-mode MTTKRP from the binary dimension tree,
     S assembly, gradient, solve. Returns (Ws_new, grads).
 
     Mirrors the per-iteration body of alsCP_DT (als_CP.cxx:215-303),
     including cache freshness: tree nodes are built on first use and reused
     for later modes even after earlier factors updated. ``layout``: V and
-    Ws are this rank's blocks; the grads are row blocks.
+    Ws are this rank's blocks; the grads are row blocks. ``layouts``:
+    mode-minor copies of V for the tree's first contractions.
     """
     order = V.ndim
     sweep = dimtree.BinaryTreeSweep(V, Ws, root_split=root_split,
-                                    layout=layout)
+                                    layout=layout, layouts=layouts)
     grads = [None] * order
     for i in range(order):
         M = sweep.mttkrp(i)
@@ -147,14 +160,15 @@ def simple_sweep(V, Ws, lam, rcond=None, *, solver: str = "svd",
     return Ws, grads
 
 
-def pp_build_caches(V, Ws, layout=None):
+def pp_build_caches(V, Ws, layout=None, layouts=None):
     """Build PP pair + single caches (als_CP.cxx:667-695); under
     ``layout`` through parallel/mesh.constrained_pp_caches (JAX
     cp.py:537-591), each cache summed over the sharded modes it
-    contracted."""
+    contracted. ``layouts``: mode-minor copies of V for the chain roots
+    (K6 then serves none of them)."""
     if layout is not None:
-        return pmesh.constrained_pp_caches(V, Ws, layout)
-    return contract.build_pp_caches(V, Ws)
+        return pmesh.constrained_pp_caches(V, Ws, layout, layouts)
+    return contract.build_pp_caches(V, Ws, layouts=layouts)
 
 
 def pp_sweep(single, pair, Ws, W_init, dWs, lam, ratio_step, rcond=None,
@@ -311,6 +325,40 @@ def _sync():
         torch.cuda.synchronize()
 
 
+def warm_run(fn, *args, **kwargs):
+    """Call ``fn`` once and wait for the card: the counterpart of the JAX
+    package's ``warm_compile`` (cp.py:331-351). An engine calls it on its
+    run's own inputs before its loop, inside the clock's excluded window
+    (or before it starts its clock), so that what a process pays at the
+    first call of a sweep function stays out of ``dtime``. Returns
+    ``fn``'s result, which most callers discard.
+
+    Unlike ``warm_compile`` it lets an exception raise: a warm-up that
+    fails is a fault of the run, not something to hide. It draws no
+    random numbers of its own (every draw of the port is an argument,
+    and the callers pass the real call's). It records no tracing scope
+    and leaves DEVICE_LOOP_COUNTS as they were; the kernels it reaches
+    count their launches, as every launch counts."""
+    counts = dict(DEVICE_LOOP_COUNTS)
+    with tracing.paused():
+        out = fn(*args, **kwargs)
+        _sync()
+    DEVICE_LOOP_COUNTS.update(counts)
+    return out
+
+
+def _root_modes(V, cfg: CPConfig, pp: bool):
+    """The modes whose mode-minor copies ``-layouts 1`` makes: the DT
+    tree's chain roots, and with ``pp`` the PP caches' too (JAX
+    cp.py:445-452, 916-921), planned on the padded global shape under
+    -mesh."""
+    shape = contract.plan_shape(V, cfg.mesh_layout)
+    modes = set(contract.chain_root_modes_dt(shape, cfg.tree_split))
+    if pp:
+        modes |= set(contract.chain_root_modes_pp(shape))
+    return sorted(modes)
+
+
 def _diag_and_log(V_norm_sq, V, Ws, lam, clock, plot, it, tol, pp_flag,
                   history, layout=None):
     """Run EXACT diagnostics with excluded time, log a CSV row, return
@@ -343,17 +391,36 @@ def als_cp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None) -> CPResult:
 
 def als_cp_dt(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
               clock: Optional[SweepClock] = None) -> CPResult:
-    """DT-ALS. Reference: alsCP_DT (als_CP.cxx:127-320)."""
+    """DT-ALS. Reference: alsCP_DT (als_CP.cxx:127-320). With
+    ``cfg.precompute_layouts`` the tree's chain roots read mode-minor
+    copies of V, made before the loop in excluded time."""
+    layouts = {}
+
     def sweep_fn(V, Ws, lam, rcond, solver):
         return dt_sweep(V, Ws, lam, rcond, solver=solver,
-                        root_split=cfg.tree_split, layout=cfg.mesh_layout)
-    return _als_generic(V, Ws, cfg, plot, sweep_fn=sweep_fn, clock=clock)
+                        root_split=cfg.tree_split, layout=cfg.mesh_layout,
+                        layouts=layouts.get("V"))
+
+    def setup():
+        if cfg.precompute_layouts:
+            layouts["V"] = contract.prepare_layouts(
+                V, _root_modes(V, cfg, pp=False))
+    return _als_generic(V, Ws, cfg, plot, sweep_fn=sweep_fn, clock=clock,
+                        setup=setup)
 
 
-def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn, clock=None) -> CPResult:
+def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn, clock=None,
+                 setup=None) -> CPResult:
+    """The loop of :func:`als_cp` and :func:`als_cp_dt`: ``setup()`` and
+    one warm sweep (:func:`warm_run`, JAX cp.py:460-461) in excluded
+    time, then sweeps with a logged row every ``resprint``."""
     Ws = list(Ws)
     V_norm_sq = contract.norm_sq(V, cfg.mesh_layout)
     clock = clock or SweepClock()
+    with clock.exclude():
+        if setup is not None:
+            setup()
+        warm_run(sweep_fn, V, Ws, cfg.lam, cfg.rcond, solver=cfg.solver)
     history: list = []
     gn, diffV = float("inf"), float("inf")
     it = 0
@@ -376,10 +443,19 @@ def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn, clock=None) -> CPResult:
 
 def _dt_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
     """DT sweeps as PP preconditioner. Reference: alsCP_DT_sub
-    (als_CP.cxx:418-612). Returns (Ws, dWs, exit_reason)."""
+    (als_CP.cxx:418-612). Returns (Ws, dWs, exit_reason).
+
+    The first DT phase of a solve runs one warm DT sweep and its ratio
+    pull in excluded time (JAX cp.py:485-486 warms the sweep at every
+    phase entry, where only the first compiles; here only the first pays
+    a first-use cost)."""
     order = V.ndim
     layout = cfg.mesh_layout
     W_prev = [torch.zeros_like(W) for W in Ws]
+    if not state.get("dt_warmed"):
+        with clock.exclude():
+            warm_run(_warm_dt, V, Ws, cfg, layout)
+        state["dt_warmed"] = True
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
         if it % cfg.resprint == 0 or it == cfg.maxiter:
@@ -405,13 +481,46 @@ def _dt_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
     return Ws, dWs, "maxiter"
 
 
+def _warm_dt(V, Ws, cfg: CPConfig, layout):
+    """A DT sweep of the host engine and the pull of its restart ratios,
+    as the loop runs them; the results are discarded."""
+    Ws2, _ = dt_sweep(V, Ws, cfg.lam, cfg.rcond, solver=cfg.solver,
+                      root_split=cfg.tree_split, layout=layout)
+    factor_norm_ratios(Ws2, [a - b for a, b in zip(Ws2, Ws)],
+                       layout).cpu()
+
+
+def _warm_pp(caches, Ws, cfg: CPConfig, layout):
+    """A PP sweep on ``caches`` from ``Ws`` and the pull of its restart
+    ratios and gradnorm, as the loop runs them; the results are
+    discarded."""
+    Ws2, dWs2, grads = pp_sweep(*caches, Ws, Ws,
+                                [torch.zeros_like(W) for W in Ws], cfg.lam,
+                                cfg.ratio_step, cfg.rcond, solver=cfg.solver,
+                                layout=layout)
+    ratios_and_gradnorm(Ws2, dWs2, grads, layout).cpu()
+
+
 def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
             partial_update: bool = False):
     """PP sweeps. Reference: alsCP_PP_sub (als_CP.cxx:621-833) /
-    alsCP_PP_partupdate_sub (als_CP.cxx:852-1073)."""
+    alsCP_PP_partupdate_sub (als_CP.cxx:852-1073).
+
+    Once a solve, in excluded time (JAX cp.py:531-549): a warm cache build
+    (under ``layout`` the constrained one), kept in
+    ``state["warm_caches"]`` and used as the phase's first build, since
+    the factors do not change in between (JAX cp.py:584-586); and without
+    ``partial_update`` one warm PP sweep on it, with its ratio pull."""
     order = V.ndim
     layout = cfg.mesh_layout
     init_iter = state["iter"]
+    if not state.get("pp_warmed"):
+        with clock.exclude():
+            warm = warm_run(pp_build_caches, V, Ws, layout)
+            if not partial_update and warm is not None:
+                warm_run(_warm_pp, warm, Ws, cfg, layout)
+        state["warm_caches"] = warm
+        state["pp_warmed"] = True
     W_init = None
     single = pair = None
     # partial-update state (als_CP.cxx:886-898): dMs zeroed at the cache
@@ -452,8 +561,12 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
                 return Ws, dWs, "restart"
             W_init = list(Ws)
             dWs = [torch.zeros_like(W) for W in Ws]
-            single, pair = tracing.timed("cp.pp_cache_build",
-                                         pp_build_caches, V, Ws, layout)
+            warm = state.pop("warm_caches", None)
+            if warm is not None:
+                single, pair = warm     # built from these very factors
+            else:
+                single, pair = tracing.timed("cp.pp_cache_build",
+                                             pp_build_caches, V, Ws, layout)
             if partial_update:
                 dMs = [torch.zeros_like(W) for W in Ws]
         if it % cfg.resprint == 0 or it == cfg.maxiter or it == init_iter:
@@ -574,36 +687,53 @@ def _in_dtype(x: float, dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
 
 
-def _sweep_norm_stats(V_norm_sq, Ws, grads, lam):
+def _row_sums(grads, more=(), layout=None):
+    """The squared norms of the (row-block) ``grads``, then the ``more``
+    (tensor, mode) sums over a factor's rows, each summed over its mode's
+    axis under ``layout`` (one all_reduce per axis for all of them)."""
+    order = len(grads)
+    return pmesh.row_sum([torch.sum(g * g) for g in grads]
+                         + [t for t, _ in more],
+                         list(range(order)) + [m for _, m in more], layout)
+
+
+def _sweep_norm_stats(V_norm_sq, Ws, grads, lam, layout=None):
     """The DT phase's cheap per-sweep (gradnorm, diffV): the exact-solve
     identity ||V - V^||^2 = ||V||^2 - <S_last, W_last^T W_last> (phase
-    control only; logged rows are recomputed exactly)."""
+    control only; logged rows are recomputed exactly). ``layout``: the
+    grads' norms and the last Gram summed over the rows."""
     order = len(Ws)
-    gn = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    S_last = contract.hadamard_gram(Ws, skip_mode=order - 1, regul=lam)
-    vhat_sq = torch.sum(S_last * contract.gram(Ws[order - 1]))
+    sums = _row_sums(grads, [(contract.gram(Ws[order - 1]), order - 1)],
+                     layout)
+    gn = torch.sqrt(sum(sums[:order]))
+    S_last = contract.hadamard_gram(Ws, skip_mode=order - 1, regul=lam,
+                                    layout=layout)
+    vhat_sq = torch.sum(S_last * sums[order])
     return gn, torch.sqrt(torch.clamp(V_norm_sq - vhat_sq, min=0.0))
 
 
-def _exact_row_stats(V, V_norm_sq, Ws, lam):
+def _exact_row_stats(V, V_norm_sq, Ws, lam, layout=None):
     """EXACT (gradnorm, diffV) of a logged row (:func:`cp_diagnostics`),
     in the factors' dtype."""
-    gn, diffV = cp_diagnostics(V_norm_sq, V, list(Ws), lam)
+    gn, diffV = cp_diagnostics(V_norm_sq, V, list(Ws), lam, layout)
     return gn.to(Ws[0].dtype), diffV.to(Ws[0].dtype)
 
 
-def _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws, dWs, grads):
+def _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws, dWs, grads,
+                         layout=None):
     """The PP phase's per-sweep (gradnorm, diffV estimate): the norm
     identity with the PP-corrected last-mode MTTKRP, first-order accurate
     in dW and free of V passes (JAX cp.py:711-733 says why the DT
-    shortcut drifts here)."""
+    shortcut drifts here). ``layout``: the grads' norms and the inner
+    product summed over the rows."""
     order = len(Ws)
-    gn = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     M_last = contract.pp_correct_mttkrp(single[order - 1], pair, dWs,
-                                        order - 1)
-    inner = torch.sum(M_last * Ws[order - 1])
-    S_all = contract.hadamard_gram(Ws, skip_mode=-1)
-    return gn, torch.sqrt(torch.clamp(V_norm_sq - 2.0 * inner
+                                        order - 1, layout)
+    sums = _row_sums(grads, [(torch.sum(M_last * Ws[order - 1]),
+                              order - 1)], layout)
+    gn = torch.sqrt(sum(sums[:order]))
+    S_all = contract.hadamard_gram(Ws, skip_mode=-1, layout=layout)
+    return gn, torch.sqrt(torch.clamp(V_norm_sq - 2.0 * sums[order]
                                       + torch.sum(S_all), min=0.0))
 
 
@@ -698,7 +828,8 @@ def _commit(st, on, **new):
 def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
                     log_mark=-1, *, solver: str = "svd",
                     max_sweeps: int = 256, resprint: int = 0,
-                    root_split: int = None, n_slots: int = 0):
+                    root_split: int = None, n_slots: int = 0, layout=None,
+                    layouts=None, V_norm_sq=None):
     """DT sweeps with their loop on the device until every mode is quiet
     (||dW||/||W|| < tol_init, alsCP_DT_sub:594-605), the gradnorm
     estimate falls below gn_tol, or ``it_budget`` sweeps ran (JAX
@@ -709,8 +840,14 @@ def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
     a ring of ``n_slots``. ``hist`` rows hold :func:`_sweep_norm_stats`'
     estimates. Returns (n_sweeps, Ws, dWs, gn, quiet, hist[max_sweeps, 2],
     snaps, labels, count): n_sweeps a host int (pulled with the last
-    chunk's flag), the rest device tensors, as the JAX while-loop's."""
-    V_norm_sq = contract.norm_sq(V)
+    chunk's flag), the rest device tensors, as the JAX while-loop's.
+
+    ``layout`` (-mesh): V and Ws are this rank's blocks; the flag is
+    computed from all-reduced values, so every rank issues the same
+    sweeps, and the ring holds this rank's blocks. ``layouts``: mode-minor
+    copies of V. ``V_norm_sq``: ||V||^2 if known (else computed)."""
+    if V_norm_sq is None:
+        V_norm_sq = contract.norm_sq(V, layout)
     st, snaps, labels = _loop_state(
         Ws, max_sweeps, n_slots, W_prev=[torch.zeros_like(W) for W in Ws],
         quiet=torch.zeros((), dtype=torch.bool, device=V.device))
@@ -718,11 +855,12 @@ def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
     def sweep(j):
         on = st["on"]
         Ws2, grads = dt_sweep(V, st["Ws"], lam, solver=solver,
-                              root_split=root_split)
+                              root_split=root_split, layout=layout,
+                              layouts=layouts)
         dWs2 = [a - b for a, b in zip(Ws2, st["W_prev"])]
-        quiet2 = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2))
+        quiet2 = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2, layout))
                            < tol_init)
-        gn2, diffV = _sweep_norm_stats(V_norm_sq, Ws2, grads, lam)
+        gn2, diffV = _sweep_norm_stats(V_norm_sq, Ws2, grads, lam, layout)
         gn2 = gn2.to(st["gn"].dtype)
         _record(st, j, on, torch.stack([gn2, diffV.to(gn2.dtype)]), Ws2,
                 it0, resprint, log_mark, n_slots, snaps, labels)
@@ -737,7 +875,8 @@ def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
 def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
                     it_budget: int, it0=0, log_mark=-1, gn_guard=10.0, *,
                     solver: str = "svd", max_sweeps: int = 15,
-                    resprint: int = 0, n_slots: int = 0):
+                    resprint: int = 0, n_slots: int = 0, layout=None,
+                    layouts=None, V_norm_sq=None):
     """Build the PP caches (:func:`pp_build_caches`: K6, with K5 as its
     O3, under ``use_kernels_triple``), then PP sweeps with their loop on
     the device until the restart tolerance trips (any ||dW||/||W|| >
@@ -748,11 +887,13 @@ def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
     gn_guard x the phase's running minimum, or whose largest ratio passes
     max(5 tol_init, 0.5), is reverted (factors, dWs, gn, diffV) and ends
     the phase. Logging as :func:`dt_phase_device`; ``hist`` holds
-    :func:`_pp_sweep_norm_stats`' estimates. Returns (n_sweeps, Ws, dWs,
-    gn, hist, snaps, labels, count)."""
-    V_norm_sq = contract.norm_sq(V)
+    :func:`_pp_sweep_norm_stats`' estimates; ``layout``, ``layouts`` and
+    ``V_norm_sq`` as there (the build is the constrained one). Returns
+    (n_sweeps, Ws, dWs, gn, hist, snaps, labels, count)."""
+    if V_norm_sq is None:
+        V_norm_sq = contract.norm_sq(V, layout)
     single, pair = tracing.timed("cp.pp_cache_build", pp_build_caches, V,
-                                 list(Ws))
+                                 list(Ws), layout, layouts)
     W_init = list(Ws)
     bound = max(_in_dtype(5.0 * tol_init, V.dtype), 0.5)
     st, snaps, labels = _loop_state(Ws, max_sweeps, n_slots)
@@ -761,11 +902,12 @@ def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
     def sweep(j):
         on = st["on"]
         Ws2, dWs2, grads = pp_sweep(single, pair, st["Ws"], W_init,
-                                    st["dWs"], lam, ratio_step, solver=solver)
-        ratios = torch.abs(factor_norm_ratios(Ws2, dWs2))
+                                    st["dWs"], lam, ratio_step, solver=solver,
+                                    layout=layout)
+        ratios = torch.abs(factor_norm_ratios(Ws2, dWs2, layout))
         broke2 = torch.any(ratios > tol_init)
         gn2, diffV = _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws2,
-                                          dWs2, grads)
+                                          dWs2, grads, layout)
         gn2, diffV = gn2.to(st["gn"].dtype), diffV.to(st["gn"].dtype)
         if gn_guard > 0:
             blown = (gn2 > gn_guard * st["gn_floor"]) | \
@@ -787,6 +929,22 @@ def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
             st["count"])
 
 
+def _warm_phases(V, V_norm_sq, Ws, lam, ratio_step, *, solver, root_split,
+                 layout, layouts):
+    """Each function the phase loops' sweeps call, once, on the initial
+    factors; the results are discarded."""
+    Ws2, grads = dt_sweep(V, Ws, lam, solver=solver, root_split=root_split,
+                          layout=layout, layouts=layouts)
+    factor_norm_ratios(Ws2, Ws2, layout)
+    _sweep_norm_stats(V_norm_sq, Ws2, grads, lam, layout)
+    single, pair = pp_build_caches(V, Ws, layout, layouts)
+    Ws3, dWs3, grads = pp_sweep(single, pair, Ws, Ws,
+                                [torch.zeros_like(W) for W in Ws], lam,
+                                ratio_step, solver=solver, layout=layout)
+    _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws3, dWs3, grads, layout)
+    _exact_row_stats(V, V_norm_sq, Ws, lam, layout)
+
+
 def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
                      clock: Optional[SweepClock] = None) -> CPResult:
     """Device-resident DT <-> PP solver (``test_als -pp 1 -device_loop
@@ -799,23 +957,43 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     excluded window (K1-K3 for an order-3 float32 V); unlogged rows keep
     the estimates. lam and the tolerances are rounded to V's dtype, as
     the JAX engine's scalars are; no ``rcond`` is passed on, as there.
-    The JAX engine also runs zero-budget phases to compile them before the
-    clock starts; the port compiles nothing. Scopes ``cp.dt_phase_device``
-    and ``cp.pp_phase_device`` time each phase; DEVICE_LOOP_COUNTS counts
-    its pulls and masked sweeps."""
+
+    Before the first phase the engine makes the mode-minor copies of
+    ``cfg.precompute_layouts`` and runs each function the phases call
+    once on the initial factors (:func:`warm_run`), then restarts the
+    clock (JAX cp.py:916-940: zero-budget phases compile there). Under
+    ``cfg.mesh_layout`` V and Ws are this rank's blocks, every flag the
+    host reads is all-reduced, the time limit reads rank 0's clock, and
+    the CSV's dimension column is the unsharded tensor's. Scopes
+    ``cp.dt_phase_device`` and ``cp.pp_phase_device`` time each phase;
+    DEVICE_LOOP_COUNTS counts its pulls and masked sweeps."""
     Ws = list(Ws)
     clock = clock or SweepClock()
+    layout = cfg.mesh_layout
+    mesh = None if layout is None else layout.mesh
+    dim = V.shape[0] if layout is None else layout.orig_shape[0]
     lam = _in_dtype(cfg.lam, V.dtype)
     tol_init = _in_dtype(cfg.pp_res_tol, V.dtype)
     gn_tol = _in_dtype(cfg.tol, V.dtype)
     gn_guard = _in_dtype(cfg.gn_guard, Ws[0].dtype)
-    V_norm_sq = contract.norm_sq(V)
+    V_norm_sq = contract.norm_sq(V, layout)
+    layouts = contract.prepare_layouts(V, _root_modes(V, cfg, pp=True)) \
+        if cfg.precompute_layouts else None
+    warm_run(_warm_phases, V, V_norm_sq, Ws, lam, cfg.ratio_step,
+             solver=cfg.solver, root_split=cfg.tree_split, layout=layout,
+             layouts=layouts)
+    clock.reset()
     history: list = []
     it = 0
     gn = diffV = float("inf")
     # snapshot ring slots: enough for every logged row of one phase
     n_slots = (cfg.maxiter // max(cfg.resprint, 1)) + 3
     mark = cfg.maxiter
+    common = dict(solver=cfg.solver, resprint=cfg.resprint, n_slots=n_slots,
+                  layout=layout, layouts=layouts, V_norm_sq=V_norm_sq)
+
+    def now():
+        return pmesh.agreed_dtime(clock, mesh, V.device)
 
     def log_phase(hist, n, pp_flag, t_start, t_end, snaps, labels, count):
         nonlocal it, gn, diffV
@@ -829,7 +1007,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
                 for slot in range(min(sn, n_slots)):
                     g, d = tracing.timed("cp.diagnostics", _exact_row_stats,
                                          V, V_norm_sq, [s[slot] for s in snaps],
-                                         lam)
+                                         lam, layout)
                     exact[labels_h[slot]] = (float(g), float(d))
         for row_i in range(n):
             dt_row = t_start + (t_end - t_start) * (row_i + 1) / max(n, 1)
@@ -837,33 +1015,30 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
             if it % cfg.resprint == 0 or it == cfg.maxiter:
                 gn, diffV = exact.get(it, (gn, diffV))
                 if plot is not None:
-                    plot.row(V.shape[0], it, gn, cfg.tol, pp_flag, diffV,
-                             dt_row)
+                    plot.row(dim, it, gn, cfg.tol, pp_flag, diffV, dt_row)
                 history.append(dict(iter=it, gradnorm=gn, diffV=diffV,
                                     dtime=dt_row, pp=pp_flag))
             it += 1
 
     while it <= cfg.maxiter:
-        t0 = clock.dtime()
+        t0 = now()
         n, Ws, dWs, gn_d, _, hist, snaps, labels, count = tracing.timed(
             "cp.dt_phase_device", dt_phase_device, V, Ws, lam, tol_init,
-            gn_tol, cfg.maxiter + 1 - it, it, mark, solver=cfg.solver,
-            max_sweeps=cfg.maxiter + 1, resprint=cfg.resprint,
-            root_split=cfg.tree_split, n_slots=n_slots)
-        t1 = clock.dtime()
+            gn_tol, cfg.maxiter + 1 - it, it, mark,
+            max_sweeps=cfg.maxiter + 1, root_split=cfg.tree_split, **common)
+        t1 = now()
         log_phase(hist, n, 0, t0, t1, snaps, labels, count)
         gn_dt = float(_pull(gn_d))
         if gn_dt < cfg.tol or it > cfg.maxiter or t1 > cfg.timelimit:
             gn = gn_dt
             break
-        t0 = clock.dtime()
+        t0 = now()
         n, Ws, dWs, gn_d, hist, snaps, labels, count = tracing.timed(
             "cp.pp_phase_device", pp_phase_device, V, Ws, lam,
             cfg.ratio_step, tol_init, gn_tol,
             min(cfg.pp_cache_sweeps, cfg.maxiter + 1 - it), it, mark,
-            gn_guard, solver=cfg.solver, max_sweeps=cfg.pp_cache_sweeps,
-            resprint=cfg.resprint, n_slots=n_slots)
-        t1 = clock.dtime()
+            gn_guard, max_sweeps=cfg.pp_cache_sweeps, **common)
+        t1 = now()
         log_phase(hist, n, 1, t0, t1, snaps, labels, count)
         gn = float(_pull(gn_d))
         if gn < cfg.tol or t1 > cfg.timelimit:
@@ -976,7 +1151,8 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
                    gn_guard=0.0, rcond=None, *, solver: str = "svd",
                    chunk: int = FUSED_CHUNK, resprint: int = 10,
                    pp_cap: int = 15, root_split: int = None,
-                   n_slots: int = 0, V_norm_sq=None):
+                   n_slots: int = 0, V_norm_sq=None, layout=None,
+                   layouts=None):
     """Advance the fused machine by up to ``chunk`` body steps, or to the
     stop (JAX cp.py:1064-1222); returns the carry, updated in place.
 
@@ -990,22 +1166,27 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
     reverts a PP sweep whose estimate passes gn_guard x the floor, or
     whose largest ratio passes max(5 tol_init, 0.5); its row keeps
     ``hist[it]``'s diffV. A PP step that returns to DT zeroes W_prev.
-    The run stops at gn < gn_tol or it > maxiter. Scopes
-    ``cp.fused_dt_step``, ``cp.fused_build_step`` and ``cp.fused_pp_step``
-    time the body steps; DEVICE_LOOP_COUNTS counts them and the pulls."""
+    The run stops at gn < gn_tol or it > maxiter. ``layout`` (-mesh): V
+    and the carry's factors are this rank's blocks, the caches the
+    constrained ones, and the register is written from all-reduced
+    values, so every rank issues the same steps. ``layouts``: mode-minor
+    copies of V. Scopes ``cp.fused_dt_step``, ``cp.fused_build_step`` and
+    ``cp.fused_pp_step`` time the body steps; DEVICE_LOOP_COUNTS counts
+    them and the pulls."""
     c = carry
     if V_norm_sq is None:
-        V_norm_sq = contract.norm_sq(V)
+        V_norm_sq = contract.norm_sq(V, layout)
     bound = max(_in_dtype(5.0 * tol_init, c["gn"].dtype), 0.5)
     dtype = c["gn"].dtype
 
     def dt_step():
         Ws2, grads = dt_sweep(V, c["Ws"], lam, rcond, solver=solver,
-                              root_split=root_split)
+                              root_split=root_split, layout=layout,
+                              layouts=layouts)
         dWs2 = [a - b for a, b in zip(Ws2, c["W_prev"])]
-        quiet = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2))
+        quiet = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2, layout))
                           < tol_init)
-        gn2, dv2 = _sweep_norm_stats(V_norm_sq, Ws2, grads, lam)
+        gn2, dv2 = _sweep_norm_stats(V_norm_sq, Ws2, grads, lam, layout)
         gn2, dv2 = gn2.to(dtype), dv2.to(dtype)
         it2 = c["it"] + 1
         _fused_row(c, it2, gn2, dv2, 0.0, Ws2, resprint, maxiter, n_slots)
@@ -1014,7 +1195,8 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
         _fused_register(c, torch.where(quiet & ~stop2, 1, 0), stop2)
 
     def build_step():
-        c["single"], c["pair"] = pp_build_caches(V, c["Ws"])
+        c["single"], c["pair"] = pp_build_caches(V, c["Ws"], layout,
+                                                 layouts)
         c.update(phase=2, age=0, dWs=[torch.zeros_like(W) for W in c["Ws"]],
                  W_init=list(c["Ws"]), gn_floor=c["gn"])
 
@@ -1022,11 +1204,11 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
         Ws, dWs = c["Ws"], c["dWs"]
         Ws2, dWs2, grads = pp_sweep(c["single"], c["pair"], Ws, c["W_init"],
                                     dWs, lam, ratio_step, rcond,
-                                    solver=solver)
-        ratios = torch.abs(factor_norm_ratios(Ws2, dWs2))
+                                    solver=solver, layout=layout)
+        ratios = torch.abs(factor_norm_ratios(Ws2, dWs2, layout))
         broke = torch.any(ratios > tol_init)
         gn2, dv2 = _pp_sweep_norm_stats(V_norm_sq, c["single"], c["pair"],
-                                        Ws2, dWs2, grads)
+                                        Ws2, dWs2, grads, layout)
         gn2, dv2 = gn2.to(dtype), dv2.to(dtype)
         it, age2 = c["it"], c["age"] + 1
         if gn_guard > 0:
@@ -1061,6 +1243,16 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
     return c
 
 
+def _warm_fused(V, Ws, chunk_args, chunk_kw):
+    """One DT step, one cache build and one PP step of the fused machine
+    on a carry of its own, thrown away after (JAX cp.py:1282-1291 runs
+    the chunk on a stopped carry to compile it)."""
+    c = pp_fused_init(V, Ws, 3, 1)
+    pp_fused_chunk(V, c, *chunk_args, **dict(chunk_kw, chunk=1, n_slots=1))
+    c.update(phase=1, stop=False)
+    pp_fused_chunk(V, c, *chunk_args, **dict(chunk_kw, chunk=2, n_slots=1))
+
+
 def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
                     clock: Optional[SweepClock] = None,
                     chunk: int = FUSED_CHUNK) -> CPResult:
@@ -1077,10 +1269,16 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     its chunk; the iteration-0 row and the final result are exact too.
     lam, ratio_step, the tolerances, gn_guard and ``cfg.rcond`` (passed
     on, unlike the phase engine) are rounded to the factors' dtype, as
-    the JAX engine's scalars are. The JAX engine compiles and warms the
-    machine on a stopped carry first; the port compiles nothing."""
+    the JAX engine's scalars are. Before the first chunk, in excluded
+    time: the mode-minor copies of ``cfg.precompute_layouts``, the carry,
+    a warm DT step, cache build and PP step on a carry thrown away, and a
+    warm :func:`cp_diagnostics` (:func:`warm_run`; JAX cp.py:1277-1293).
+    ``cfg.mesh_layout`` as in :func:`als_cp_pp_device`."""
     Ws = list(Ws)
     clock = clock or SweepClock()
+    layout = cfg.mesh_layout
+    mesh = None if layout is None else layout.mesh
+    dim = V.shape[0] if layout is None else layout.orig_shape[0]
     dtype = Ws[0].dtype
     lam = _in_dtype(cfg.lam, dtype)
     ratio_step = _in_dtype(cfg.ratio_step, dtype)
@@ -1088,7 +1286,7 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     gn_tol = _in_dtype(cfg.tol, dtype)
     gn_guard = _in_dtype(cfg.gn_guard, dtype)
     rcond = None if cfg.rcond is None else _in_dtype(cfg.rcond, dtype)
-    V_norm_sq = contract.norm_sq(V)
+    V_norm_sq = contract.norm_sq(V, layout)
     max_hist = cfg.maxiter + 2
     # the ring covers one chunk's logged rows: drained after every chunk
     n_slots = min(cfg.maxiter // max(cfg.resprint, 1) + 4,
@@ -1097,28 +1295,37 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
 
     def exact(Ws_):
         gn_, dv_ = tracing.timed("cp.diagnostics", cp_diagnostics,
-                                 V_norm_sq, V, Ws_, lam)
+                                 V_norm_sq, V, Ws_, lam, layout)
         return float(gn_), float(dv_)
 
+    def now():
+        return pmesh.agreed_dtime(clock, mesh, V.device)
+
     with clock.exclude():
+        layouts = contract.prepare_layouts(V, _root_modes(V, cfg, pp=True)) \
+            if cfg.precompute_layouts else None
+        chunk_args = (lam, ratio_step, tol_init, gn_tol, cfg.maxiter,
+                      gn_guard, rcond)
+        chunk_kw = dict(solver=cfg.solver, chunk=chunk, resprint=cfg.resprint,
+                        pp_cap=cfg.pp_cache_sweeps, root_split=cfg.tree_split,
+                        n_slots=n_slots, V_norm_sq=V_norm_sq, layout=layout,
+                        layouts=layouts)
         carry = pp_fused_init(V, Ws, max_hist, n_slots)
+        warm_run(_warm_fused, V, Ws, chunk_args, chunk_kw)
+        warm_run(exact, Ws)
         gn, diffV = exact(Ws)
+    t_prev = now()
     if plot is not None:
-        plot.row(V.shape[0], 0, gn, cfg.tol, 0, diffV, clock.dtime())
-    history.append(dict(iter=0, gradnorm=gn, diffV=diffV,
-                        dtime=clock.dtime(), pp=0))
+        plot.row(dim, 0, gn, cfg.tol, 0, diffV, t_prev)
+    history.append(dict(iter=0, gradnorm=gn, diffV=diffV, dtime=t_prev,
+                        pp=0))
 
     prev_it = 0
-    t_prev = clock.dtime()
     while True:
-        pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol,
-                       cfg.maxiter, gn_guard, rcond, solver=cfg.solver,
-                       chunk=chunk, resprint=cfg.resprint,
-                       pp_cap=cfg.pp_cache_sweeps, root_split=cfg.tree_split,
-                       n_slots=n_slots, V_norm_sq=V_norm_sq)
+        pp_fused_chunk(V, carry, *chunk_args, **chunk_kw)
         it_now, stop = carry["it"], carry["stop"]
         _sync()
-        t_now = clock.dtime()
+        t_now = now()
         if it_now > prev_it:
             rows_all, by_label = _drain_ring(carry, clock, n_slots, exact)
             for off, label in enumerate(range(prev_it + 1, it_now + 1)):
@@ -1129,8 +1336,7 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
                 gn, diffV = by_label.get(label, (gn, diffV))
                 if label % cfg.resprint == 0 or label == cfg.maxiter:
                     if plot is not None:
-                        plot.row(V.shape[0], label, gn, cfg.tol, ppf, diffV,
-                                 dt_row)
+                        plot.row(dim, label, gn, cfg.tol, ppf, diffV, dt_row)
                     history.append(dict(iter=label, gradnorm=gn,
                                         diffV=diffV, dtime=dt_row, pp=ppf))
         done = stop or it_now > cfg.maxiter or t_now > cfg.timelimit \

@@ -12,8 +12,11 @@ caches are dense either way; only cache builds and exact sweeps touch the
 nonzeros.
 
 Each sweep is eager PyTorch on the tensors' device, and the phase machine
-runs on the host, as in models/cp.py. The JAX package's ``warm_compile``
-and ``calibrate_rtt`` have no counterpart here.
+runs on the host, as in models/cp.py. Before the loop, in excluded time,
+the engines run one sparse sweep (and the PP engine one cache build,
+discarded) through cp.warm_run, where the JAX package runs its
+``warm_compile`` (sparse_cp.py:102-103, 138-141); its ``calibrate_rtt``
+has no counterpart here.
 
 ``mesh=`` (a 1D ``DeviceMesh``, parallel/mesh.py) runs the engine on an
 nnz-sharded COO, one process per rank, as the JAX package's ``mesh``
@@ -124,6 +127,9 @@ def als_cp_sparse(st, Ws, cfg: cpm.CPConfig,
         pmesh.check_1d(mesh)
     V_norm_sq = norm_sq(st, mesh)
     clock = clock or SweepClock()
+    with clock.exclude():
+        cpm.warm_run(sparse_simple_sweep, st, Ws, cfg.lam, cfg.rcond,
+                     solver=cfg.solver, mesh=mesh)
     history: list = []
     gn, diffV = float("inf"), float("inf")
     it = 0
@@ -157,6 +163,10 @@ def als_cp_pp_sparse(st, Ws, cfg: cpm.CPConfig,
         pmesh.check_1d(mesh)
     V_norm_sq = norm_sq(st, mesh)
     clock = clock or SweepClock()
+    with clock.exclude():
+        cpm.warm_run(sparse_simple_sweep, st, Ws, cfg.lam, cfg.rcond,
+                     solver=cfg.solver, mesh=mesh)
+        cpm.warm_run(sparse_pp_build_caches, st, Ws, mesh)
     history: list = []
     gn, diffV = float("inf"), float("inf")
     it = 0

@@ -16,7 +16,10 @@ alsTucker / alsTucker_PP on sparse CTF tensors (test_ALS.cxx:229,
   (models/tucker.tucker_pp_sweep), since caches and factors are dense.
 
 Each sweep is eager PyTorch on the tensors' device and the phase machine
-runs on the host. The sketch matrices, drawn with ``jax.random`` there,
+runs on the host. After the HOSVD, in excluded time, the engines run one
+HOOI sweep (and the PP engine one cache build, discarded) through
+cp.warm_run, where the JAX package warms them (sparse_tucker.py:141-148,
+190-199). The sketch matrices, drawn with ``jax.random`` there,
 are arguments here (``omegas``), drawn by default by
 ops/sparse.sketch_rows.
 
@@ -177,6 +180,8 @@ def als_tucker_sparse(st, ranks, cfg: tkm.TuckerConfig,
     clock = clock or SweepClock()
     with clock.exclude():
         Ws = _init(st, ranks, Ws, omegas, mesh, init_st)
+        cpm.warm_run(sparse_hooi_sweep, st, Ws, list(Ws), ranks=ranks,
+                     use_sign=True, mesh=mesh)
     history: list = []
     cn_prev = 0.0
     dn, diffV = float("inf"), float("inf")
@@ -222,6 +227,9 @@ def als_tucker_pp_sparse(st, ranks, cfg: tkm.TuckerConfig,
     clock = clock or SweepClock()
     with clock.exclude():
         Ws = _init(st, ranks, Ws, omegas, mesh, init_st)
+        cpm.warm_run(sparse_hooi_sweep, st, Ws, list(Ws), ranks=ranks,
+                     use_sign=True, mesh=mesh)
+        cpm.warm_run(sparse_tucker_build_caches, st, Ws, mesh)
     history: list = []
     cn_prev = 0.0
     dn, diffV = float("inf"), float("inf")

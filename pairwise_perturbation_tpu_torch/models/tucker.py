@@ -19,8 +19,11 @@ previous factors so that PP's dW perturbations mean something
 reconstruction (als_Tucker.cxx:296-311).
 
 Each sweep is eager PyTorch on the tensors' device and the DT <-> PP
-phase machine runs on the host, as in models/cp.py: no compile warm-up,
-no relay round-trip calibration. Where the JAX package branches on the
+phase machine runs on the host, as in models/cp.py: the sweep functions
+are warmed once before their loops, where the JAX package warms them
+(cp.warm_run, in excluded time; the device engines restart their clocks
+after it), and there is no relay round-trip calibration. Where the JAX
+package branches on the
 device (``lax.cond`` in :func:`tucker_pp_sweep`) the port branches on the
 host, and reads the device only when the branch can go the other way.
 Every ``jax.random`` draw is an argument here (the randomized HOSVD's
@@ -41,8 +44,7 @@ exact route (see :func:`hosvd`).
 
 :func:`als_tucker_pp_device` and :func:`als_tucker_pp_fused` (``-device_loop
 1`` and ``2``) keep the machine's loop state on the device, as
-models/cp.py's engines do; they run unsharded (their mesh half is ROADMAP
-A14's rest).
+models/cp.py's engines do, on a sharded V as well.
 """
 
 from __future__ import annotations
@@ -509,6 +511,14 @@ def als_tucker(V, ranks, cfg: TuckerConfig,
     V_norm_sq = contract.norm_sq(V, layout)
     core, Ws = _init(V, ranks, Ws, layout)
     clock = clock or SweepClock()
+    with clock.exclude():
+        if use_tree:
+            cpm.warm_run(tucker_dt_sweep, V, Ws, Ws, ranks=ranks,
+                         use_sign=False, subspace_iters=cfg.subspace_iters,
+                         layout=layout)
+        else:
+            cpm.warm_run(tucker_hooi_sweep, V, Ws, ranks=ranks,
+                         layout=layout)
     history: list = []
     core_prev_norm = torch.linalg.vector_norm(core)
     diffnorm, diffV = float("inf"), float("inf")
@@ -541,10 +551,16 @@ def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     zero W_prev, which is both the first sweep's sign reference (a zero
     reference negates every column, solve.sign_match) and its warm basis
     (under AUTO, a side of 256 or more starts from qr(G @ 0)), as in the
-    JAX package (tucker.py:479, 497-498)."""
+    JAX package (tucker.py:479, 497-498). The first DT phase of a solve
+    runs one warm sweep and its ratio pull in excluded time (JAX
+    tucker.py:480-482)."""
     order = V.ndim
     layout = cfg.mesh_layout
     W_prev = [torch.zeros_like(W) for W in Ws]
+    if not state.get("dt_warmed"):
+        with clock.exclude():
+            cpm.warm_run(_warm_dt, V, Ws, ranks, cfg, layout)
+        state["dt_warmed"] = True
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
         if _logged(it, cfg):
@@ -571,15 +587,37 @@ def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     return Ws, dWs, "maxiter"
 
 
+def _warm_dt(V, Ws, ranks, cfg, layout):
+    """A DT sweep of the host engine from a zero W_prev and the pull of
+    its restart ratios, as the loop runs them; the results are
+    discarded."""
+    zeros = [torch.zeros_like(W) for W in Ws]
+    Ws2, _ = tucker_dt_sweep(V, Ws, zeros, ranks=ranks, use_sign=True,
+                             subspace_iters=cfg.subspace_iters, layout=layout)
+    cpm.factor_norm_ratios(Ws2, Ws2, layout).cpu()
+
+
 def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     """alsTucker_PP_sub (als_Tucker.cxx:679-896): a cache build at the
     phase's first sweep, PP sweeps until a factor drifts past tol_init
     (restart), the quiet-skip stationarity exit, convergence or the
-    limits."""
+    limits. Once a solve, in excluded time: a warm cache build, used as
+    the phase's first build, and a warm PP sweep on it (JAX
+    tucker.py:520-532, :546-548)."""
     layout = cfg.mesh_layout
     init_iter = state["iter"]
     W_init = single = pair = None
     build_it = init_iter
+    if not state.get("pp_warmed"):
+        with clock.exclude():
+            warm = cpm.warm_run(tucker_build_caches, V, Ws, layout)
+            if warm is not None:
+                cpm.warm_run(tucker_pp_sweep, *warm, Ws, Ws,
+                             [torch.zeros_like(W) for W in Ws], ranks=ranks,
+                             subspace_iters=cfg.subspace_iters,
+                             layout=layout)
+        state["warm_caches"] = warm
+        state["pp_warmed"] = True
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
         ratios = cpm.factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
@@ -590,8 +628,13 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
             W_init = list(Ws)
             dWs = [torch.zeros_like(W) for W in Ws]
             build_it = it
-            single, pair = tracing.timed("tucker.pp_cache_build",
-                                         tucker_build_caches, V, Ws, layout)
+            warm = state.pop("warm_caches", None)
+            if warm is not None:
+                single, pair = warm     # built from these very factors
+            else:
+                single, pair = tracing.timed("tucker.pp_cache_build",
+                                             tucker_build_caches, V, Ws,
+                                             layout)
         if _logged(it, cfg) or it == init_iter:
             core, cn, diffnorm, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, state["core_prev_norm"], clock, plot, it,
@@ -669,15 +712,20 @@ def _core_stats(V_norm_sq, core, cn_prev):
 
 def tucker_dt_phase_device(V, Ws, tol_init, diff_tol, it_budget: int, *,
                            ranks: Tuple[int, ...], max_sweeps: int = 256,
-                           subspace_iters: int = 0):
+                           subspace_iters: int = 0, layout=None,
+                           V_norm_sq=None):
     """DT Tucker sweeps (sign-matched to the previous sweep's factors, the
     first to zeros) with their loop on the device until every mode is
     quiet (||dW||/||W|| < tol_init), the core-norm change falls below
     ``diff_tol``, or ``it_budget`` sweeps ran (JAX tucker.py:633-671).
     Returns (n_sweeps, Ws, dWs, core, diffnorm, quiet, hist[max_sweeps,
-    2]), hist rows [diffnorm, diffV] (exact: a DT sweep's core is)."""
-    V_norm_sq = contract.norm_sq(V)
-    core0 = contract.ttmc(V, list(Ws), skip_mode=-1)
+    2]), hist rows [diffnorm, diffV] (exact: a DT sweep's core is).
+    ``layout`` (-mesh): V and Ws are this rank's blocks, the cores are
+    summed over the ranks and the ratios all-reduced, so the flag is the
+    same on every rank. ``V_norm_sq``: ||V||^2 if known."""
+    if V_norm_sq is None:
+        V_norm_sq = contract.norm_sq(V, layout)
+    core0 = contract.ttmc(V, list(Ws), skip_mode=-1, layout=layout)
     st, _, _ = cpm._loop_state(
         Ws, max_sweeps, 0, W_prev=[torch.zeros_like(W) for W in Ws],
         cn=torch.linalg.vector_norm(core0), core=core0,
@@ -688,9 +736,11 @@ def tucker_dt_phase_device(V, Ws, tol_init, diff_tol, it_budget: int, *,
         on = st["on"]
         Ws2, core2 = tucker_dt_sweep(V, st["Ws"], st["W_prev"], ranks=ranks,
                                      use_sign=True,
-                                     subspace_iters=subspace_iters)
+                                     subspace_iters=subspace_iters,
+                                     layout=layout)
         dWs2 = [a - b for a, b in zip(Ws2, st["W_prev"])]
-        quiet2 = torch.all(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+        quiet2 = torch.all(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2,
+                                                            layout))
                            < tol_init)
         cn, dn2, diffV = _core_stats(V_norm_sq, core2, st["cn"])
         cpm._record(st, j, on, torch.stack([dn2, diffV]).to(st["dn"].dtype),
@@ -708,7 +758,7 @@ def tucker_pp_phase_device(V, Ws, tol_init, diff_tol, it_budget: int,
                            it0: int = 0, quiet_tol: float = 0.0, *,
                            ranks: Tuple[int, ...], max_sweeps: int = 64,
                            subspace_iters: int = 0, resprint: int = 0,
-                           n_slots: int = 0):
+                           n_slots: int = 0, layout=None, V_norm_sq=None):
     """Build the Tucker PP caches, then PP sweeps with their loop on the
     device until a factor drifts past tol_init, the sweep is stationary
     (every mode quiet-skipped: :func:`tucker_pp_sweep`'s host bool, ORed
@@ -716,13 +766,17 @@ def tucker_pp_phase_device(V, Ws, tol_init, diff_tol, it_budget: int,
     ``it_budget`` sweeps ran (JAX tucker.py:674-731). The quiet skip's age
     is the sweep's issue index. A sweep's core is the PP-corrected one;
     sweep k snapshots the factors into the ring where (it0 + k) %
-    resprint == 0 (no maxiter mark, unlike CP's). Returns (n_sweeps, Ws,
-    dWs, core, diffnorm, hist, snaps, labels, count)."""
-    V_norm_sq = contract.norm_sq(V)
+    resprint == 0 (no maxiter mark, unlike CP's). ``layout`` and
+    ``V_norm_sq`` as in :func:`tucker_dt_phase_device` (the build is the
+    constrained one, the stationary bool read from all-reduced drifts).
+    Returns (n_sweeps, Ws, dWs, core, diffnorm, hist, snaps, labels,
+    count)."""
+    if V_norm_sq is None:
+        V_norm_sq = contract.norm_sq(V, layout)
     single, pair = tracing.timed("tucker.pp_cache_build",
-                                 tucker_build_caches, V, list(Ws))
+                                 tucker_build_caches, V, list(Ws), layout)
     W_init = list(Ws)
-    core0 = contract.ttmc(V, list(Ws), skip_mode=-1)
+    core0 = contract.ttmc(V, list(Ws), skip_mode=-1, layout=layout)
     st, snaps, labels = cpm._loop_state(
         Ws, max_sweeps, n_slots, cn=torch.linalg.vector_norm(core0),
         core=core0)
@@ -732,8 +786,9 @@ def tucker_pp_phase_device(V, Ws, tol_init, diff_tol, it_budget: int,
         on = st["on"]
         Ws2, dWs2, core2, stationary = tucker_pp_sweep(
             single, pair, st["Ws"], W_init, st["dWs"], quiet_tol, j,
-            ranks=ranks, subspace_iters=subspace_iters)
-        broke2 = torch.any(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+            ranks=ranks, subspace_iters=subspace_iters, layout=layout)
+        broke2 = torch.any(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2,
+                                                            layout))
                            > tol_init) | stationary
         cn, dn2, diffV = _core_stats(V_norm_sq, core2, st["cn"])
         cpm._record(st, j, on, torch.stack([dn2, diffV]).to(st["dn"].dtype),
@@ -746,10 +801,26 @@ def tucker_pp_phase_device(V, Ws, tol_init, diff_tol, it_budget: int,
             labels, st["count"])
 
 
-def _exact_core_norm(V, Ws):
-    """||TTMc(V, W)|| of a snapshot, as a host float."""
+def _exact_core_norm(V, Ws, layout=None):
+    """||TTMc(V, W)|| of a snapshot, as a host float (the core summed over
+    the ranks under ``layout``)."""
     return float(torch.linalg.vector_norm(tracing.timed(
-        "tucker.diagnostics", contract.ttmc, V, list(Ws), skip_mode=-1)))
+        "tucker.diagnostics", contract.ttmc, V, list(Ws), skip_mode=-1,
+        layout=layout)))
+
+
+def _warm_phases(V, V_norm_sq, Ws, ranks, subspace_iters, layout):
+    """Each function the Tucker phase loops call, once, on the initial
+    factors; the results are discarded."""
+    zeros = [torch.zeros_like(W) for W in Ws]
+    _, core = tucker_dt_sweep(V, Ws, zeros, ranks=ranks, use_sign=True,
+                              subspace_iters=subspace_iters, layout=layout)
+    cpm.factor_norm_ratios(Ws, Ws, layout)
+    _core_stats(V_norm_sq, core, torch.linalg.vector_norm(core))
+    single, pair = tucker_build_caches(V, Ws, layout)
+    tucker_pp_sweep(single, pair, Ws, Ws, zeros, ranks=ranks,
+                    subspace_iters=subspace_iters, layout=layout)
+    _exact_core_norm(V, Ws, layout)
 
 
 def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
@@ -769,15 +840,24 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
     against the latest exact norm of an earlier logged row. A PP phase's
     maxiter row, which the ring does not snapshot, keeps the estimates
     (as in JAX). tol_init and the tolerances are rounded to V's dtype, as
-    the JAX engine's scalars are. The clock starts where
-    :func:`als_tucker_pp`'s does, after HOSVD: the JAX engine runs
-    zero-budget phases to compile them and then resets it, and the port
-    compiles nothing."""
+    the JAX engine's scalars are. After HOSVD the engine runs each
+    function the phases call once (cp.warm_run) and restarts the clock,
+    as the JAX engine does after its zero-budget phases (tucker.py:757-
+    771). Under ``cfg.mesh_layout`` V is this rank's block (HOSVD the
+    sharded one), every flag the host reads comes from all-reduced
+    values, the time limit reads rank 0's clock, and the CSV's dimension
+    column is the unsharded tensor's."""
     ranks = tuple(int(r) for r in ranks)
-    core, Ws = _init(V, ranks, Ws)
+    layout = cfg.mesh_layout
+    mesh = None if layout is None else layout.mesh
+    dim = V.shape[0] if layout is None else layout.orig_shape[0]
+    core, Ws = _init(V, ranks, Ws, layout)
     clock = clock or SweepClock()
-    V_norm_sq = contract.norm_sq(V)
+    V_norm_sq = contract.norm_sq(V, layout)
     vn2 = float(V_norm_sq)
+    cpm.warm_run(_warm_phases, V, V_norm_sq, Ws, ranks, cfg.subspace_iters,
+                 layout)
+    clock.reset()
     tol_init = cfg.pp_res_tol
     diff_tol = cpm._in_dtype(cfg.tol, V.dtype)
     history: list = []
@@ -786,6 +866,12 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
     # snapshot ring slots: enough for every logged row of one PP phase
     n_slots = cfg.maxiter // max(cfg.resprint, 1) + 3
     cn_by_it: dict = {}     # exact core norms of logged rows
+    common = dict(ranks=ranks, max_sweeps=cfg.maxiter + 1,
+                  subspace_iters=cfg.subspace_iters, layout=layout,
+                  V_norm_sq=V_norm_sq)
+
+    def now():
+        return pmesh.agreed_dtime(clock, mesh, V.device)
 
     def log(hist, n, pp_flag, t0, t1, ring=None):
         nonlocal it, dn, diffV
@@ -800,7 +886,7 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
                     labels_h = cpm._pull(labels).tolist()
                     for slot in range(min(sn, n_slots)):
                         exact[labels_h[slot]] = _exact_core_norm(
-                            V, [s[slot] for s in snaps])
+                            V, [s[slot] for s in snaps], layout)
         for i in range(n):
             dn, diffV = h[i]
             dt_row = t0 + (t1 - t0) * (i + 1) / max(n, 1)
@@ -815,34 +901,30 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
                     cn_by_it[it] = float(np.sqrt(max(vn2 - diffV * diffV,
                                                      0.0)))
                 if plot is not None:
-                    plot.row(V.shape[0], it, dn, cfg.tol, pp_flag, diffV,
-                             dt_row)
+                    plot.row(dim, it, dn, cfg.tol, pp_flag, diffV, dt_row)
                 history.append(dict(iter=it, diffnorm=dn, diffV=diffV,
                                     dtime=dt_row, pp=pp_flag))
             it += 1
 
     while it <= cfg.maxiter:
-        t0 = clock.dtime()
+        t0 = now()
         n, Ws, dWs, core, dn_d, _, hist = tracing.timed(
             "tucker.dt_phase_device", tucker_dt_phase_device, V, Ws,
             cpm._in_dtype(tol_init, V.dtype), diff_tol, cfg.maxiter + 1 - it,
-            ranks=ranks, max_sweeps=cfg.maxiter + 1,
-            subspace_iters=cfg.subspace_iters)
-        t1 = clock.dtime()
+            **common)
+        t1 = now()
         log(hist, n, 0, t0, t1)
         dn_dt = float(cpm._pull(dn_d))
         if dn_dt < cfg.tol or it > cfg.maxiter or t1 > cfg.timelimit:
             dn = dn_dt
             break
-        t0 = clock.dtime()
+        t0 = now()
         n, Ws, dWs, core, dn_d, hist, *ring = tracing.timed(
             "tucker.pp_phase_device", tucker_pp_phase_device, V, Ws,
             cpm._in_dtype(tol_init, V.dtype), diff_tol, cfg.maxiter + 1 - it,
             it, cpm._in_dtype(cfg.pp_quiet_frac * tol_init, V.dtype),
-            ranks=ranks, max_sweeps=cfg.maxiter + 1,
-            subspace_iters=cfg.subspace_iters, resprint=cfg.resprint,
-            n_slots=n_slots)
-        t1 = clock.dtime()
+            resprint=cfg.resprint, n_slots=n_slots, **common)
+        t1 = now()
         log(hist, n, 1, t0, t1, ring)
         dn = float(cpm._pull(dn_d))
         if dn < cfg.tol or t1 > cfg.timelimit:
@@ -872,15 +954,16 @@ def _tucker_pair_keys(order: int):
 
 
 def tucker_fused_init(V, Ws, ranks, max_hist: int, n_slots: int = 0,
-                      tol_init: float = 1e-2):
+                      tol_init: float = 1e-2, layout=None):
     """The initial carry of :func:`tucker_fused_chunk` (JAX
     tucker.py:865-895, with tol_init, which the JAX solver appends): the
     host ints of cp.pp_fused_init and ``tol_init``, and device tensors:
     the factors, W_prev, dWs, W_init, the caches (made at the first
     build), the core and its norm ``cn``, the core-norm change ``dn``,
-    the history ``hist[it] = [dn, diffV, pp_flag]`` and the ring."""
+    the history ``hist[it] = [dn, diffV, pp_flag]`` and the ring; the core
+    summed over the ranks under ``layout``."""
     c = cpm.pp_fused_init(V, Ws, max_hist, n_slots)
-    c["core"] = contract.ttmc(V, list(Ws), skip_mode=-1)
+    c["core"] = contract.ttmc(V, list(Ws), skip_mode=-1, layout=layout)
     c["cn"] = torch.linalg.vector_norm(c["core"])
     c["dn"] = c.pop("gn")
     del c["gn_floor"]
@@ -892,7 +975,7 @@ def tucker_fused_chunk(V, carry, diff_tol, maxiter: int, decay, floor,
                        quiet_frac: float = 0.0, *, ranks: Tuple[int, ...],
                        subspace_iters: int = 0, chunk: int = cpm.FUSED_CHUNK,
                        resprint: int = 1, pp_cap: int = TUCKER_PP_CAP,
-                       n_slots: int = 0, V_norm_sq=None):
+                       n_slots: int = 0, V_norm_sq=None, layout=None):
     """Advance the fused Tucker machine by up to ``chunk`` body steps, or
     to the stop (JAX tucker.py:898-1030); returns the carry, updated in
     place. Rows hold the sweep's own core-norm statistics (exact after a
@@ -902,10 +985,11 @@ def tucker_fused_chunk(V, carry, diff_tol, maxiter: int, decay, floor,
     is stationary, or it is the pp_cap-th since the build; then W_prev is
     zeroed and tol_init decays by ``decay`` while above ``floor``. The
     run stops at a core-norm change below ``diff_tol`` or it > maxiter.
-    Scopes ``tucker.fused_{dt,build,pp}_step``."""
+    ``layout`` (-mesh): this rank's blocks, the register written from
+    all-reduced values. Scopes ``tucker.fused_{dt,build,pp}_step``."""
     c = carry
     if V_norm_sq is None:
-        V_norm_sq = contract.norm_sq(V)
+        V_norm_sq = contract.norm_sq(V, layout)
     dtype = c["dn"].dtype
 
     def stats(core2, it2, pp_flag, Ws2):
@@ -919,16 +1003,18 @@ def tucker_fused_chunk(V, carry, diff_tol, maxiter: int, decay, floor,
     def dt_step():
         Ws2, core2 = tucker_dt_sweep(V, c["Ws"], c["W_prev"], ranks=ranks,
                                      use_sign=True,
-                                     subspace_iters=subspace_iters)
+                                     subspace_iters=subspace_iters,
+                                     layout=layout)
         dWs2 = [a - b for a, b in zip(Ws2, c["W_prev"])]
-        quiet = torch.all(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+        quiet = torch.all(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2,
+                                                           layout))
                           < c["tol_init"])
         stop2 = stats(core2, c["it"] + 1, 0.0, Ws2)
         c.update(Ws=Ws2, W_prev=Ws2, dWs=dWs2)
         cpm._fused_register(c, torch.where(quiet & ~stop2, 1, 0), stop2)
 
     def build_step():
-        c["single"], c["pair"] = tucker_build_caches(V, c["Ws"])
+        c["single"], c["pair"] = tucker_build_caches(V, c["Ws"], layout)
         c.update(phase=2, age=0, dWs=[torch.zeros_like(W) for W in c["Ws"]],
                  W_init=list(c["Ws"]))
 
@@ -937,8 +1023,9 @@ def tucker_fused_chunk(V, carry, diff_tol, maxiter: int, decay, floor,
         Ws2, dWs2, core2, stationary = tucker_pp_sweep(
             c["single"], c["pair"], c["Ws"], c["W_init"], c["dWs"],
             cpm._in_dtype(quiet_frac * tol, dtype), c["age"], ranks=ranks,
-            subspace_iters=subspace_iters)
-        broke = torch.any(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2))
+            subspace_iters=subspace_iters, layout=layout)
+        broke = torch.any(torch.abs(cpm.factor_norm_ratios(Ws2, dWs2,
+                                                           layout))
                           > tol) | stationary
         c["age"] += 1
         stop2 = stats(core2, c["it"] + 1, 1.0, Ws2)
@@ -963,6 +1050,16 @@ def tucker_fused_chunk(V, carry, diff_tol, maxiter: int, decay, floor,
     return c
 
 
+def _warm_fused(V, Ws, ranks, tol_init, chunk_args, chunk_kw, layout):
+    """One DT step, one cache build and one PP step of the fused Tucker
+    machine on a carry of its own, thrown away after (JAX
+    tucker.py:1086-1095 runs the chunk on a stopped carry)."""
+    c = tucker_fused_init(V, Ws, ranks, 3, 1, tol_init, layout)
+    tucker_fused_chunk(V, c, *chunk_args, **dict(chunk_kw, chunk=1, n_slots=1))
+    c.update(phase=1, stop=False)
+    tucker_fused_chunk(V, c, *chunk_args, **dict(chunk_kw, chunk=2, n_slots=1))
+
+
 def als_tucker_pp_fused(V, ranks, cfg: TuckerConfig,
                         plot: Optional[PlotFile] = None,
                         Ws: Optional[List] = None,
@@ -980,12 +1077,18 @@ def als_tucker_pp_fused(V, ranks, cfg: TuckerConfig,
     (resprint 1); the iteration-0 row (diffnorm inf) and the final diffV
     are exact. The tolerances are rounded to the factors' dtype, as the
     JAX engine's scalars are. The clock starts as :func:`als_tucker_pp`'s
-    does, after HOSVD; the port runs no compile warm-up."""
+    does, after HOSVD; the carry, a warm DT step, cache build and PP step
+    on a carry thrown away, and a warm exact core norm (cp.warm_run) run
+    in excluded time (JAX tucker.py:1086-1095). ``cfg.mesh_layout`` as in
+    :func:`als_tucker_pp_device`."""
     ranks = tuple(int(r) for r in ranks)
-    core, Ws = _init(V, ranks, Ws)
+    layout = cfg.mesh_layout
+    mesh = None if layout is None else layout.mesh
+    dim = V.shape[0] if layout is None else layout.orig_shape[0]
+    core, Ws = _init(V, ranks, Ws, layout)
     clock = clock or SweepClock()
     dtype = Ws[0].dtype
-    V_norm_sq = contract.norm_sq(V)
+    V_norm_sq = contract.norm_sq(V, layout)
     vn2 = float(V_norm_sq)
     max_hist = cfg.maxiter + 2
     # the ring covers one chunk's logged rows: drained after every chunk
@@ -996,34 +1099,43 @@ def als_tucker_pp_fused(V, ranks, cfg: TuckerConfig,
     def diff_v(cn):
         return float(np.sqrt(max(vn2 - cn * cn, 0.0)))
 
+    def now():
+        return pmesh.agreed_dtime(clock, mesh, V.device)
+
     with clock.exclude():
-        carry = tucker_fused_init(V, Ws, ranks, max_hist, n_slots,
-                                  cpm._in_dtype(cfg.pp_res_tol, dtype))
+        tol_init = cpm._in_dtype(cfg.pp_res_tol, dtype)
+        chunk_args = (cpm._in_dtype(cfg.tol, dtype), cfg.maxiter,
+                      cpm._in_dtype(TOL_INIT_DECAY, dtype),
+                      cpm._in_dtype(TOL_INIT_FLOOR, dtype),
+                      cpm._in_dtype(cfg.pp_quiet_frac, dtype))
+        chunk_kw = dict(ranks=ranks, subspace_iters=cfg.subspace_iters,
+                        chunk=chunk, resprint=cfg.resprint, n_slots=n_slots,
+                        V_norm_sq=V_norm_sq, layout=layout)
+        carry = tucker_fused_init(V, Ws, ranks, max_hist, n_slots, tol_init,
+                                  layout)
+        cpm.warm_run(_warm_fused, V, Ws, ranks, tol_init, chunk_args,
+                     chunk_kw, layout)
+        cpm.warm_run(_exact_core_norm, V, Ws, layout)
         cn0 = float(torch.linalg.vector_norm(core))
         diffV = diff_v(cn0)
     dn = float("inf")
+    t_prev = now()
     if plot is not None:
-        plot.row(V.shape[0], 0, dn, cfg.tol, 0, diffV, clock.dtime())
-    history.append(dict(iter=0, diffnorm=dn, diffV=diffV,
-                        dtime=clock.dtime(), pp=0))
+        plot.row(dim, 0, dn, cfg.tol, 0, diffV, t_prev)
+    history.append(dict(iter=0, diffnorm=dn, diffV=diffV, dtime=t_prev,
+                        pp=0))
 
     prev_it = 0
     cn_by_label = {0: cn0}  # exact core norms, for exact diffnorm rows
-    t_prev = clock.dtime()
     while True:
-        tucker_fused_chunk(
-            V, carry, cpm._in_dtype(cfg.tol, dtype), cfg.maxiter,
-            cpm._in_dtype(TOL_INIT_DECAY, dtype),
-            cpm._in_dtype(TOL_INIT_FLOOR, dtype),
-            cpm._in_dtype(cfg.pp_quiet_frac, dtype),
-            ranks=ranks, subspace_iters=cfg.subspace_iters, chunk=chunk,
-            resprint=cfg.resprint, n_slots=n_slots, V_norm_sq=V_norm_sq)
+        tucker_fused_chunk(V, carry, *chunk_args, **chunk_kw)
         it_now, stop = carry["it"], carry["stop"]
         cpm._sync()
-        t_now = clock.dtime()
+        t_now = now()
         if it_now > prev_it:
             rows_all, exact = cpm._drain_ring(
-                carry, clock, n_slots, lambda Ws_: _exact_core_norm(V, Ws_))
+                carry, clock, n_slots,
+                lambda Ws_: _exact_core_norm(V, Ws_, layout))
             cn_by_label.update(exact)
             for off, label in enumerate(range(prev_it + 1, it_now + 1)):
                 dt_row = t_prev + (t_now - t_prev) * (off + 1) / (
@@ -1036,8 +1148,7 @@ def als_tucker_pp_fused(V, ranks, cfg: TuckerConfig,
                         dn = abs(cn_by_label[label] - cn_by_label[label - 1])
                 if label % cfg.resprint == 0 or label == cfg.maxiter:
                     if plot is not None:
-                        plot.row(V.shape[0], label, dn, cfg.tol, ppf, diffV,
-                                 dt_row)
+                        plot.row(dim, label, dn, cfg.tol, ppf, diffV, dt_row)
                     history.append(dict(iter=label, diffnorm=dn,
                                         diffV=diffV, dtime=dt_row, pp=ppf))
         done = stop or it_now > cfg.maxiter or t_now > cfg.timelimit \
@@ -1047,6 +1158,6 @@ def als_tucker_pp_fused(V, ranks, cfg: TuckerConfig,
             break
     Ws_f = carry["Ws"]
     with clock.exclude():
-        diffV = diff_v(_exact_core_norm(V, Ws_f))
+        diffV = diff_v(_exact_core_norm(V, Ws_f, layout))
     return TuckerResult(Ws_f, carry["core"], dn, diffV, prev_it,
                         dn < cfg.tol, history)

@@ -181,18 +181,65 @@ def order_by_priority(modes, priority: Sequence[int]) -> Tuple[int, ...]:
     return tuple(sorted(modes, key=lambda m: rank_of[m]))
 
 
-def first_contraction(V, factor, mode: int, use_kernels: bool = None):
+def prepare_layouts(V, modes: Sequence[int]):
+    """Mode-minor copies of V for the given modes (JAX contract.py:239-253):
+    ``layouts[m]`` is V with mode m moved last, made contiguous, for every
+    listed mode but the minor one. A first-level contraction of mode m
+    then reads its copy as one GEMM over contiguous rows, where the einsum
+    on V itself makes torch.einsum copy V into that order on every call.
+    Each copy costs |V| of device memory. On a block-sharded V (-mesh)
+    they are copies of this rank's block."""
+    return {m: V.movedim(m, -1).contiguous() for m in modes
+            if m != V.ndim - 1}
+
+
+def chain_root_modes_pp(shape) -> Tuple[int, ...]:
+    """The modes some PP cache chain contracts first (JAX
+    contract.py:291-304): :func:`prepare_layouts`' candidates of the cache
+    builds, for chains planned on ``shape``."""
+    order = len(shape)
+    pr = contraction_priority(shape)
+    roots = set()
+    for i in range(order):
+        for j in range(i + 1, order):
+            key = order_by_priority(
+                (m for m in range(order) if m not in (i, j)), pr)
+            if key:
+                roots.add(key[0])
+        roots.add(order_by_priority((m for m in range(order) if m != i),
+                                    pr)[0])
+    return tuple(sorted(roots))
+
+
+def chain_root_modes_dt(shape, root_split: int = None) -> Tuple[int, ...]:
+    """The modes contracted first by the binary tree's two top-level nodes
+    (JAX contract.py:307-319); ``root_split`` as in
+    ops/dimtree.binary_parent_map (None = midpoint)."""
+    order = len(shape)
+    pr = contraction_priority(shape)
+    mid = (order - 1) // 2 if root_split is None else root_split
+    roots = set()
+    for lo, hi in ((0, mid), (mid + 1, order - 1)):
+        comp = [m for m in range(order) if not lo <= m <= hi]
+        if comp:
+            roots.add(order_by_priority(comp, pr)[0])
+    return tuple(sorted(roots))
+
+
+def first_contraction(V, factor, mode: int, use_kernels: bool = None,
+                      layouts=None):
     """V x_m W_m (Khatri-Rao first level). Output axes: remaining modes
     ascending + rank (same convention as :func:`contract_mode_kr`).
 
-    Routes as the JAX package does (contract.py:266-278): with
+    Routes as the JAX package does (contract.py:266-288): with
     ``use_kernels`` (``None`` reads ``config.get().use_kernels_first``, as
     the JAX package's ``use_pallas=None`` reads ``use_pallas_first``) a
     non-minor mode that ``mid_contract_eligible`` admits goes to the
     kernel module (rank-minor output), which launches its CUDA kernel for
-    a CUDA tensor and runs its plain version for a CPU one; everything
-    else, the minor mode included, is the einsum. The JAX package's
-    mode-minor layouts of V are not ported."""
+    a CUDA tensor and runs its plain version for a CPU one; else a mode
+    with a copy in ``layouts`` (:func:`prepare_layouts`) contracts the
+    copy's minor axis; everything else, the minor mode included, is the
+    einsum on V."""
     order = V.ndim
     if use_kernels is None:
         use_kernels = config.get().use_kernels_first
@@ -203,16 +250,25 @@ def first_contraction(V, factor, mode: int, use_kernels: bool = None):
             rem = tuple(m for m in range(order) if m != mode)
             return mid_contract.mid_contract(V.contiguous(),
                                              factor.contiguous(), mode), rem
+    if layouts and mode in layouts:
+        letters = _MODES[:order]
+        rem = tuple(m for m in range(order) if m != mode)
+        return _einsum(f"{letters},{letters[-1]}{_RANK}->"
+                       f"{letters[:-1]}{_RANK}", layouts[mode], factor), rem
     return contract_mode_kr(V, tuple(range(order)), False, factor, mode)
 
 
-def _first_contraction_rm(V, factor, mode: int):
+def _first_contraction_rm(V, factor, mode: int, layouts=None):
     """First-level contraction producing a RANK-MAJOR intermediate
     (R, remaining modes ascending), the convention of the PP cache
-    chains."""
+    chains; from the mode-minor copy in ``layouts`` where there is one
+    (JAX contract.py:322-339)."""
     order = V.ndim
     rem = tuple(m for m in range(order) if m != mode)
     letters = _MODES[:order]
+    if layouts and mode in layouts:
+        return _einsum(f"{letters},{letters[-1]}{_RANK}->{_RANK}"
+                       f"{letters[:-1]}", layouts[mode], factor), rem
     out = letters[:mode] + letters[mode + 1:]
     spec = f"{letters},{letters[mode]}{_RANK}->{_RANK}{out}"
     return _einsum(spec, V, factor), rem
@@ -230,7 +286,7 @@ def _contract_mode_kr_rm(T, rem_modes: Tuple[int, ...], factor, mode: int):
 
 
 def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
-                    shape=None):
+                    shape=None, layouts=None):
     """Build all PP caches: pair tensors T_{ij}[R, s_i, s_j] (rank-major)
     for i<j and single matrices M_i[s_i, R].
 
@@ -239,12 +295,15 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
     prefix reuse (als_CP.cxx:385-389): cache keys are the *contracted* mode
     tuples; a chain sharing a prefix reuses the prefix intermediate.
     Chains follow :func:`contraction_priority` and run rank-major, as in
-    the JAX package (contract.py:357-442).
+    the JAX package (contract.py:357-442). ``layouts``
+    (:func:`prepare_layouts`) serves each chain root from its mode-minor
+    copy where there is one.
 
     With ``config.get().use_kernels_triple``, an order-4 V whose axis 0
     is the smallest mode roots every chain at axis 1, 2 or 3; when
     ``triple_roots_eligible`` admits it, the three roots come from one
-    pass over V (contract.py:392-405).
+    pass over V (contract.py:392-405), unless ``layouts`` is given
+    (contract.py:395-396).
 
     ``use_kernels_first`` is the JAX package's experimental
     ``use_pallas`` branch (contract.py:411-415), off unless given: each
@@ -260,7 +319,8 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
     order = V.ndim
     priority = contraction_priority(V.shape if shape is None else shape)
     memo: Dict[Tuple[int, ...], Tuple] = {}
-    if config.get().use_kernels_triple and order == 4 and priority[-1] == 0:
+    if config.get().use_kernels_triple and order == 4 and \
+            priority[-1] == 0 and layouts is None:
         from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots
         if triple_roots.triple_roots_eligible(V.shape, V.dtype,
                                               factors[0].shape[1]):
@@ -274,10 +334,11 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
         if key not in memo:
             if len(key) == 1 and use_kernels_first:
                 T, rem = first_contraction(V, factors[key[0]], key[0],
-                                           use_kernels=True)
+                                           use_kernels=True, layouts=layouts)
                 memo[key] = (T.movedim(-1, 0), rem)
             elif len(key) == 1:
-                memo[key] = _first_contraction_rm(V, factors[key[0]], key[0])
+                memo[key] = _first_contraction_rm(V, factors[key[0]], key[0],
+                                                  layouts)
             else:
                 T, rem = get(key[:-1])
                 memo[key] = _contract_mode_kr_rm(T, rem, factors[key[-1]],

@@ -67,15 +67,21 @@ class BinaryTreeSweep:
     blocks. Chains are planned on the padded global shape; nodes stay
     partial sums over the sharded modes they contracted, and only a leaf
     M_i is summed, over the axes of the sharded modes other than i.
+
+    ``layouts`` (contract.prepare_layouts, mode-minor copies of V): a
+    top-level node's first contraction reads its mode's copy, and its
+    chain runs step by step instead of as one fused chain (JAX
+    dimtree.py:104).
     """
 
     def __init__(self, V, factors: Sequence, root_split: int = None,
-                 layout=None):
+                 layout=None, layouts=None):
         self.V = V
         self.factors = list(factors)
         self.order = V.ndim
         self.parent = binary_parent_map(self.order, root_split)
         self.layout = layout
+        self.layouts = layouts
         self.priority = contract.contraction_priority(
             contract.plan_shape(V, layout))
         self._memo: Dict[Tuple[int, int], object] = {}
@@ -90,15 +96,20 @@ class BinaryTreeSweep:
         plo, phi = self.parent[key]
         to_contract = [m for m in range(plo, phi + 1) if not lo <= m <= hi]
         chain = contract.order_by_priority(to_contract, self.priority)
-        if (plo, phi) == (0, order - 1) and len(chain) > 1:
+        if (plo, phi) == (0, order - 1) and len(chain) > 1 \
+                and not self.layouts:
             # top-level node from V: one single-consumer chain
             T, _ = contract.fused_partial_mttkrp(self.V, self.factors, chain)
         elif (plo, phi) == (0, order - 1):
-            # top-level node one mode away from V: the first-level
-            # contraction, where the mid_contract kernel may serve it
-            # (JAX dimtree.py:104-121)
-            T, _ = contract.first_contraction(self.V, self.factors[chain[0]],
-                                              chain[0])
+            # top-level node from V through the first-level contraction,
+            # where the mid_contract kernel or a mode-minor copy may serve
+            # it (JAX dimtree.py:104-121), then the rest of its chain
+            T, rem = contract.first_contraction(
+                self.V, self.factors[chain[0]], chain[0],
+                layouts=self.layouts)
+            for m in chain[1:]:
+                T, rem = contract.contract_mode_kr(T, rem, True,
+                                                   self.factors[m], m)
         else:
             T, rem = self.node(plo, phi), tuple(range(plo, phi + 1))
             for m in chain:

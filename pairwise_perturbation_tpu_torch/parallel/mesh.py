@@ -309,14 +309,16 @@ def _constrained(single, pair, layout: ShardedLayout):
     return {i: out[(i,)] for i in single}, {k: out[k] for k in pair}
 
 
-def constrained_pp_caches(V, Ws: Sequence, layout: ShardedLayout):
+def constrained_pp_caches(V, Ws: Sequence, layout: ShardedLayout,
+                          layouts=None):
     """PP caches of this rank's block (contract.build_pp_caches, planned
-    on the padded global shape), each summed over the axes of the sharded
-    modes it contracted away, so it keeps the blocks of the modes it
-    retains: the layout JAX's sharding constraints pin (mesh.py:196-220),
-    the rank axis replicated."""
+    on the padded global shape; ``layouts``: mode-minor copies of the
+    block), each summed over the axes of the sharded modes it contracted
+    away, so it keeps the blocks of the modes it retains: the layout JAX's
+    sharding constraints pin (mesh.py:196-220), the rank axis
+    replicated."""
     return _constrained(*contract.build_pp_caches(
-        V, list(Ws), shape=layout.padded_shape), layout)
+        V, list(Ws), shape=layout.padded_shape, layouts=layouts), layout)
 
 
 def constrained_ttmc_caches(V, Ws: Sequence, layout: ShardedLayout):

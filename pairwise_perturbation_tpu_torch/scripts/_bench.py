@@ -11,6 +11,7 @@ own counters, so a caller can tell which kernel each row went through.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import sys
@@ -45,6 +46,32 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def warm_launches():
+    """Inside: every engine warm-up (models/cp.warm_run) adds the kernel
+    launches it made to the yielded dict ("module.counter" -> launches),
+    so that a launch count can be held to its scopes with the warm-ups'
+    launches apart."""
+    from pairwise_perturbation_tpu_torch.models import cp
+    out: Dict[str, int] = {}
+    real = cp.warm_run
+
+    def counted(fn, *args, **kwargs):
+        before = launch_counts()
+        try:
+            return real(fn, *args, **kwargs)
+        finally:
+            for k, n in launch_counts().items():
+                if n != before.get(k, 0):
+                    out[k] = out.get(k, 0) + n - before.get(k, 0)
+
+    cp.warm_run = counted
+    try:
+        yield out
+    finally:
+        cp.warm_run = real
 
 
 def _shape(text: str):

@@ -46,15 +46,21 @@ backend, device, its kernels' launch counts, and per task:
   beside one process's function on the zero-padded whole V (``err/``);
 - ``dcp`` (``dc_V``, or an ``.npy`` file ``dc_vfile`` of which each rank
   reads only its block; factors ``dc_W<i>``, ``dc_cfg``,
-  ``dc_pp``: the -pp values to run, ``dc_config``: config overrides):
+  ``dc_pp``: the -pp values to run, ``dc_config``: config overrides;
+  ``dc_loops``: the -device_loop values of -pp 1 to run as well):
   ``cp.als_cp_pp`` (-pp 1, or -pp 2 with ``partial_update``) with
   ``mesh_layout``, its history, its factors unsharded, scope statistics,
-  wall seconds and kernel launches (``dcp<pp>_*/<dtype>``);
+  wall seconds, kernel launches and those of its warm-ups
+  (``dcp<pp>_*/<dtype>``); then ``cp.als_cp_pp_device`` (1) and
+  ``cp.als_cp_pp_fused`` (2), the same records (``dcl<loop>_*/<dtype>``);
 - ``dtucker`` (``dt_V`` or ``dt_vfile``, ``dt_ranks``, ``dt_tk_cfg``;
   ``dt_Q<i>`` starts it from ``tucker.hosvd`` with those draws;
   ``dt_hosvd_max`` sets tucker.HOSVD_EXACT_EIGH_MAX for this task
-  alone): ``tucker.als_tucker_pp`` with ``mesh_layout``, the same
-  records and its core (``dtk_*/<dtype>``);
+  alone; ``dt_loops`` as ``dc_loops``, ``dt_host`` 0 to skip the host
+  engine): ``tucker.als_tucker_pp`` with ``mesh_layout``, the same
+  records and its core (``dtk_*/<dtype>``); then
+  ``tucker.als_tucker_pp_device`` and ``als_tucker_pp_fused``
+  (``dtl<loop>_*/<dtype>``);
 - ``drun`` (``dr_V`` or ``dr_vfile``, factors ``dr_W<i>``, ``dr_runs``: a
   JSON list of runs, each ``tag``, ``pp`` (run's -pp), ``steps`` (or
   ``maxiter`` and ``resprint``: the whole ``cli.run_cpd``, whose history
@@ -227,6 +233,11 @@ def task_functions(data, res, mesh, dtypes, device):
                         p_ref[(i, j)])
         res.put(f"gradnorm/{d}", pmesh.sharded_sparse_gradnorm(sts, Ws, mesh),
                 sp.cp_gradnorm(st, Ws))
+
+
+def _listed(data, key):
+    """The array ``data[key]``, or nothing where the inputs lack it."""
+    return data[key] if key in data else ()
 
 
 def _history(hist, keys):
@@ -487,9 +498,10 @@ def _put_caches(put, tag, caches, ref, rank_major):
         put(f"{tag}pair/{i}_{j}", x, ref[1][(i, j)], dims)
 
 
-def _run_counted(fn, device):
+def _run_counted(fn, device, warm=None):
     """(result, wall seconds, scope statistics, {kernel: launches}) of
-    ``fn()`` with the tracing scopes on."""
+    ``fn()`` with the tracing scopes on; with a dict ``warm``, the
+    launches its warm-ups made are also added to it (_bench.warm_launches)."""
     import torch
     from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
@@ -498,19 +510,24 @@ def _run_counted(fn, device):
     tracing.enable()
     t0 = time.perf_counter()
     try:
-        out = fn()
+        with _bench.warm_launches() as w:
+            out = fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
         tracing.enable(False)
     after = _bench.launch_counts()
+    if warm is not None:
+        warm.update(w)
     return (out, time.perf_counter() - t0, _stats(),
             {k: n - before.get(k, 0) for k, n in after.items()})
 
 
 def _dense_engine(res, tag, d, run, keys, layout, device):
     from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
-    r, wall, stats, launches = _run_counted(run, device)
+    warm = {}
+    r, wall, stats, launches = _run_counted(run, device, warm)
+    res.meta(f"{tag}_warm/{d}", json.dumps(warm))
     res.put(f"{tag}_hist/{d}", _history(r.history, ("iter",) + keys),
             keep=True)
     for i, W in enumerate(pmesh.unshard_factors(r.factors, layout)):
@@ -535,6 +552,12 @@ def task_dcp(data, res, mesh, dtypes, device):
                 _dense_engine(res, f"dcp{pp}", _dtype_name(dtype),
                               lambda: cp.als_cp_pp(Vb, Wb, cfg,
                                                    partial_update=pp == 2),
+                              ("gradnorm", "diffV", "pp"), layout, device)
+        engines = {1: cp.als_cp_pp_device, 2: cp.als_cp_pp_fused}
+        for loop in (int(x) for x in _listed(data, "dc_loops")):
+            with config.override(**over):
+                _dense_engine(res, f"dcl{loop}", _dtype_name(dtype),
+                              lambda: engines[loop](Vb, Wb, cfg),
                               ("gradnorm", "diffV", "pp"), layout, device)
 
 
@@ -562,10 +585,17 @@ def _dtucker_runs(data, res, mesh, dtypes, device):
                                   mesh_layout=layout)
         Q0s = _factors(data, "dt_Q", dtype, device) or None
         Ws = tucker.hosvd(Vb, ranks, Q0s, layout=layout)[1] if Q0s else None
-        r = _dense_engine(res, "dtk", d, lambda: tucker.als_tucker_pp(
-            Vb, ranks, cfg, Ws=Ws), ("diffnorm", "diffV", "pp"), layout,
-            device)
-        res.put(f"dtk_core/{d}", r.core, keep=True)
+        engines = {"dtk": tucker.als_tucker_pp,
+                   "dtl1": tucker.als_tucker_pp_device,
+                   "dtl2": tucker.als_tucker_pp_fused}
+        tags = ["dtk"] if "dt_host" not in data or int(data["dt_host"]) \
+            else []
+        tags += [f"dtl{int(x)}" for x in _listed(data, "dt_loops")]
+        for tag in tags:
+            r = _dense_engine(res, tag, d, lambda: engines[tag](
+                Vb, ranks, cfg, Ws=Ws), ("diffnorm", "diffV", "pp"), layout,
+                device)
+            res.put(f"{tag}_core/{d}", r.core, keep=True)
 
 
 def _drun_one(spec, Vb, Wb, layout, device, record):

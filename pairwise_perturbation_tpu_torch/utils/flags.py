@@ -11,10 +11,9 @@ The reference parses single-dash long options with a hand-rolled scan
 
 plus the JAX package's additions (-dtype, -mesh, -seed, -checkpoint,
 -resume, -device_loop, -layouts, -profile, -trace_dir, ...) and -device.
-Flags whose code is not ported yet (-device_loop >= 1 with -mesh,
--layouts 1), or that the JAX package ignores on a path, are accepted by
-the parser and refused by the CLI, with the ROADMAP step that brings
-them or the reason.
+Flags that the JAX package ignores on a path (-device_loop or -layouts 1
+there, for example) are accepted by the parser and refused by the CLI,
+with the reason.
 Defaults and clamping follow test_ALS.cxx:64-196 / run.cxx:67-214.
 """
 
@@ -62,8 +61,10 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
                    help="float32 | float64 | bfloat16 (V stored bf16; "
                         "factors, Grams and solves float32)")
     p.add_argument("-mesh", default="",
-                   help="N: nnz-sharded COO over N torchrun ranks (test_als "
-                        "-issparse 1); dense engines: not ported (A15)")
+                   help="N or AxB: one torchrun rank per mesh device; "
+                        "dense V block-sharded over its largest modes "
+                        "(test_als, pp_bench, run), or with -issparse 1 an "
+                        "nnz-sharded COO over a 1D mesh (test_als)")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("-checkpoint", default="",
                    help="test_als: write the final factors (and Tucker's "
@@ -74,9 +75,9 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
     p.add_argument("-device_loop", type=int, default=0,
                    help="run: >= 1 steps MSDT and MSDT-LR (-pp 1, 3) a "
                         "full MSDT rotation per call (macro steps, as the "
-                        "JAX package's); test_als and pp_bench: the "
-                        "device-resident phase machines are not ported, "
-                        "only 0 (host-driven phases) runs")
+                        "JAX package's); test_als CP -pp 1 and Tucker "
+                        "-pp >= 1: 1 the device-resident phase loops, 2 "
+                        "the fused machine")
     p.add_argument("-tucker_subspace", type=int, default=-1)
     p.add_argument("-tucker_pp_skip", type=float, default=0.0)
     p.add_argument("-msdt_min_holdout", type=int, default=0,
@@ -87,9 +88,10 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
                         "native traffic planner (native/planner.cpp); "
                         "0: reference midpoint split")
     p.add_argument("-layouts", type=int, default=0,
-                   help="mode-minor copies of V: not ported (the port never "
-                        "canonicalizes mode order either; that is TPU tiling "
-                        "and an identity for the cubic synthetic tensors)")
+                   help="1: mode-minor copies of V for the first-level "
+                        "contractions (contract.prepare_layouts; |V| of "
+                        "device memory each); dense CP test_als -pp 0, and "
+                        "-pp 1 with -device_loop 1 or 2")
     p.add_argument("-quiet", action="store_true")
     p.add_argument("-profile", type=int, default=0,
                    help="1: per-phase host timer scopes (synchronized; adds "

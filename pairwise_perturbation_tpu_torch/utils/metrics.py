@@ -8,7 +8,9 @@ runs emit ``[dim],[iter],[gradnorm],[tol],[pp_update],[diffV],[dtime]``
 
 Wall-clock: diagnostics (gradnorm + residual recomputation) are *excluded*
 from reported ``dtime`` exactly like the reference's
-``st_time += MPI_Wtime() - st_time1`` bookkeeping (als_CP.cxx:480-482).
+``st_time += MPI_Wtime() - st_time1`` bookkeeping (als_CP.cxx:480-482), and
+so are the engines' warm-ups (models/cp.warm_run), as the JAX package
+excludes its compile warm-ups.
 """
 
 from __future__ import annotations
@@ -86,3 +88,8 @@ class SweepClock:
 
     def dtime(self) -> float:
         return time.perf_counter() - self.st_time
+
+    def reset(self):
+        """Start the clock again from now (the device engines, after their
+        warm-ups)."""
+        self.st_time = time.perf_counter()

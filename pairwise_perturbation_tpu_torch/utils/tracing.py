@@ -42,6 +42,18 @@ def enabled() -> bool:
 
 
 @contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """No scope records inside (the engines' warm-ups, which are no
+    phase of the run)."""
+    global _enabled
+    was, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = was
+
+
+@contextlib.contextmanager
 def timer(name: str) -> Iterator[None]:
     t0 = time.perf_counter()
     try:

@@ -80,8 +80,8 @@ def test_cli_profile_prints_phase_report(tmp_path, capsys):
      "ignores the flag"),
     (["-mesh", "4"], "A15"),
     (["-device_loop", "1"], "ignores the flag"),
-    (["-pp", "1", "-device_loop", "2", "-mesh", "2"], "A14"),
-    (["-layouts", "1"], "A16"),
+    (["-pp", "2", "-device_loop", "2", "-mesh", "2"], "ignores the flag"),
+    (["-pp", "1", "-layouts", "1"], "ignores the flag"),
     (["pp_bench", "-resume", "ck.npz"], "reads no checkpoint"),
     (["-issparse", "1", "-resume", "ck.npz"], "reads no checkpoint"),
     (["run", "-checkpoint", "ck"], "writes no checkpoint"),
@@ -108,20 +108,20 @@ def test_cli_refuses_unported_features(argv, step):
      "sparse engines .* the JAX package ignores"),
     (["test_als", "-model", "Tucker", "-pp", "0", "-device_loop", "2"],
      "Tucker -pp 0 .* the JAX package ignores"),
-    # where the JAX package has an engine the port lacks: A14's rest,
-    # the device engines under -mesh
-    (["test_als", "-pp", "1", "-device_loop", "2", "-mesh", "2"],
-     "fused machine.*ROADMAP A14's rest"),
-    (["test_als", "-model", "Tucker", "-pp", "1", "-device_loop", "1",
+    # the same under -mesh, where the device engines run on a sharded V
+    (["test_als", "-pp", "2", "-device_loop", "2", "-mesh", "2"],
+     "-pp 2 runs the host-driven engine; the JAX package ignores"),
+    (["test_als", "-model", "Tucker", "-pp", "0", "-device_loop", "1",
       "-mesh", "2"],
-     "for Tucker .*ROADMAP A14's rest"),
-    (["test_als", "-pp", "1", "-device_loop", "1", "-mesh", "2"],
-     "mesh half.*ROADMAP A14's rest"),
+     "Tucker -pp 0 .* the JAX package ignores"),
+    (["test_als", "-issparse", "1", "-pp", "1", "-device_loop", "1",
+      "-mesh", "2"],
+     "sparse engines .* the JAX package ignores"),
 ])
 def test_cli_device_loop_refusals_follow_jax(argv, match):
-    """-device_loop >= 1 where the port has no device-resident engine:
-    each refusal says whether the JAX package ignores the flag there or
-    names the ROADMAP step that brings the engine."""
+    """-device_loop >= 1 where the JAX package has no device-resident
+    engine either: each refusal says that the JAX package ignores the
+    flag there, with -mesh or without."""
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["-device", "cpu"])
 

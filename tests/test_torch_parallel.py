@@ -424,13 +424,14 @@ def test_cli_mesh_csv_matches_unsharded(tmp_path, model):
     (["run", "-mesh", "2"], "torchrun --standalone --nproc_per_node 2"),
     (["pp_bench", "-mesh", "2x2"], "world of 1: launch 4 ranks"),
     (["test_als", "-mesh", "2", "-pp", "1", "-device_loop", "1"],
-     "ROADMAP A14"),
+     "torchrun --standalone --nproc_per_node 2"),
     (["pp_bench", "-mesh", "2", "-device_loop", "2"], "ignores the flag"),
 ])
 def test_cli_mesh_refusals(argv, match):
     """What -mesh refuses, each naming its ROADMAP step or saying that the
-    JAX package ignores the flag, and the dense engines' and run's -mesh
-    (accepted since A15) outside torchrun, which says how to launch it."""
+    JAX package ignores the flag, and the dense engines' (the device
+    engines' too) and run's -mesh outside torchrun, which says how to
+    launch it."""
     with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["-device", "cpu"])
 
