@@ -226,6 +226,7 @@ def pp_partupdate_sweep(single, pair, Ws, W_init, dWs, dMs, Ms, ms_set,
     order = len(Ws)
     Ws, dWs, dMs, Ms = list(Ws), list(dWs), list(dMs), list(Ms)
     grads, ms_set = list(grads), list(ms_set)
+    tracing.count("wait.pull")
     ranked = torch.argsort(-rel_perturbe, stable=True).tolist()
     for b in ranked[:update_size]:
         M = single[b] + dMs[b]
@@ -320,9 +321,21 @@ def init_factors(shape: Sequence[int], R: int, seed: int = 0, dtype=None,
 
 def _sync():
     """Wait for queued device work. CUDA launches are asynchronous, so a
-    sweep's time is only known after this; CPU tensors are already done."""
+    sweep's time is only known after this; CPU tensors are already done.
+    Each call counts as a ``wait.sync``."""
+    tracing.count("wait.sync")
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def _pull(x, key: Optional[str] = None):
+    """``x`` read to the host: one device-to-host read, counted as a
+    ``wait.pull`` and, for the device engines' loop state, under
+    ``DEVICE_LOOP_COUNTS[key]``."""
+    tracing.count("wait.pull")
+    if key is not None:
+        DEVICE_LOOP_COUNTS[key] += 1
+    return x.cpu()
 
 
 def warm_run(fn, *args, **kwargs):
@@ -336,14 +349,21 @@ def warm_run(fn, *args, **kwargs):
     Unlike ``warm_compile`` it lets an exception raise: a warm-up that
     fails is a fault of the run, not something to hide. It draws no
     random numbers of its own (every draw of the port is an argument,
-    and the callers pass the real call's). It records no tracing scope
-    and leaves DEVICE_LOOP_COUNTS as they were; the kernels it reaches
-    count their launches, as every launch counts."""
+    and the callers pass the real call's). The whole call is the span
+    ``warmup``, and no span inside it records; it leaves
+    DEVICE_LOOP_COUNTS as they were; the kernels it reaches count their
+    launches, and its waits count, as the fit pays for them."""
     counts = dict(DEVICE_LOOP_COUNTS)
+    out = tracing.timed("warmup", _paused_call, fn, *args, **kwargs)
+    DEVICE_LOOP_COUNTS.update(counts)
+    return out
+
+
+def _paused_call(fn, *args, **kwargs):
+    """``fn`` with no span recording, then a device sync."""
     with tracing.paused():
         out = fn(*args, **kwargs)
         _sync()
-    DEVICE_LOOP_COUNTS.update(counts)
     return out
 
 
@@ -370,6 +390,7 @@ def _diag_and_log(V_norm_sq, V, Ws, lam, clock, plot, it, tol, pp_flag,
     with clock.exclude():
         gn, diffV = tracing.timed("cp.diagnostics", cp_diagnostics,
                                   V_norm_sq, V, Ws, lam, layout)
+        tracing.count("wait.pull", 2)
         gn, diffV = float(gn), float(diffV)
     dtime = pmesh.agreed_dtime(clock, None if layout is None else layout.mesh,
                                V.device)
@@ -409,11 +430,13 @@ def als_cp_dt(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
                         setup=setup)
 
 
+@tracing.span("cp.fit")
 def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn, clock=None,
                  setup=None) -> CPResult:
     """The loop of :func:`als_cp` and :func:`als_cp_dt`: ``setup()`` and
     one warm sweep (:func:`warm_run`, JAX cp.py:460-461) in excluded
-    time, then sweeps with a logged row every ``resprint``."""
+    time, then sweeps with a logged row every ``resprint``. The whole
+    solve is the span ``cp.fit``."""
     Ws = list(Ws)
     V_norm_sq = contract.norm_sq(V, cfg.mesh_layout)
     clock = clock or SweepClock()
@@ -449,7 +472,6 @@ def _dt_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
     pull in excluded time (JAX cp.py:485-486 warms the sweep at every
     phase entry, where only the first compiles; here only the first pays
     a first-use cost)."""
-    order = V.ndim
     layout = cfg.mesh_layout
     W_prev = [torch.zeros_like(W) for W in Ws]
     if not state.get("dt_warmed"):
@@ -474,11 +496,28 @@ def _dt_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
         state["grads"] = grads
         dWs = [W - Wp for W, Wp in zip(Ws, W_prev)]
         W_prev = list(Ws)
-        ratios = factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
         state["iter"] = it + 1
-        if int(np.sum(np.abs(ratios) < cfg.pp_res_tol)) == order:
+        if tracing.timed("cp.restart_check", _all_quiet, Ws, dWs,
+                         cfg.pp_res_tol, layout):
             return Ws, dWs, "quiet"
     return Ws, dWs, "maxiter"
+
+
+def _moved(Ws, dWs, layout):
+    """|dW_i| / |W_i| of every mode, read to the host."""
+    return np.abs(_pull(factor_norm_ratios(Ws, dWs, layout)).numpy())
+
+
+def _all_quiet(Ws, dWs, tol, layout) -> bool:
+    """The DT phase's restart check: every mode moved less than ``tol``
+    in the last sweep."""
+    return int(np.sum(_moved(Ws, dWs, layout) < tol)) == len(Ws)
+
+
+def _num_moved(Ws, dWs, tol, layout) -> int:
+    """The PP phase's restart check: the modes that moved more than
+    ``tol`` since the cache build."""
+    return int(np.sum(_moved(Ws, dWs, layout) > tol))
 
 
 def _warm_dt(V, Ws, cfg: CPConfig, layout):
@@ -486,8 +525,8 @@ def _warm_dt(V, Ws, cfg: CPConfig, layout):
     as the loop runs them; the results are discarded."""
     Ws2, _ = dt_sweep(V, Ws, cfg.lam, cfg.rcond, solver=cfg.solver,
                       root_split=cfg.tree_split, layout=layout)
-    factor_norm_ratios(Ws2, [a - b for a, b in zip(Ws2, Ws)],
-                       layout).cpu()
+    _pull(factor_norm_ratios(Ws2, [a - b for a, b in zip(Ws2, Ws)],
+                             layout))
 
 
 def _warm_pp(caches, Ws, cfg: CPConfig, layout):
@@ -498,7 +537,28 @@ def _warm_pp(caches, Ws, cfg: CPConfig, layout):
                                 [torch.zeros_like(W) for W in Ws], cfg.lam,
                                 cfg.ratio_step, cfg.rcond, solver=cfg.solver,
                                 layout=layout)
-    ratios_and_gradnorm(Ws2, dWs2, grads, layout).cpu()
+    _pull(ratios_and_gradnorm(Ws2, dWs2, grads, layout))
+
+
+def _pp_check(Ws, dWs, grads, gn_floor: float, cfg: CPConfig, layout):
+    """The PP phase's restart check, its ratios read to the host once:
+    (blown, modes past ``pp_res_tol``, the phase's gradnorm floor).
+
+    With the guard on and the phase's grads known, ``blown`` says the
+    last sweep is to be discarded: the gradnorm estimate grew past
+    ``gn_guard`` times the floor, or a factor moved by far more than its
+    own norm in one sweep (a last-mode solve explosion is invisible to
+    the estimate)."""
+    if cfg.gn_guard and grads is not None:
+        rg = _pull(ratios_and_gradnorm(Ws, dWs, grads, layout)).numpy()
+        ratios, gn_est = np.abs(rg[:-1]), float(rg[-1])
+        if gn_est > cfg.gn_guard * gn_floor or \
+                float(np.max(ratios)) > max(5.0 * cfg.pp_res_tol, 0.5):
+            return True, 0, gn_floor
+        gn_floor = min(gn_floor, gn_est)
+    else:
+        ratios = _moved(Ws, dWs, layout)
+    return False, int(np.sum(ratios > cfg.pp_res_tol)), gn_floor
 
 
 def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
@@ -534,28 +594,17 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
         it = state["iter"]
         num_dw_break = 0
         if not cfg.bench:  # pp_bench timing mode runs no restart checks
-            if cfg.gn_guard and state["grads"] is not None:
-                rg = ratios_and_gradnorm(Ws, dWs, state["grads"],
-                                         layout).cpu().numpy()
-                ratios, gn_est = rg[:-1], float(rg[-1])
-                # revert guards: gradnorm growth OR a factor that moved by
-                # >> its own norm in one sweep (a last-mode solve explosion
-                # is invisible to gn_est)
-                if gn_est > cfg.gn_guard * gn_floor or \
-                        float(np.max(np.abs(ratios))) \
-                        > max(5.0 * cfg.pp_res_tol, 0.5):
-                    # discard the blown sweep and restart from the last
-                    # healthy iterate; the discarded sweep does not
-                    # consume an iteration — EXCEPT when its iteration
-                    # number was already logged (rewinding would
-                    # duplicate CSV rows)
-                    if state.get("last_logged") != it - 1:
-                        state["iter"] = it - 1
-                    return Ws_pre, dWs_pre, "restart"
-                gn_floor = min(gn_floor, gn_est)
-            else:
-                ratios = factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
-            num_dw_break = int(np.sum(np.abs(ratios) > cfg.pp_res_tol))
+            blown, num_dw_break, gn_floor = tracing.timed(
+                "cp.restart_check", _pp_check, Ws, dWs, state["grads"],
+                gn_floor, cfg, layout)
+            if blown:
+                # discard the blown sweep and restart from the last
+                # healthy iterate; the discarded sweep does not consume
+                # an iteration — EXCEPT when its iteration number was
+                # already logged (rewinding would duplicate CSV rows)
+                if state.get("last_logged") != it - 1:
+                    state["iter"] = it - 1
+                return Ws_pre, dWs_pre, "restart"
         if (it - init_iter) % cfg.pp_cache_sweeps == 0 or num_dw_break > 0:
             if num_dw_break > 0 or it != init_iter:
                 return Ws, dWs, "restart"
@@ -567,6 +616,7 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
             else:
                 single, pair = tracing.timed("cp.pp_cache_build",
                                              pp_build_caches, V, Ws, layout)
+            tracing.count("cp.pp_phase")
             if partial_update:
                 dMs = [torch.zeros_like(W) for W in Ws]
         if it % cfg.resprint == 0 or it == cfg.maxiter or it == init_iter:
@@ -605,13 +655,15 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
     return Ws, dWs, "maxiter"
 
 
+@tracing.span("cp.fit")
 def als_cp_pp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
               partial_update: bool = False,
               clock: Optional[SweepClock] = None) -> CPResult:
     """Outer DT <-> PP loop. Reference: alsCP_PP (als_CP.cxx:1082-1137) /
     alsCP_PP_partupdate (als_CP.cxx:1146-1207): with ``partial_update``
     each PP sweep solves only the ``cfg.update_percentage`` share of the
-    modes that moved most (:func:`pp_partupdate_sweep`)."""
+    modes that moved most (:func:`pp_partupdate_sweep`). The whole solve
+    is the span ``cp.fit``."""
     Ws = list(Ws)
     V_norm_sq = contract.norm_sq(V, cfg.mesh_layout)
     clock = clock or SweepClock()
@@ -673,12 +725,6 @@ DEVICE_LOOP_COUNTS = dict(pulls=0, dt_issued=0, dt_masked=0, pp_issued=0,
 def reset_device_loop_counts():
     for k in DEVICE_LOOP_COUNTS:
         DEVICE_LOOP_COUNTS[k] = 0
-
-
-def _pull(x, key: str = "pulls"):
-    """One host read of device loop state, counted under ``key``."""
-    DEVICE_LOOP_COUNTS[key] += 1
-    return x.cpu()
 
 
 def _in_dtype(x: float, dtype) -> float:
@@ -793,7 +839,8 @@ def _issue_chunks(sweep, st, budget: int, kind: str) -> int:
         for j in range(issued, min(issued + DEVICE_LOOP_CHUNK, budget)):
             sweep(j)
         issued = min(issued + DEVICE_LOOP_CHUNK, budget)
-        flag, n = (int(x) for x in _pull(torch.stack([st["on"], st["k"]])))
+        flag, n = (int(x) for x in
+                   _pull(torch.stack([st["on"], st["k"]]), "pulls"))
         if not flag:
             break
     DEVICE_LOOP_COUNTS[f"{kind}_issued"] += issued
@@ -997,13 +1044,13 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
 
     def log_phase(hist, n, pp_flag, t_start, t_end, snaps, labels, count):
         nonlocal it, gn, diffV
-        h = _pull(hist)[:n].tolist()
+        h = _pull(hist, "pulls")[:n].tolist()
         exact = {}
         with clock.exclude():
-            sn = int(_pull(count))
+            sn = int(_pull(count, "pulls"))
             _ring_overflow(sn, n_slots, "phase")
             if sn > 0:
-                labels_h = _pull(labels).tolist()
+                labels_h = _pull(labels, "pulls").tolist()
                 for slot in range(min(sn, n_slots)):
                     g, d = tracing.timed("cp.diagnostics", _exact_row_stats,
                                          V, V_norm_sq, [s[slot] for s in snaps],
@@ -1028,7 +1075,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
             max_sweeps=cfg.maxiter + 1, root_split=cfg.tree_split, **common)
         t1 = now()
         log_phase(hist, n, 0, t0, t1, snaps, labels, count)
-        gn_dt = float(_pull(gn_d))
+        gn_dt = float(_pull(gn_d, "pulls"))
         if gn_dt < cfg.tol or it > cfg.maxiter or t1 > cfg.timelimit:
             gn = gn_dt
             break
@@ -1040,7 +1087,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
             gn_guard, max_sweeps=cfg.pp_cache_sweeps, **common)
         t1 = now()
         log_phase(hist, n, 1, t0, t1, snaps, labels, count)
-        gn = float(_pull(gn_d))
+        gn = float(_pull(gn_d, "pulls"))
         if gn < cfg.tol or t1 > cfg.timelimit:
             break
     return CPResult(Ws, gn, diffV, it, gn < cfg.tol, history)

@@ -313,8 +313,9 @@ def tucker_pp_sweep(single, pair, Ws, W_init, dWs, quiet_tol: float = 0.0,
     if quiet_tol > 0 and age > 0:
         n = contract.factor_norms(list(dWs) + list(Ws), layout,
                                   [k % order for k in range(2 * order)])
-        rel = torch.stack([n[k] / torch.clamp(n[order + k], min=1e-30)
-                           for k in range(order)]).cpu().numpy()
+        rel = cpm._pull(torch.stack(
+            [n[k] / torch.clamp(n[order + k], min=1e-30)
+             for k in range(order)])).numpy()
         tol = rel.dtype.type(quiet_tol)
         for i in range(order):
             quiet[i] = bool(np.max(np.where(np.arange(order) == i, 0, rel))
@@ -473,6 +474,7 @@ def _diag_and_log(V_norm_sq, V, Ws, core_prev_norm, clock, plot, it, tol,
         core, cn, diffnorm, diffV = tracing.timed(
             "tucker.diagnostics", tucker_diagnostics,
             V_norm_sq, V, Ws, core_prev_norm, layout)
+        tracing.count("wait.pull", 3)
         cn, diffnorm, diffV = float(cn), float(diffnorm), float(diffV)
     dtime = pmesh.agreed_dtime(clock, None if layout is None else layout.mesh,
                                V.device)
@@ -499,13 +501,15 @@ def _init(V, ranks, Ws, layout=None):
     return contract.ttmc(V, Ws, skip_mode=-1, layout=layout), Ws
 
 
+@tracing.span("tucker.fit")
 def als_tucker(V, ranks, cfg: TuckerConfig,
                plot: Optional[PlotFile] = None,
                Ws: Optional[List] = None, use_tree: bool = True,
                clock: Optional[SweepClock] = None) -> TuckerResult:
     """Tucker ALS from HOSVD (test_ALS.cxx:386-395): DT sweeps with
     ``use_tree`` (alsTucker_DT, als_Tucker.cxx:240-424), plain HOOI
-    sweeps without (alsTucker, als_Tucker.cxx:120-176)."""
+    sweeps without (alsTucker, als_Tucker.cxx:120-176). The whole solve,
+    HOSVD included, is the span ``tucker.fit``."""
     ranks = tuple(int(r) for r in ranks)
     layout = cfg.mesh_layout
     V_norm_sq = contract.norm_sq(V, layout)
@@ -554,7 +558,6 @@ def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     JAX package (tucker.py:479, 497-498). The first DT phase of a solve
     runs one warm sweep and its ratio pull in excluded time (JAX
     tucker.py:480-482)."""
-    order = V.ndim
     layout = cfg.mesh_layout
     W_prev = [torch.zeros_like(W) for W in Ws]
     if not state.get("dt_warmed"):
@@ -580,9 +583,9 @@ def _tucker_dt_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
         dWs = [W - Wp for W, Wp in zip(Ws_new, W_prev)]
         W_prev = list(Ws_new)
         Ws = Ws_new
-        ratios = cpm.factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
         state["iter"] = it + 1
-        if int(np.sum(np.abs(ratios) < state["tol_init"])) == order:
+        if tracing.timed("tucker.restart_check", cpm._all_quiet, Ws, dWs,
+                         state["tol_init"], layout):
             return Ws, dWs, "quiet"
     return Ws, dWs, "maxiter"
 
@@ -594,7 +597,7 @@ def _warm_dt(V, Ws, ranks, cfg, layout):
     zeros = [torch.zeros_like(W) for W in Ws]
     Ws2, _ = tucker_dt_sweep(V, Ws, zeros, ranks=ranks, use_sign=True,
                              subspace_iters=cfg.subspace_iters, layout=layout)
-    cpm.factor_norm_ratios(Ws2, Ws2, layout).cpu()
+    cpm._pull(cpm.factor_norm_ratios(Ws2, Ws2, layout))
 
 
 def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
@@ -620,8 +623,8 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
         state["pp_warmed"] = True
     while state["iter"] <= cfg.maxiter:
         it = state["iter"]
-        ratios = cpm.factor_norm_ratios(Ws, dWs, layout).cpu().numpy()
-        num_dw_break = int(np.sum(np.abs(ratios) > state["tol_init"]))
+        num_dw_break = tracing.timed("tucker.restart_check", cpm._num_moved,
+                                     Ws, dWs, state["tol_init"], layout)
         if it == init_iter or num_dw_break > 0:
             if num_dw_break > 0:
                 return Ws, dWs, "restart"
@@ -635,6 +638,7 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
                 single, pair = tracing.timed("tucker.pp_cache_build",
                                              tucker_build_caches, V, Ws,
                                              layout)
+            tracing.count("tucker.pp_phase")
         if _logged(it, cfg) or it == init_iter:
             core, cn, diffnorm, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, state["core_prev_norm"], clock, plot, it,
@@ -659,13 +663,15 @@ def _tucker_pp_sub(V, Ws, dWs, ranks, cfg, plot, clock, state, V_norm_sq):
     return Ws, dWs, "maxiter"
 
 
+@tracing.span("tucker.fit")
 def als_tucker_pp(V, ranks, cfg: TuckerConfig,
                   plot: Optional[PlotFile] = None,
                   Ws: Optional[List] = None,
                   clock: Optional[SweepClock] = None) -> TuckerResult:
     """The outer Tucker DT <-> PP loop with the tol_init decay (x0.9 while
     above the 5e-3 floor) after each PP phase (alsTucker_PP,
-    als_Tucker.cxx:906-962)."""
+    als_Tucker.cxx:906-962). The whole solve, HOSVD included, is the
+    span ``tucker.fit``."""
     ranks = tuple(int(r) for r in ranks)
     V_norm_sq = contract.norm_sq(V, cfg.mesh_layout)
     core, Ws = _init(V, ranks, Ws, cfg.mesh_layout)
@@ -875,15 +881,15 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
 
     def log(hist, n, pp_flag, t0, t1, ring=None):
         nonlocal it, dn, diffV
-        h = cpm._pull(hist)[:n].tolist()
+        h = cpm._pull(hist, "pulls")[:n].tolist()
         exact = {}
         if ring is not None:
             snaps, labels, count = ring
             with clock.exclude():
-                sn = int(cpm._pull(count))
+                sn = int(cpm._pull(count, "pulls"))
                 cpm._ring_overflow(sn, n_slots, "phase")
                 if sn > 0:
-                    labels_h = cpm._pull(labels).tolist()
+                    labels_h = cpm._pull(labels, "pulls").tolist()
                     for slot in range(min(sn, n_slots)):
                         exact[labels_h[slot]] = _exact_core_norm(
                             V, [s[slot] for s in snaps], layout)
@@ -914,7 +920,7 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
             **common)
         t1 = now()
         log(hist, n, 0, t0, t1)
-        dn_dt = float(cpm._pull(dn_d))
+        dn_dt = float(cpm._pull(dn_d, "pulls"))
         if dn_dt < cfg.tol or it > cfg.maxiter or t1 > cfg.timelimit:
             dn = dn_dt
             break
@@ -926,7 +932,7 @@ def als_tucker_pp_device(V, ranks, cfg: TuckerConfig,
             resprint=cfg.resprint, n_slots=n_slots, **common)
         t1 = now()
         log(hist, n, 1, t0, t1, ring)
-        dn = float(cpm._pull(dn_d))
+        dn = float(cpm._pull(dn_d, "pulls"))
         if dn < cfg.tol or t1 > cfg.timelimit:
             break
         if tol_init > TOL_INIT_FLOOR:

@@ -27,7 +27,9 @@ synchronize on a CUDA device: ``torch.linalg.eigh`` and
 CPU (their error check reads ``info`` back), so every
 ``svd_solve`` (``_psd_pinv``), ``truncated_eigh`` and ``truncated_svd``
 waits for the card; ``cholesky_ex`` does not, and neither do the
-Cholesky solves.
+Cholesky solves. Each eigh or svd call counts as a ``wait.solve``
+(utils/tracing) and is the span ``solve.eigh``, a nested span: it adds
+no sync to the sweep that holds it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,20 @@ import torch
 
 from pairwise_perturbation_tpu_torch import config
 from pairwise_perturbation_tpu_torch.parallel import collectives
+from pairwise_perturbation_tpu_torch.utils import tracing
+
+
+def _eigh(A):
+    """``torch.linalg.eigh``, a host wait: counted, and a span."""
+    tracing.count("wait.solve")
+    return tracing.nested("solve.eigh", torch.linalg.eigh, A)
+
+
+def _svd(A):
+    """Thin ``torch.linalg.svd``, a host wait: counted, and a span."""
+    tracing.count("wait.solve")
+    return tracing.nested("solve.eigh", torch.linalg.svd, A,
+                          full_matrices=False)
 
 
 def _eps_floor(dtype, n: int) -> float:
@@ -55,7 +71,7 @@ def _psd_pinv(S, rcond: Optional[float] = None):
     if rcond is None:
         rcond = config.get().rcond
     rcond = max(float(rcond), _eps_floor(S.dtype, S.shape[-1]))
-    lam, Q = torch.linalg.eigh(S)
+    lam, Q = _eigh(S)
     cutoff = rcond * torch.max(torch.abs(lam))
     inv = torch.where(torch.abs(lam) > cutoff, 1.0 / lam,
                       torch.zeros_like(lam))
@@ -144,7 +160,7 @@ def truncated_eigh(G, k: int):
     (U[s, k], lam[k]). ``G`` is symmetrized first, as ``jnp.linalg.eigh``
     does by default; ``torch.linalg.eigh`` alone would read one
     triangle."""
-    lam, Q = torch.linalg.eigh(0.5 * (G + G.mT))
+    lam, Q = _eigh(0.5 * (G + G.mT))
     return Q.flip(1)[:, :k], lam.flip(0)[:k]
 
 
@@ -220,7 +236,7 @@ def truncated_svd(A, r: int, layout=None, mode: int = None):
     n = A.shape[1]
     if m >= 4 * n:
         G = collectives.row_sum([A.T @ A], [mode], layout)[0]
-        lam, Q = torch.linalg.eigh(G)
+        lam, Q = _eigh(G)
         lam, Q = lam.flip(0)[:r], Q.flip(1)[:, :r]
         floor = torch.finfo(A.dtype).eps * torch.clamp(lam[0], min=1e-30) * n
         sigma = torch.sqrt(torch.clamp(lam, min=0.0))
@@ -228,8 +244,7 @@ def truncated_svd(A, r: int, layout=None, mode: int = None):
                           1.0 / torch.clamp(sigma, min=1e-30),
                           torch.zeros_like(sigma))
         return (A @ Q) * inv[None, :], sigma, Q.T
-    U, s, VT = torch.linalg.svd(collectives.gather_rows(A, mode, layout),
-                                full_matrices=False)
+    U, s, VT = _svd(collectives.gather_rows(A, mode, layout))
     if collectives.is_sharded(layout, mode):
         lo, hi = layout.span(mode)
         U = U[lo:hi]

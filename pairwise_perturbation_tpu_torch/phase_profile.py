@@ -15,7 +15,8 @@ R x R ``svd_solve``. Then it profiles one whole ``als_cp_pp`` run of
 - device ms: the union of the intervals of the device activities (kernels,
   copies, sets) that ``torch.profiler`` records, per call. Only device
   events count: the operator rows that enclose a kernel carry the same
-  time again and are left out;
+  time again and are left out, and so are the device mirrors of host
+  ranges (the port's spans, utils/tracing);
 - idle: 1 - device / host.
 
 The top kernels by device time follow each phase. The last line is the
@@ -106,10 +107,13 @@ def busy_us(intervals: Iterable[Tuple[float, float]]) -> float:
 
 def device_events(prof) -> List:
     """The device activities of a finished profile, enclosing operator
-    rows and profiler overhead left out."""
+    rows and profiler overhead left out, and the mirrors of host ranges
+    (``record_function``, the port's spans) that the profiler lays on the
+    device's timeline over the kernels they hold."""
     cuda = torch.autograd.DeviceType.CUDA
     return [e for e in prof.events()
-            if e.device_type == cuda and e.name not in _PROFILER_OVERHEAD]
+            if e.device_type == cuda and e.name not in _PROFILER_OVERHEAD
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _profiler(device):

@@ -25,12 +25,15 @@ def test_busy_is_the_union_of_intervals(intervals, want):
 
 def test_device_events_skip_operators_and_profiler_overhead():
     """An operator row carries its kernels' time again; only the device
-    activities count, and CUPTI's buffer requests are not work."""
+    activities count, CUPTI's buffer requests are not work, and neither
+    is a host range's mirror on the device's timeline."""
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     events = [SimpleNamespace(name="aten::copy_", device_type=cpu),
               SimpleNamespace(name="elementwise_kernel", device_type=cuda),
               SimpleNamespace(name="Activity Buffer Request",
-                              device_type=cuda)]
+                              device_type=cuda),
+              SimpleNamespace(name="cp.fit", device_type=cuda,
+                              is_user_annotation=True)]
     prof = SimpleNamespace(events=lambda: events)
     assert [e.name for e in phase_profile.device_events(prof)] == \
         ["elementwise_kernel"]
@@ -52,3 +55,26 @@ def test_main_refuses_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="CUDA"):
         phase_profile.main()
+
+
+@pytest.mark.cuda
+def test_cuda_span_ranges_are_no_device_work():
+    """On the card the port's spans are profiler ranges (scopes off), and
+    the profiler mirrors each on the device's timeline: the profile of a
+    sweep lists no span as a kernel, and a whole run's busy time leaves
+    the fit's mirror out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    shape, R = (6, 7, 8), 3
+    V = torch.rand(shape, device="cuda")
+    Ws = cp.init_factors(shape, R, seed=0, device="cuda")
+    _, per_name = phase_profile.profile(
+        lambda: tracing.timed("cp.dt_sweep", cp.dt_sweep, V, Ws, 0.0),
+        "cuda", reps=3)
+    assert per_name and not {"cp.dt_sweep", "solve.eigh"} & set(per_name)
+    run = phase_profile.measure_run(shape, R, "cuda", maxiter=6)
+    # kernels of microseconds between host steps: mostly idle, where the
+    # fit's mirror would read it busy throughout
+    assert 0.3 < run["idle_profiled"] < 1.0

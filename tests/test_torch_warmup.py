@@ -10,7 +10,7 @@ loops' counters (DEVICE_LOOP_COUNTS) are the same, and no generator is
 drawn from; a warm-up that sleeps 0.3 s leaves the first row's ``dtime``
 below 0.3 s. The reused build is the very tensors the first PP sweep
 reads. warm_run raises what its function raises, records no tracing
-scope and leaves the counters as they were.
+scope inside it and leaves the loops' counters as they were.
 """
 
 import time
@@ -208,7 +208,8 @@ def test_warm_build_is_the_first_build(monkeypatch, engine):
 
 def test_warm_run_raises_and_leaves_the_counters():
     """warm_run lets its function's exception raise (no fallback hides a
-    fault), records no tracing scope and restores DEVICE_LOOP_COUNTS."""
+    fault), records no tracing scope inside it and restores
+    DEVICE_LOOP_COUNTS."""
     def boom():
         raise ValueError("warm-up fault")
 
