@@ -60,12 +60,14 @@ traceback and exits nonzero:
    200^3 rank-10 tensor; checks the CSV and that every kernel ran.
 4b. The CLI at 512^3 rank 10, f32 and ``-dtype bfloat16``: short
    untimed warm-up runs, then each dtype with the kernels' defaults and
-   under ``config.override(use_kernels_first=True)``: the DT tree's
-   top-level child (1, 2) goes through K4 once per DT sweep, and K4'
-   never.
+   under ``config.override(use_kernels_first=True)``: on a card either
+   way the DT tree's top-level nodes (1, 2) and (0, 0) go through K4
+   (two launches a DT sweep), each cache build's roots over modes 0 and
+   1 through mid_contract's rank-outer layout, as many launches as the
+   first-level route counts, and K4' never.
 4c. ``pp_bench -model CP`` at 512^3 rank 10, f32, maxiter 3, through the
    CLI, with use_kernels_first off, on, on, off: the CSV's header and row
-   kinds, K4 launched once a DT sweep in the "on" runs (none "off"), and
+   kinds, K4 launched twice a DT sweep in every run, and
    the [DTtime], [PPfirst] and [PPsecond] medians of each run beside the
    card's name and power limit.
 5. Order-4 CP-PP at the coil-100 shape (3, 128, 128, 7200) f32, rank 10.
@@ -103,10 +105,12 @@ traceback and exits nonzero:
    the CLI: -pp 4 (Simple), whose K1, K2 and K3 launch once a step (in
    dtime) and once, once and twice a diagnostics row; -pp 1 (MSDT) with
    use_kernels_first off and on: K4 serves every step whose hold-out is
-   mode 0, only when on. At the coil-100 shape through ``cli.run_cpd``
+   mode 0 or 1, either way. At the coil-100 shape through ``cli.run_cpd``
    (the body of ``run``; the CLI makes cubic tensors only): -pp 0-3 a
    few sweeps each, -pp 1 -device_loop 1 (a rotation, 3 sweeps, a step),
-   and -pp 1 under use_kernels_first (K4 for every hold-out of mode 1).
+   and -pp 1 under use_kernels_first; in each run K4 launches as often
+   as the first-level route counts, and no first contraction is left to
+   the einsum.
    Every CSV checked; the step medians (tracing scopes
    ``<Optimizer>.step``) printed beside the card's name and power limit.
 
@@ -214,7 +218,7 @@ traceback and exits nonzero:
    (DENSE_CLI_TOL); K1-K3 on each rank's (100, 200, 200) block in every
    diagnostics row, counted, and each held to its plain version there.
    12d. ``pp_bench -model CP -mesh 2`` at 512^3 under use_kernels_first in
-   the same cluster: K4 on each rank's (256, 512, 512) block once a DT
+   the same cluster: K4 on each rank's (256, 512, 512) block twice a DT
    sweep, held to its plain version there.
    12e. A world of one on NCCL (``--nproc_per_node 1``, ``-mesh 1``):
    ``test_als -tensor o1`` read block by block from a seeded coil-100
@@ -225,14 +229,15 @@ traceback and exits nonzero:
 13. ``run -mesh 2``: the second-gen optimizers on a block-sharded V, two
    ranks sharing the card over gloo, one cluster start-up, then a world
    of one.
-   13a. DT, MSDT (use_kernels_first: K4 on the hold-outs it admits at
-   the block's shape), DT-LR and MSDT-LR through cli.run_cpd at the coil
-   shape, V sharded over mode 3 (3600 a rank, each rank memory-maps its
-   block of a .npy), f64 and f32: f64 factors within RUN_MESH_FACTOR_TOL
+   13a. DT, MSDT (use_kernels_first), DT-LR and MSDT-LR through
+   cli.run_cpd at the coil shape, V sharded over mode 3 (3600 a rank,
+   each rank memory-maps its block of a .npy), f64 and f32: f64 factors
+   within RUN_MESH_FACTOR_TOL
    of one process's, f32 held by its fit (every logged diffV within
    RUN_MESH_F32_DIFFV), the same logged sweeps; per-rank step medians
    beside one process's, all_reduce calls and seconds, peak memory; K4
-   counted on each rank and held to its plain version at rank 0's block.
+   counted on each rank against the first-level route's count (f32; none
+   in f64) and held to its plain version at rank 0's block, modes 0-2.
    13b. The CLI in the same cluster: ``run -pp 4 -mesh 2`` at 512^3 f32
    (K1-K3 on each rank's (256, 512, 512) block, once a Simple step and
    1/1/2 a diagnostics row, each held to its plain version there) and
@@ -1318,8 +1323,11 @@ def cli_512(dtype, first, maxiter, out, *extra):
 
 def run_cli_512(dtype, first, beside=None):
     """The 512^3 CLI run of 20 sweeps, timed by phase. Returns (phase
-    stats, K4 rank-minor launches, K4' rank-major launches); with the
-    kernel on, each DT sweep's node (1, 2) is one rank-minor launch and
+    stats, K4 rank-minor launches, K4' rank-major launches). On a card the
+    first contractions of V over modes 0 and 1 take mid_contract under
+    use_kernels_first or not: each DT sweep's nodes (1, 2) and (0, 0) are
+    two rank-minor launches, each cache build's roots over modes 0 and 1
+    two rank-outer ones, the warm-ups' DT sweep and build as many, and
     nothing launches the rank-major layout."""
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     from pairwise_perturbation_tpu_torch.scripts import _bench
@@ -1334,6 +1342,7 @@ def run_cli_512(dtype, first, beside=None):
                          "-profile", "1")
         minor = mid_contract.LAUNCHES["rank_minor"]
         major = mid_contract.LAUNCHES["rank_major"]
+        outer = mid_contract.LAUNCHES["rank_outer"]
         with open(out) as fh:
             rows = list(csv.reader(fh))
     tracing.enable(False)
@@ -1341,11 +1350,17 @@ def run_cli_512(dtype, first, beside=None):
         raise AssertionError(f"cli.main returned {rc}")
     check_csv(rows, label)
     stats = tracing.stats()
-    if first:
-        n_dt = stats.get("cp.dt_sweep", (0,))[0]
-        held_apart(f"{label} K4 rank-minor (rank-major {major})", minor,
-                   warm.get("mid_contract.rank_minor", 0), n_dt, 1,
-                   "DT sweeps")
+    n_dt = stats.get("cp.dt_sweep", (0,))[0]
+    n_build = stats.get("cp.pp_cache_build", (0,))[0]
+    held_apart(f"{label} K4 rank-minor (rank-major {major})", minor,
+               warm.get("mid_contract.rank_minor", 0), 2 * n_dt, 2,
+               "(two a DT sweep)")
+    held_apart(f"{label} mid_contract rank-outer", outer,
+               warm.get("mid_contract.rank_outer", 0), 2 * n_build, 2,
+               "(two a cache build)")
+    if major or minor + outer != first_level_route(stats, label):
+        raise AssertionError(f"{label}: mid_contract launches off the "
+                             "first-level route's count")
     print_phase_times(stats, beside)
     return stats, minor, major
 
@@ -1359,9 +1374,10 @@ def run_pp_bench(first):
     """``pp_bench -model CP`` at 512^3 rank 10, f32, maxiter 3, through the
     CLI under use_kernels_first = ``first``; checks the CSV (the
     reference's header, 3 [DTtime] rows then 3 [PPfirst]/[PPsecond]
-    pairs, finite positive times) and K4's launches: one a DT sweep (the
-    untimed one and the 3 timed) with the kernel on, none with it off.
-    Returns ({row kind: median s}, K4 launches)."""
+    pairs, finite positive times) and K4's launches: on a card two a DT
+    sweep (nodes (1, 2) and (0, 0); the untimed one and the 3 timed),
+    use_kernels_first on or off. Returns ({row kind: median s}, K4
+    launches)."""
     from pairwise_perturbation_tpu_torch import cli, config
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     with tempfile.TemporaryDirectory() as tmp:
@@ -1381,10 +1397,10 @@ def run_pp_bench(first):
         raise AssertionError(f"pp_bench CSV: header {rows[0]}, rows {kinds}")
     if not all(math.isfinite(t) and t > 0 for t in times):
         raise AssertionError(f"pp_bench times {times}")
-    if launches != (4 if first else 0):
+    if launches != 8:
         raise AssertionError(f"pp_bench use_kernels_first={first}: K4 "
-                             f"launched {launches} times, expected "
-                             f"{4 if first else 0} (one a DT sweep)")
+                             f"launched {launches} times, expected 8 (two "
+                             "a DT sweep)")
     med = {k: statistics.median(t for kind, t in zip(kinds, times)
                                 if kind == f"[{k}]") for k in BENCH_KINDS}
     print(f"pp_bench 512^3 f32 use_kernels_first={first}: K4 launches "
@@ -1590,7 +1606,8 @@ def run_cli_run(pp, first, maxiter, *extra):
 def run_512_optimizers():
     """Phase 8 at 512^3: Simple (K1-K3 once a step, in dtime, and once,
     once and twice a diagnostics row), then MSDT with use_kernels_first
-    off and on (K4 once a step whose hold-out is mode 0, only when on).
+    off and on (on a card K4 once a step whose hold-out is mode 0 or 1,
+    either way).
     Returns ({kernel id: launches}, {label: (scope, median s)})."""
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     stats, counts = run_cli_run(4, False, 8)
@@ -1609,14 +1626,14 @@ def run_512_optimizers():
         stats, counts = run_cli_run(1, first, 6)
         name, steps, med = step_scope(stats)
         n = counts["mid_contract.rank_minor"]
-        want = sum(1 for h in msdt_holdouts(3, steps) if h == 0) \
-            if first else 0
+        want = sum(1 for h in msdt_holdouts(3, steps) if h in (0, 1))
         print(f"MSDT use_kernels_first={first}: {steps} steps, K4 launches "
               f"{n} (expected {want}), step median {1e3 * med:.3f} ms")
         msdt_holdout_medians(name, 3)
-        if n != want or (first and n == 0):
+        if n != want or n == 0 or \
+                n != first_level_route(stats, f"MSDT first={first}"):
             raise AssertionError("K4 launches differ from the MSDT steps "
-                                 "whose hold-out is mode 0")
+                                 "whose hold-out is mode 0 or 1")
         launches["K4"] += n
         medians[f"MSDT 512^3 first={first}"] = (name, med)
     if mid_contract.LAUNCHES["rank_major"]:
@@ -1628,20 +1645,19 @@ def run_coil_optimizers():
     """Phase 8 at the coil shape, f32, rank 10, through ``cli.run_cpd``
     (the body of ``run``; the CLI makes cubic tensors only): DT, MSDT,
     DT-LR and MSDT-LR a few sweeps each, MSDT with -device_loop 1 (a
-    rotation a step), and MSDT under use_kernels_first, where K4 serves
-    every hold-out of mode 1. Returns (K4 launches, {label: (scope,
-    median s)})."""
+    rotation a step), and MSDT under use_kernels_first. On a card K4
+    serves every first contraction of V over a non-minor mode in each
+    run (chain tops, the LR refreshes, the diagnostics rows' MTTKRPs),
+    as many as the first-level route counts. Returns (K4 launches,
+    {label: (scope, median s)})."""
     import torch
     from pairwise_perturbation_tpu_torch import cli, config
     from pairwise_perturbation_tpu_torch.models import cp
-    from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
     gen = torch.Generator(device="cuda").manual_seed(0)
     V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
-    eligible = {m for m in range(3) if mid_contract.mid_contract_eligible(
-        COIL_SHAPE, m, V.dtype, 10)}
     runs = [(0, False, False, 3), (1, False, False, 3), (2, False, False, 3),
             (3, False, False, 3), (1, False, True, 6), (1, True, False, 6)]
     k4 = 0
@@ -1672,16 +1688,13 @@ def run_coil_optimizers():
         stats = tracing.stats()
         name, steps, med = step_scope(stats)
         n = _bench.launch_counts()["mid_contract.rank_minor"]
-        want = 0
-        if first:
-            want = sum(1 for h in msdt_holdouts(4, steps, macro)
-                       if h in eligible)
+        want = first_level_route(stats, label)
         print(f"  {name} {steps} calls, median {1e3 * med:.3f} ms; K4 "
               f"launches {n} (expected {want}); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if n != want or (first and n == 0):
+        if n != want or n == 0:
             raise AssertionError(f"{label}: K4 launches differ from the "
-                                 "steps whose hold-out it admits")
+                                 "first-level route's count")
         if pp in (1, 3) and not macro:
             msdt_holdout_medians(name, 4)
         if macro and body[1][1] - body[0][1] != 3.0:
@@ -1719,6 +1732,20 @@ def held_apart(label, total, warm, scoped, warm_want, what):
     if total - warm != scoped or warm != warm_want or total <= 0:
         raise AssertionError(f"{label}: launches {total} (warm-ups {warm})"
                              f" against {scoped} {what} and {warm_want}")
+
+
+def first_level_route(stats, label):
+    """The card's first-level route in a run's tracing statistics
+    (ops/contract._kernel_first): the first contractions of V over a
+    non-minor mode it sent to mid_contract (``contract.first_kernel``);
+    raises if it left one to the einsum (``contract.first_einsum``), which
+    no float32 run here should."""
+    served = stats.get("contract.first_kernel", (0,))[0]
+    left = stats.get("contract.first_einsum", (0,))[0]
+    if left:
+        raise AssertionError(f"{label}: {left} non-minor first "
+                             "contractions left to the einsum")
+    return served
 
 
 def run_sparse_cli():
@@ -3446,8 +3473,8 @@ def run_dense_cli(b, tmp, smi):
     for r, res in enumerate(b):
         k4 = json.loads(str(res["cli_launches"]))[2]["mid_contract.rank_minor"]
         print(f"12d rank {r}: K4 launches {k4} on its block (256, 512, 512)"
-              " (expected 4: one a DT sweep)")
-        if k4 != 4:
+              " (expected 8: two a DT sweep)")
+        if k4 != 8:
             raise AssertionError(f"12d rank {r}: K4 launches {k4}")
         launches["K4"] += k4
     Vb = torch.rand((256, 512, 512), generator=gen, device="cuda")
@@ -3543,8 +3570,9 @@ def run_phase12(smi):
 
 # 13a: the chain optimizers through cli.run_cpd on each rank's block of
 # the coil tensor (phase 5's seeded uniform tensor, V sharded over mode 3,
-# 3600 a rank), f64 and f32; MSDT under use_kernels_first (K4 on the
-# hold-outs it admits at the block's shape, f32).
+# 3600 a rank), f64 and f32; MSDT under use_kernels_first. On a card K4
+# serves every float32 first contraction of V over a non-minor mode, as
+# the first-level route counts it, and none in float64.
 RUN_MESH_SPECS = [
     dict(tag="dt", pp=0, maxiter=3, resprint=2),
     dict(tag="msdt", pp=1, maxiter=3, resprint=2,
@@ -3596,15 +3624,14 @@ def run_mesh_one(spec, V, Ws, dtype):
 
 
 def run_mesh_optimizers(a, Vc, Wc, smi):
-    """13a: each rank's coil runs against one process's; K4's launches on
-    the MSDT run (f32) against its hold-outs, and K4 held to its plain
-    version at rank 0's block. Returns K4's launches."""
+    """13a: each rank's coil runs against one process's; K4's launches
+    against the first-level route's count (f32; none in f64), and K4
+    held to its plain version at rank 0's block, modes 0 to 2. Returns
+    K4's launches."""
     import torch
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     half = COIL_SHAPE[3] // MESH_RANKS
     block = COIL_SHAPE[:3] + (half,)
-    eligible = {m for m in range(4) if mid_contract.mid_contract_eligible(
-        block, m, torch.float32, 10)}
     failures, k4 = [], 0
     for d in ("float64", "float32"):
         for spec in RUN_MESH_SPECS:
@@ -3637,9 +3664,8 @@ def run_mesh_optimizers(a, Vc, Wc, smi):
                 n = json.loads(str(res[f"run_launches/{d}/{tag}"]))[
                     "mid_contract.rank_minor"]
                 steps = stats[scope][0]
-                want_k4 = sum(1 for h in msdt_holdouts(4, steps)
-                              if h in eligible) \
-                    if "config" in spec and d == "float32" else 0
+                want_k4 = first_level_route(stats, f"{label} rank {r}") \
+                    if d == "float32" else 0
                 red = stats.get("mesh.all_reduce", (0, 0.0))
                 wall = float(res[f"run_wall/{d}/{tag}"])
                 print(f"  rank {r} ({smi}): {scope} {steps} steps, median "
@@ -3649,13 +3675,12 @@ def run_mesh_optimizers(a, Vc, Wc, smi):
                       f"{n} (expected {want_k4}; one process {k4_one}); "
                       f"peak {float(res[f'run_peak/{d}/{tag}']) / 2**30:.2f}"
                       " GiB")
-                if n != want_k4 or ("config" in spec and d == "float32"
-                                    and n == 0):
+                if n != want_k4 or (d == "float32" and n == 0):
                     failures.append(f"{label} rank {r}: K4 launches {n}")
                 k4 += n
     gen = torch.Generator(device="cuda").manual_seed(13)
     Vb = torch.rand(block, generator=gen, device="cuda")
-    for m in sorted(eligible):
+    for m in range(3):
         W = torch.rand((block[m], 10), generator=gen, device="cuda")
         err = held_twice(f"13a K4 at {block} mode {m}",
                          lambda: mid_contract.mid_contract(Vb, W, m),

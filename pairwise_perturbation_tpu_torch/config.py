@@ -28,9 +28,13 @@ class NumericConfig:
     # (ops/kernels/mttkrp3.py); the counterpart of ``use_pallas``.
     use_kernels: bool = True
     # Route single-mode, non-minor first-level contractions
-    # (contract.first_contraction) to the mid_contract kernel
-    # (ops/kernels/mid_contract.py); the counterpart of
-    # ``use_pallas_first``, off by default as there.
+    # (contract.first_contraction) that the JAX package's
+    # ``mid_contract_eligible`` admits to the mid_contract kernel module
+    # (ops/kernels/mid_contract.py), on any device; the counterpart of
+    # ``use_pallas_first``, off by default as there. On a card the kernel
+    # takes every non-minor first-level contraction of V it admits
+    # without waiting for this (contract._kernel_first); what the flag
+    # changes is the CPU's route, where the module runs its plain version.
     use_kernels_first: bool = False
     # Compute the PP cache build's three chain roots of an eligible order-4
     # V in one read (ops/kernels/triple_roots.py); the counterpart of

@@ -67,8 +67,9 @@ def _sparse_top(st, W, left_index: int):
 def chain_top(V, W_left, *, left_index: int, layout=None):
     """First-level contraction V x W[left_index], axes in indexes order +
     rank (mttkrp_map_init, cp_msdt_optimizer.cxx:111-144), through
-    :meth:`dimtree.ChainTreeSweep.top` (the mid_contract kernel for an
-    eligible hold-out under ``config.use_kernels_first``); for a COO V,
+    :meth:`dimtree.ChainTreeSweep.top` (the mid_contract kernel for a
+    non-minor hold-out on a card, and under ``config.use_kernels_first``
+    for one the JAX package's route admits); for a COO V,
     one fused-index ``index_add_`` over the nonzeros. ``layout``: of this
     rank's block, a partial sum where the hold-out's mode is sharded."""
     order = V.ndim
@@ -140,8 +141,10 @@ def lr_update_cache(V, cache, U, s, VT, *, left_index: int, layout=None):
     """cache + (V x_left (U s)) x VT: the low-rank refresh of a cached
     first-level contraction (update_cached_tensor,
     cp_dt_lr_optimizer.cxx:128-158 / cp_msdt_lr_optimizer.cxx:112-157),
-    O(s^N * update_rank) in place of O(s^N * R). For a COO V, the x_left
-    contraction is one fused-index ``index_add_`` over the nonzeros.
+    O(s^N * update_rank) in place of O(s^N * R). For a dense V the x_left
+    contraction is :func:`contract.first_step` (the mid_contract kernel
+    for a non-minor hold-out on a card); for a COO V, one fused-index
+    ``index_add_`` over the nonzeros.
     ``layout`` runs nothing: U holds this rank's rows of the hold-out's
     mode, so V x_left (U s) is a partial sum exactly where the cached top
     is one, and the refreshed top stays this rank's partial."""
@@ -149,8 +152,7 @@ def lr_update_cache(V, cache, U, s, VT, *, left_index: int, layout=None):
         T = _sparse_top(V, U * s, left_index)
     else:
         order = V.ndim
-        T, rem = contract.contract_mode_kr(V, tuple(range(order)), False,
-                                           U * s, left_index)
+        T, rem = contract.first_step(V, U * s, left_index)
         perm = [rem.index(m) for m in rotation_indexes(left_index, order)]
         T = T.permute(perm + [len(rem)])
     return cache + torch.tensordot(T, VT, dims=([T.ndim - 1], [0]))

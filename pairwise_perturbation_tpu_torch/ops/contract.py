@@ -33,6 +33,15 @@ the rows of a sharded factor at the small result (a Gram, a norm, an
 inner product). They plan the contraction order on the padded global
 shape, never the block's, so the order (and the rounding) is the
 unsharded run's. ``layout=None`` is the unsharded function, unchanged.
+
+The first contraction of V over a mode that is not its last is where a
+chain's time goes on a card: ``torch.einsum`` copies V into the permuted
+order before its GEMM. So on a CUDA V every such contraction (the first
+step of :func:`partial_mttkrp`, :func:`first_contraction`, the PP cache
+roots) goes to the hand-written ``mid_contract`` kernel, which reads V once
+in place, wherever :func:`_kernel_first` admits it; the counters
+``contract.first_kernel`` and ``contract.first_einsum`` (utils/tracing)
+count which of the two served each. A CPU V keeps the einsum.
 """
 
 from __future__ import annotations
@@ -44,7 +53,9 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from pairwise_perturbation_tpu_torch import config
+from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
 from pairwise_perturbation_tpu_torch.parallel import collectives
+from pairwise_perturbation_tpu_torch.utils import tracing
 
 # Mode axes use lowercase letters; rank axes are uppercase.
 _MODES = string.ascii_lowercase
@@ -91,10 +102,11 @@ def mttkrp(V, factors: Sequence, mode: int, layout=None):
     float32 V with ``config.get().use_kernels`` goes to the fused kernel
     module, which launches its CUDA kernel for a CUDA tensor and runs its
     plain version for a CPU one; everything else (other orders, float64)
-    is the priority-ordered einsum chain. The kernel takes contiguous
-    operands only and factors may arrive as views (a transpose, for
-    example), so they are made contiguous first: no copy for a contiguous
-    factor, at most an (n, R) one otherwise.
+    is the priority-ordered chain of :func:`partial_mttkrp`, whose first
+    step takes the mid_contract kernel on a card. The fused kernel takes
+    contiguous operands only and factors may arrive as views (a transpose,
+    for example), so they are made contiguous first: no copy for a
+    contiguous factor, at most an (n, R) one otherwise.
 
     bf16 V: the JAX package writes one einsum, which rounds every factor
     to bf16; the chain therefore rounds them all, not only the first.
@@ -135,17 +147,62 @@ def contract_mode_kr(T, rem_modes: Tuple[int, ...], has_rank: bool, factor,
     return out, rem_modes[:pos] + rem_modes[pos + 1:]
 
 
+def _on_card(V, factor) -> bool:
+    """Whether the mid_contract kernel takes V and the factor: V on a CUDA
+    device in float32 or bfloat16, the factor in float32. The CPU tests
+    patch it to admit the CPU, where the kernel module runs its plain
+    version."""
+    return V.is_cuda and V.dtype in (torch.float32, torch.bfloat16) \
+        and factor.dtype == torch.float32
+
+
+def _kernel_first(V, factor, mode: int, layout: str = "rank_minor",
+                  jax_route: bool = False):
+    """V x_mode W over a non-minor ``mode`` from the mid_contract kernel in
+    ``layout`` (its rank-last view), or None where the einsum is to serve
+    it. The kernel takes it on a card (:func:`_on_card`) from a contiguous
+    V whose launch ``mid_contract.route_admits``; with ``jax_route``
+    (``use_kernels_first``) also where the JAX package's
+    ``mid_contract_eligible`` admits it, on any device. Counts the call as
+    ``contract.first_kernel`` or ``contract.first_einsum``."""
+    R = factor.shape[1]
+    card = _on_card(V, factor) and V.is_contiguous() \
+        and mid_contract.route_admits(V, R, mode, layout)
+    if not card and not (jax_route and mid_contract.mid_contract_eligible(
+            V.shape, mode, V.dtype, R)):
+        tracing.count("contract.first_einsum")
+        return None
+    tracing.count("contract.first_kernel")
+    return mid_contract.mid_contract(V.contiguous(), factor.contiguous(),
+                                     mode, layout)
+
+
+def first_step(V, factor, mode: int):
+    """The first step of a chain on V: what
+    ``contract_mode_kr(V, all modes, False, factor, mode)`` computes, from
+    the mid_contract kernel where :func:`_kernel_first` takes it."""
+    rem = tuple(m for m in range(V.ndim) if m != mode)
+    if mode < V.ndim - 1:
+        T = _kernel_first(V, factor, mode)
+        if T is not None:
+            return T, rem
+    return contract_mode_kr(V, tuple(range(V.ndim)), False, factor, mode)
+
+
 def partial_mttkrp(V, factors: Sequence, contract_modes: Sequence[int]):
     """Chain-contract ``V`` with the factors of ``contract_modes`` (in order).
 
     Returns a tensor whose axes are the remaining modes (ascending original
     order) followed by the rank axis. With all-but-one mode contracted this
-    is the exact MTTKRP; with all-but-two it is a PP pair cache.
+    is the exact MTTKRP; with all-but-two it is a PP pair cache. The first
+    step is :func:`first_step`.
     """
-    T, rem, has_rank = V, tuple(range(V.ndim)), False
-    for m in contract_modes:
-        T, rem = contract_mode_kr(T, rem, has_rank, factors[m], m)
-        has_rank = True
+    modes = tuple(contract_modes)
+    if not modes:
+        return V
+    T, rem = first_step(V, factors[modes[0]], modes[0])
+    for m in modes[1:]:
+        T, rem = contract_mode_kr(T, rem, True, factors[m], m)
     return T
 
 
@@ -154,8 +211,9 @@ def fused_partial_mttkrp(V, factors: Sequence,
     """Partial MTTKRP of a single-consumer chain. Returns (tensor,
     remaining_modes). The JAX package writes this as one einsum so XLA can
     fuse it; eager PyTorch has nothing to fuse, so it is the chain of
-    :func:`partial_mttkrp` in the given order. For bf16 V only the first
-    step rounds its factor, as the JAX version splits that step out
+    :func:`partial_mttkrp` in the given order, its first step on a card
+    from the mid_contract kernel. For bf16 V only the first step rounds
+    its factor, as the JAX version splits that step out
     (contract.py:161-182)."""
     cset = set(contract_modes)
     rem = tuple(m for m in range(V.ndim) if m not in cset)
@@ -231,30 +289,30 @@ def first_contraction(V, factor, mode: int, use_kernels: bool = None,
     """V x_m W_m (Khatri-Rao first level). Output axes: remaining modes
     ascending + rank (same convention as :func:`contract_mode_kr`).
 
-    Routes as the JAX package does (contract.py:266-288): with
-    ``use_kernels`` (``None`` reads ``config.get().use_kernels_first``, as
-    the JAX package's ``use_pallas=None`` reads ``use_pallas_first``) a
+    On the CPU this routes as the JAX package does (contract.py:266-288):
+    with ``use_kernels`` (``None`` reads ``config.get().use_kernels_first``,
+    as the JAX package's ``use_pallas=None`` reads ``use_pallas_first``) a
     non-minor mode that ``mid_contract_eligible`` admits goes to the
-    kernel module (rank-minor output), which launches its CUDA kernel for
-    a CUDA tensor and runs its plain version for a CPU one; else a mode
-    with a copy in ``layouts`` (:func:`prepare_layouts`) contracts the
-    copy's minor axis; everything else, the minor mode included, is the
-    einsum on V."""
+    kernel module (rank-minor output), which runs its plain version; else
+    a mode with a copy in ``layouts`` (:func:`prepare_layouts`) contracts
+    the copy's minor axis; everything else, the minor mode included, is
+    the einsum on V. On a card a non-minor mode goes to the kernel
+    wherever :func:`_kernel_first` admits it, with ``use_kernels`` or
+    without, and before ``layouts``: XLA on the TPU folds the
+    transposition into its dot, eager einsum on the H100 copies V."""
     order = V.ndim
-    if use_kernels is None:
-        use_kernels = config.get().use_kernels_first
-    if use_kernels and mode < order - 1:
-        from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
-        if mid_contract.mid_contract_eligible(V.shape, mode, V.dtype,
-                                              factor.shape[1]):
-            rem = tuple(m for m in range(order) if m != mode)
-            return mid_contract.mid_contract(V.contiguous(),
-                                             factor.contiguous(), mode), rem
-    if layouts and mode in layouts:
-        letters = _MODES[:order]
-        rem = tuple(m for m in range(order) if m != mode)
-        return _einsum(f"{letters},{letters[-1]}{_RANK}->"
-                       f"{letters[:-1]}{_RANK}", layouts[mode], factor), rem
+    rem = tuple(m for m in range(order) if m != mode)
+    if mode < order - 1:
+        if use_kernels is None:
+            use_kernels = config.get().use_kernels_first
+        T = _kernel_first(V, factor, mode, jax_route=use_kernels)
+        if T is not None:
+            return T, rem
+        if layouts and mode in layouts:
+            letters = _MODES[:order]
+            return _einsum(f"{letters},{letters[-1]}{_RANK}->"
+                           f"{letters[:-1]}{_RANK}", layouts[mode],
+                           factor), rem
     return contract_mode_kr(V, tuple(range(order)), False, factor, mode)
 
 
@@ -262,10 +320,16 @@ def _first_contraction_rm(V, factor, mode: int, layouts=None):
     """First-level contraction producing a RANK-MAJOR intermediate
     (R, remaining modes ascending), the convention of the PP cache
     chains; from the mode-minor copy in ``layouts`` where there is one
-    (JAX contract.py:322-339)."""
+    (JAX contract.py:322-339). On a card a non-minor mode comes first from
+    the mid_contract kernel's rank-outer layout (:func:`_kernel_first`),
+    which is this tensor physically."""
     order = V.ndim
     rem = tuple(m for m in range(order) if m != mode)
     letters = _MODES[:order]
+    if mode < order - 1:
+        T = _kernel_first(V, factor, mode, "rank_outer")
+        if T is not None:
+            return T.movedim(-1, 0), rem
     if layouts and mode in layouts:
         return _einsum(f"{letters},{letters[-1]}{_RANK}->{_RANK}"
                        f"{letters[:-1]}", layouts[mode], factor), rem
@@ -305,6 +369,9 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
     pass over V (contract.py:392-405), unless ``layouts`` is given
     (contract.py:395-396).
 
+    On a card every other chain root over a non-minor mode comes from the
+    mid_contract kernel (:func:`_first_contraction_rm`).
+
     ``use_kernels_first`` is the JAX package's experimental
     ``use_pallas`` branch (contract.py:411-415), off unless given: each
     chain root not seeded above goes through :func:`first_contraction`
@@ -326,6 +393,7 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
                                               factors[0].shape[1]):
             o1, o2, o3 = triple_roots.triple_roots(
                 V.contiguous(), *(W.contiguous() for W in factors[1:]))
+            tracing.count("contract.first_kernel", 2)  # modes 1 and 2
             memo[(1,)] = (o1, (0, 2, 3))
             memo[(2,)] = (o2, (0, 1, 3))
             memo[(3,)] = (o3, (0, 1, 2))

@@ -98,12 +98,14 @@ class BinaryTreeSweep:
         chain = contract.order_by_priority(to_contract, self.priority)
         if (plo, phi) == (0, order - 1) and len(chain) > 1 \
                 and not self.layouts:
-            # top-level node from V: one single-consumer chain
+            # top-level node from V: one single-consumer chain, its first
+            # step from the mid_contract kernel on a card
             T, _ = contract.fused_partial_mttkrp(self.V, self.factors, chain)
         elif (plo, phi) == (0, order - 1):
             # top-level node from V through the first-level contraction,
             # where the mid_contract kernel or a mode-minor copy may serve
-            # it (JAX dimtree.py:104-121), then the rest of its chain
+            # it (JAX dimtree.py:104-121; on a card the kernel first), then
+            # the rest of its chain
             T, rem = contract.first_contraction(
                 self.V, self.factors[chain[0]], chain[0],
                 layouts=self.layouts)
@@ -194,10 +196,12 @@ class ChainTreeSweep:
 
     def top(self):
         """V contracted with W[left_index] through
-        :func:`contract.first_contraction`, so ``use_kernels_first`` sends
-        an eligible hold-out to the mid_contract kernel as the binary
-        tree's top-level child does; its axes (remaining modes ascending,
-        then rank) are permuted to position order, as a view."""
+        :func:`contract.first_contraction`, so a non-minor hold-out goes
+        to the mid_contract kernel on a card (and under
+        ``use_kernels_first`` where the JAX package's route admits it) as
+        the binary tree's top-level child does; its axes (remaining modes
+        ascending, then rank) are permuted to position order, as a
+        view."""
         if self._top not in self._memo:
             T, rem = contract.first_contraction(
                 self.V, self.factors[self.left_index], self.left_index)

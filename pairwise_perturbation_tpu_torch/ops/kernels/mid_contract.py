@@ -6,16 +6,24 @@ kernel and its plain PyTorch version.
 Replaces ``pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py``:
 ``mid_contract`` with its Pallas kernels ``_mid_kernel_t`` (rank-minor
 output, K4) and ``_mid_kernel`` (rank-major output, K4'), and
-``mid_contract_eligible``, copied verbatim so that the port routes exactly
-the calls the JAX package routes; also the benchmark-only Pallas kernels
-that compute the same sum: ``_mid_kernel_zp`` (rank-outer output, launched
-by ``scripts/bench_rankpos.py``, S2) and ``_mm_kernel`` of
+``mid_contract_eligible``, copied verbatim so that ``use_kernels_first``
+routes the calls the JAX package's ``use_pallas_first`` routes; also the
+benchmark-only Pallas kernels that compute the same sum:
+``_mid_kernel_zp`` (rank-outer output, launched by
+``scripts/bench_rankpos.py``, S2) and ``_mm_kernel`` of
 ``scripts/bench_midvariants.py`` (K4' swept over its lane tile, S5).
 
 The kernel (``csrc/mid_contract.cu``) is bound by memory bandwidth on the
 H100: it reads V once, coalesced, with the sums in registers; the
 source's header says how. It takes any shape the wrapper's checks admit:
-the TPU tiling conditions of the eligibility test only decide routing.
+the TPU tiling conditions of the eligibility test only decide the JAX
+package's route. On a card, ops/contract.py sends every first-level
+contraction of V over a non-minor mode here when :func:`route_admits`
+admits it, whatever ``use_kernels_first`` says, and so routes more calls
+than the JAX package: on the TPU, XLA folds the transposition of V into
+its dot, while eager ``torch.einsum`` on the H100 first copies V into the
+permuted order and then runs a GEMM, three passes over V where the kernel
+makes one.
 
 With V viewed as (P, B, M) around the contracted mode, ``layout`` picks
 the physical output:
@@ -334,6 +342,17 @@ def mid_contract_eligible(shape, mode: int, dtype, r: int) -> bool:
     return M >= 128 and _mid_tile(B, M) > 0
 
 
+def route_admits(V, R: int, mode: int, layout: str = "rank_minor") -> bool:
+    """Whether the card's first-level route (ops/contract.py) takes V x_mode
+    W at rank R in ``layout``: a mode before V's last, and a launch whose
+    grid the kernel's own checks admit (``P * col_tiles`` blocks in x, at
+    most 2^31 - 1). V's type and device are the caller's to check."""
+    if not 0 <= mode < V.ndim - 1 or V.numel() == 0 or R <= 0:
+        return False
+    p = plan_for(V, R, mode, layout)
+    return math.prod(V.shape[:mode]) * p.col_tiles <= 0x7FFFFFFF
+
+
 def _out(flat, shape, mode: int, layout: str):
     """The physical result of ``layout`` as the rank-last tensor of the
     remaining modes; the rank-leading layouts come back as views."""
@@ -410,7 +429,7 @@ def mid_contract(V, W, mode: int, layout: str = "rank_minor",
     phys = {"rank_minor": (P, M, R), "rank_major": (P, R, M),
             "rank_outer": (R, P, M)}[layout]
     out = torch.empty(phys, dtype=torch.float32, device=V.device)
-    stream = torch.cuda.current_stream(V.device).cuda_stream
+    stream = _build.current_stream(V.device)
     lib = _build.load()
     p = plan_for(V, R, mode, layout, block_cols)
     if p.path == "f32v":

@@ -11,7 +11,11 @@ and naming ("XLA" read as "torch"):
   call that computes K5's function; the max errors against the einsums;
 - ``contract.build_pp_caches`` plain and with ``use_kernels_first=True``
   (chain roots through ``first_contraction``'s kernel route), and
-  ``cp.dt_sweep`` under ``config.use_kernels_first`` off and on;
+  ``cp.dt_sweep`` under ``config.use_kernels_first`` off and on; on a
+  card both sides of each pair take the mid_contract kernel for every
+  non-minor root (``contract._kernel_first``), the plain build in its
+  rank-outer layout, so there the pairs time two layouts of one kernel
+  and the einsum rows above are the einsum's time;
 - one order-3 ALS sweep (MTTKRP, Gram, ``svd_solve`` per mode, then
   ``normalize_factors``) at ``--order3-size``^3 with ``config.use_kernels``
   off and on (K1-K3).

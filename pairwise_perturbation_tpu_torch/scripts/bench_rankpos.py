@@ -12,7 +12,8 @@ against ``torch.einsum("abcd,bZ,aZ->cdZ")``; then the kernel's rank-outer
 layout (R, P, M) (S2) with one and two tails down to the leaf M_2
 against the einsum chain; then the same rank-major chain with V stored
 in bf16 (S3: bf16 V, f32 output) against the port's bf16 einsum chain
-(``contract.partial_mttkrp`` then ``contract.contract_mode_kr``).
+(two ``contract.contract_mode_kr`` steps; ``contract.partial_mttkrp``
+would take the kernel for the first on a card).
 
     python -m pairwise_perturbation_tpu_torch.scripts.bench_rankpos \\
         [--device cpu] [--shape 3,128,128,7200] [--rank 10]
@@ -91,8 +92,8 @@ def run(argv=None):
         return torch.einsum("aZcd,aZ->cdZ", kernel_phys(V16, W1), W0)
 
     def torch_chain16():
-        T = contract.partial_mttkrp(V16, [None, W1, None, None], [1])
-        return contract.contract_mode_kr(T, (0, 2, 3), True, W0, 0)[0]
+        T, rem = contract.contract_mode_kr(V16, (0, 1, 2, 3), False, W1, 1)
+        return contract.contract_mode_kr(T, rem, True, W0, 0)[0]
 
     bench.time("bf16 kernel + rank-pos tail", kernel_tail_rankpos16,
                kernel="S3")

@@ -28,7 +28,10 @@ on or off and inside :func:`paused`; it holds no tensor and never
 synchronizes. The engines count the host's waits (``wait.solve``: an
 eigh or svd of ops/solve.py; ``wait.pull``: a device-to-host read of a
 host engine; ``wait.sync``: an explicit device sync) and their PP phases
-(``cp.pp_phase``, ``tucker.pp_phase``). :func:`stats` and :func:`report`
+(``cp.pp_phase``, ``tucker.pp_phase``); ops/contract.py counts each
+first-level contraction of V over a non-minor mode by what served it
+(``contract.first_kernel``: the mid_contract kernel;
+``contract.first_einsum``: torch.einsum). :func:`stats` and :func:`report`
 list spans and counters; :func:`reset` clears both.
 
 Usage:
