@@ -27,6 +27,17 @@ TINY_TUCKER = {
     "reference": "tucker_als",
     "limits": {"core_gap": 1e-5, "orth_gap": 1e-5, "diffV_gap": 1e-4,
                "hooi_gain": 1.0}}
+# the strong-scaling tensor (-tensor r) at order 6, for cells on several
+# ranks
+TINY_RCP6 = {
+    "model": "CP", "shape": [6] * 6, "rank": 3, "dtype": "float32",
+    "tensor": {"generator": "random_cp", "data_seed": 1},
+    "tol": 0.05, "maxiter": 250, "fit_seeds": [1, 2],
+    "reference": "cp_als",
+    "limits": {"gradnorm_gap": 0.01, "diffV_gap": 0.005,
+               "gradnorm_ref": 1.05}}
+CONFS = {"tiny-cp": TINY_CP, "tiny-tucker": TINY_TUCKER,
+         "tiny-rcp6": TINY_RCP6}
 
 
 def pytest_configure(config):
@@ -45,23 +56,24 @@ def card():
 def make_root(path: Path, cells=None) -> Path:
     """A checkout-like tree under ``path``: a copy of benchmark/ (no
     tests), the tiny configurations, and a BENCHMARK.json with the real
-    metrics and the tiny cells."""
+    metrics and the tiny cells: (name, configuration, traffic) on one
+    chip, or (name, configuration, traffic, chips)."""
     shutil.copytree(REPO / "benchmark", path / "benchmark",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    for name, conf in (("tiny-cp", TINY_CP), ("tiny-tucker", TINY_TUCKER)):
+    for name, conf in CONFS.items():
         (path / "benchmark" / "configs" / f"{name}.json").write_text(
             json.dumps(conf))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench["configs"] = [
         {"name": n, "source": "tests", "reduced": [], "why": "tests",
-         "file": f"benchmark/configs/{n}.json"}
-        for n in ("tiny-cp", "tiny-tucker")]
+         "file": f"benchmark/configs/{n}.json"} for n in CONFS]
     cells = cells or [("tiny-cp.pp", "tiny-cp", "pp-restol0.05"),
                       ("tiny-cp.dt", "tiny-cp", "dt"),
                       ("tiny-tucker.pp", "tiny-tucker", "pp-restol0.1"),
                       ("tiny-tucker.dt", "tiny-tucker", "dt")]
-    bench["workloads"] = [{"name": n, "config": c, "traffic": t,
-                           "chips": 1, "why": "tests"} for n, c, t in cells]
+    bench["workloads"] = [{"name": c[0], "config": c[1], "traffic": c[2],
+                           "chips": c[3] if len(c) > 3 else 1,
+                           "why": "tests"} for c in cells]
     names = [c[0] for c in cells]
     for m in bench["per_layer"]:
         m["workloads"] = [n for n in names

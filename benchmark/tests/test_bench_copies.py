@@ -16,6 +16,7 @@ from pairwise_perturbation_tpu_torch.utils import synth
 
 collinear = load(REPO, "generators", "collinear_cp")
 tucker_decay = load(REPO, "generators", "tucker_decay")
+random_cp = load(REPO, "generators", "random_cp")
 exact = load(REPO, "metrics", "exact_sweep_roofline_pct")
 build = load(REPO, "metrics", "pp_build_roofline_pct")
 
@@ -53,6 +54,18 @@ def test_collinear_noise_ratio_and_seed():
     assert ratio == pytest.approx(0.01, rel=1e-9)
     assert torch.equal(V, collinear.make(shape, conf, torch.device("cpu"),
                                          torch.float64))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 11])
+def test_random_cp_is_the_ports(seed):
+    shape, R = (4, 5, 3, 6), 3
+    conf = {"rank": R, "tensor": {"data_seed": seed}}
+    V = random_cp.make(shape, conf, torch.device("cpu"), torch.float64)
+    ref = synth.random_cp_tensor(shape, R, np.random.default_rng(seed))
+    np.testing.assert_allclose(V.numpy(), ref, rtol=1e-12, atol=1e-12)
+    V32 = random_cp.make(shape, conf, torch.device("cpu"))
+    assert V32.dtype == torch.float32
+    assert torch.equal(V32, V.float())
 
 
 def test_tucker_stand_in_spectrum():

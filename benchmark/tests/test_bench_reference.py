@@ -103,7 +103,8 @@ def test_reference_loads_no_program_module():
         "import sys; from pathlib import Path; from benchmark import run\n"
         "root = Path('.')\n"
         "for k, n in [('references', 'cp_als'), ('references', 'tucker_als'),"
-        " ('generators', 'collinear_cp'), ('generators', 'tucker_decay')]:\n"
+        " ('generators', 'collinear_cp'), ('generators', 'tucker_decay'),"
+        " ('generators', 'random_cp')]:\n"
         "    run.load(root, k, n)\n"
         "import benchmark.trace, benchmark.peaks\n"
         "bad = {m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib',"
