@@ -70,8 +70,9 @@ of ranks (parallel/mesh.py), one process per rank, started by torchrun;
 rank 0 alone prints and writes the CSV (and the checkpoint, of the
 unsharded factors). The dense engines take V block-sharded over its
 largest modes (zero-padded; ``-tensor o1/o2`` read block by block from
-the file), CP and Tucker, every -pp, dtype and ``-device_loop`` of the
-unsharded run;
+the file, ``-tensor r`` formed block by block on each rank's device from
+its factors' rows), CP and Tucker, every -pp, dtype and ``-device_loop``
+of the unsharded run;
 ``-issparse 1`` takes an nnz-sharded COO over a 1D mesh:
 
     torchrun --standalone --nproc_per_node 2 \
@@ -285,6 +286,28 @@ def _load_tensor_sharded(args, device):
     return V, layout
 
 
+def _random_cp_sharded(args, device):
+    """-mesh with -tensor r: this rank's zero-padded block of the exact
+    rank-R tensor and its layout. The factors are drawn on the host as
+    synth.random_cp_tensor draws them (``default_rng(-seed)``, mode order,
+    uniform(0, 1)); the block is formed on ``device`` from their rows in
+    the rank's spans (parallel/mesh.cp_block), so no rank holds the whole
+    V, on the host or on a card."""
+    import torch
+    from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
+    from pairwise_perturbation_tpu_torch.utils import synth
+    shape = (args.size,) * args.dim
+    layout = _plan(args, shape, device)
+    Ws = synth.random_cp_factors(shape, args.rank,
+                                 np.random.default_rng(args.seed))
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    V = pmesh.cp_block(Ws, layout, dtype, device)
+    if not args.quiet:
+        print(f"  blocks of -tensor r: {layout.orig_shape} padded "
+              f"{layout.padded_shape} over mesh {args.mesh}")
+    return V, layout
+
+
 def _plan(args, shape, device):
     """The -mesh device mesh and the layout of V's ``shape`` on it."""
     from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
@@ -295,15 +318,21 @@ def _plan(args, shape, device):
 def _dense_tensor(args, device):
     """(V on ``device``, its layout or None, ||V||, the factor dtype) of
     the dense engines. Without -mesh V is the whole tensor; with it,
-    this rank's zero-padded block (o1/o2 read block by block, any other
-    tensor cut from the host array). ||V|| comes from the host array
-    when there is one (JAX cli.py:191-195), else from the blocks' squared
-    norms summed over the mesh, V never gathered."""
+    this rank's zero-padded block (o1/o2 read block by block, r formed
+    block by block from its factors over a mesh of several devices, any
+    other tensor cut from the host array). ||V|| comes from the host
+    array when there is one (JAX cli.py:191-195), else from the blocks'
+    squared norms summed over the mesh, V never gathered."""
     import torch
     from pairwise_perturbation_tpu_torch.ops import contract
     from pairwise_perturbation_tpu_torch.parallel import mesh as pmesh
-    if args.mesh and args.tensor in ("o1", "o2"):
-        V, layout = _load_tensor_sharded(args, device)
+    # r in blocks wherever a mode is split; a mesh of one device keeps the
+    # host array, so that a world of one runs as one process, bit for bit
+    r_blocks = bool(args.mesh) and args.tensor == "r" \
+        and np.prod(_mesh_shape(args)) > 1
+    if args.mesh and args.tensor in ("o1", "o2") or r_blocks:
+        V, layout = (_random_cp_sharded if r_blocks
+                     else _load_tensor_sharded)(args, device)
         Vnorm = float(torch.sqrt(contract.norm_sq(V, layout)))
         dtype = V.dtype
     else:

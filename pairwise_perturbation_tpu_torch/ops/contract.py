@@ -61,6 +61,8 @@ from pairwise_perturbation_tpu_torch.utils import tracing
 _MODES = string.ascii_lowercase
 _RANK = "Z"
 _RANK2 = "Y"
+# entries of one torch.dot at most (norm_sq)
+DOT_MAX = 1 << 30
 
 
 def _einsum(spec, *ops):
@@ -83,11 +85,18 @@ def plan_shape(V, layout):
 
 def norm_sq(V, layout=None):
     """||V||^2, accumulated in float32 for bf16 V, else in V's dtype;
-    summed over the ranks' blocks under ``layout``."""
+    summed over the ranks' blocks under ``layout``. A dot takes at most
+    DOT_MAX entries (cuBLAS counts them in 32 bits), so a larger V is
+    summed as the dots of its consecutive pieces; one piece, as any V
+    up to that size is, is the one dot of the whole."""
     v = V.reshape(-1)
-    if v.dtype == torch.bfloat16:
-        v = v.float()
-    return collectives.reduce_modes([torch.dot(v, v)], layout)[0]
+    total = None
+    for piece in v.split(DOT_MAX):
+        if piece.dtype == torch.bfloat16:
+            piece = piece.float()
+        d = torch.dot(piece, piece)
+        total = d if total is None else total + d
+    return collectives.reduce_modes([total], layout)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -399,18 +408,24 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
             memo[(3,)] = (o3, (0, 1, 2))
 
     def get(key: Tuple[int, ...]):
-        if key not in memo:
-            if len(key) == 1 and use_kernels_first:
-                T, rem = first_contraction(V, factors[key[0]], key[0],
+        # prefix by prefix, not by recursion: a closure that calls itself
+        # is a reference cycle, which would keep the memo's intermediates
+        # (a first level is R/s_m of V) allocated after the build returns,
+        # until the garbage collector ran
+        for n in range(1, len(key) + 1):
+            k = key[:n]
+            if k in memo:
+                continue
+            if n == 1 and use_kernels_first:
+                T, rem = first_contraction(V, factors[k[0]], k[0],
                                            use_kernels=True, layouts=layouts)
-                memo[key] = (T.movedim(-1, 0), rem)
-            elif len(key) == 1:
-                memo[key] = _first_contraction_rm(V, factors[key[0]], key[0],
-                                                  layouts)
+                memo[k] = (T.movedim(-1, 0), rem)
+            elif n == 1:
+                memo[k] = _first_contraction_rm(V, factors[k[0]], k[0],
+                                                layouts)
             else:
-                T, rem = get(key[:-1])
-                memo[key] = _contract_mode_kr_rm(T, rem, factors[key[-1]],
-                                                 key[-1])
+                T, rem = memo[k[:-1]]
+                memo[k] = _contract_mode_kr_rm(T, rem, factors[k[-1]], k[-1])
         return memo[key]
 
     R = factors[0].shape[1]
@@ -623,9 +638,12 @@ def build_ttmc_caches(V, factors: Sequence, shape=None):
     memo: Dict[Tuple[int, ...], object] = {(): V}
 
     def get(key: Tuple[int, ...]):
-        if key not in memo:
-            memo[key] = ttmc_contract_mode(get(key[:-1]), factors[key[-1]],
-                                           key[-1])
+        # prefix by prefix, not by recursion (see build_pp_caches)
+        for n in range(1, len(key) + 1):
+            if key[:n] not in memo:
+                memo[key[:n]] = ttmc_contract_mode(memo[key[:n - 1]],
+                                                   factors[key[n - 1]],
+                                                   key[n - 1])
         return memo[key]
 
     pair = {}

@@ -7,6 +7,13 @@ Every hook takes a dense layout (parallel/mesh.ShardedLayout: its
 ``mesh``, ``mode_axis``, ``padded_shape`` and ``span``) or None, and is
 the identity for None: the unsharded path runs no collective. Only
 ``all_reduce`` and ``broadcast`` are used (parallel/mesh.py says why).
+
+Counters (utils/tracing.count: always on, no sync): each all_reduce
+(``mesh.all_reduce_count``) and the bytes of its buffer
+(``mesh.all_reduce_bytes``), each broadcast (``mesh.broadcast_count``).
+They are named apart from the spans ``mesh.all_reduce`` and
+``mesh.broadcast``, whose calls count under the spans' own names while
+the scopes are on.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ def _coordinate(mesh, axis: str) -> int:
 
 def _reduce_buffer(buf, group) -> None:
     """SUM ``buf`` in place over ``group``: the one place an all_reduce of
-    this module runs."""
+    this module runs. Counts it (``mesh.all_reduce_count``) and its
+    buffer's bytes (``mesh.all_reduce_bytes``)."""
+    tracing.count("mesh.all_reduce_count")
+    tracing.count("mesh.all_reduce_bytes", buf.numel() * buf.element_size())
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
 
 
@@ -77,8 +87,10 @@ def all_reduce(tensors: Sequence, mesh, axes: Optional[Sequence[str]] = None):
 
 def broadcast(tensors: Sequence, mesh):
     """``tensors`` as rank 0 holds them, on every rank (one collective;
-    every rank passes tensors of the same shapes and dtypes)."""
+    every rank passes tensors of the same shapes and dtypes). Counted as
+    ``mesh.broadcast_count``."""
     flat = _flat(tensors)
+    tracing.count("mesh.broadcast_count")
     dist.broadcast(flat, src=0)
     return _unflat(flat, tensors)
 
@@ -183,6 +195,7 @@ def broadcast_block(x, mode: int, layout: ShardedLayout, c: int):
     src = int(mesh.mesh[tuple(coord)])
     x = x.contiguous().clone() if dist.get_rank() == src else \
         torch.empty_like(x, memory_format=torch.contiguous_format)
+    tracing.count("mesh.broadcast_count")
     tracing.timed("mesh.broadcast", dist.broadcast, x, src,
                   group=mesh.get_group(axis))
     return x

@@ -53,7 +53,8 @@ Two halves, as in the JAX package:
   that mode is assembled block by block (:func:`broadcast_block`, exact
   eigh route) or applied matrix-free (subspace route,
   models/tucker.hosvd), and a factor extracted on the mode side gathers
-  its unfolding's rows (:func:`gather_rows`);
+  its unfolding's rows (:func:`gather_rows`). :func:`cp_block` forms a
+  rank's block of a CP tensor from its factors' rows, V never whole;
 - the nnz-sharded COO (:func:`shard_coo` and the ``sharded_sparse_*``
   functions): each rank contracts its block of the nonzeros into a
   replicated dense output, and one ``all_reduce`` sums the partials
@@ -87,6 +88,8 @@ from pairwise_perturbation_tpu_torch.parallel.collectives import (
 
 # What torchrun sets in every rank's environment (env:// rendezvous).
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+# float64 entries of V that cp_block forms at a time
+CP_BLOCK_CHUNK = 1 << 24
 
 
 def launched() -> bool:
@@ -264,6 +267,46 @@ def shard_factors(Ws: Sequence, layout: ShardedLayout, device=None):
     factors of the others."""
     return [_padded_block(W, [layout.span(m), (0, W.shape[1])], device)
             for m, W in enumerate(Ws)]
+
+
+def cp_block(factors: Sequence, layout: ShardedLayout, dtype, device):
+    """This rank's zero-padded block of the CP tensor
+    V = sum_r W_0[:, r] o W_1[:, r] o ... of the host ``factors`` (float64
+    arrays at the original mode sizes), formed in ``dtype`` on ``device``
+    from the factors' rows in its spans alone, so that V is never whole
+    on the host or on a card.
+
+    The block is formed CP_BLOCK_CHUNK entries at a time in float64, then
+    rounded: for a chunk of rows of the block's leading modes, their
+    Khatri-Rao rows (the factors' rows multiplied mode by mode), then the
+    R terms against the last factor added one at a time. No entry's
+    arithmetic depends on the block, so the blocks of any mesh tile one
+    V."""
+    spans = [layout.span(m) for m in range(len(factors))]
+    rows = [_padded_block(np.asarray(W, dtype=np.float64),
+                          [span, (0, W.shape[1])], device)
+            for W, span in zip(factors, spans)]
+    bshape = [hi - lo for lo, hi in spans]
+    D = rows[-1]
+    lead = math.prod(bshape[:-1])
+    out = torch.empty(bshape, dtype=dtype, device=device)
+    flat = out.view(lead, bshape[-1])
+    step = max(1, CP_BLOCK_CHUNK // bshape[-1])
+    for r0 in range(0, lead, step):
+        rest = torch.arange(r0, min(r0 + step, lead), device=device)
+        idx = []
+        for b in reversed(bshape[:-1]):
+            idx.append(rest % b)
+            rest = rest // b
+        L = torch.ones((len(rest), D.shape[1]), dtype=torch.float64,
+                       device=device)
+        for W, i in zip(rows[:-1], reversed(idx)):
+            L = L * W[i]
+        acc = L[:, 0, None] * D[None, :, 0]
+        for r in range(1, D.shape[1]):
+            acc.add_(L[:, r, None] * D[None, :, r])
+        flat[r0:r0 + len(L)] = acc.to(dtype)
+    return out
 
 
 def unshard_factors(Ws: Sequence, layout: ShardedLayout) -> List[np.ndarray]:

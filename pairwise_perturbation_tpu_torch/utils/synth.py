@@ -116,10 +116,18 @@ def gen_collinearity(lens: Sequence[int], R: int, col_min: float,
     return V
 
 
+def random_cp_factors(lens: Sequence[int], R: int,
+                      rng: np.random.Generator):
+    """The factors of tensor 'r': uniform(0,1), drawn in mode order."""
+    return [rng.random((s, R)) for s in lens]
+
+
 def random_cp_tensor(lens: Sequence[int], R: int,
                      rng: np.random.Generator) -> np.ndarray:
-    """Tensor 'r': exact rank-R from uniform(0,1) factors."""
-    Ws = [rng.random((s, R)) for s in lens]
+    """Tensor 'r': exact rank-R from uniform(0,1) factors
+    (:func:`random_cp_factors`); under -mesh the CLI forms each rank's
+    block from the same factors instead (parallel/mesh.cp_block)."""
+    Ws = random_cp_factors(lens, R, rng)
     letters = "abcdefghijklmnop"[:len(lens)]
     spec = ",".join(l + "z" for l in letters) + "->" + letters
     return np.einsum(spec, *Ws, optimize=True)
