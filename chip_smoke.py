@@ -50,7 +50,17 @@ traceback and exits nonzero:
    and bf16 (S3), and S2, with device times beside their einsum's; the
    rank-outer and rank-major layouts in bf16 at every view check shape,
    the path named in each bf16 label.
-   Every kernel row of phases 3-3d is timed beside its plain version, the
+3e. The chain step (CS, chain_step.cu: every later step of a CP chain on
+   a rank-carrying f32 intermediate; it replaces no pl.pallas_call) at
+   the cells' own step shapes (CS_CHECKS: coil's and strong6-cp.pp's,
+   rank-minor and rank-major, both load widths, parts, the
+   7.5 GB step after strong6's first level), each against its plain
+   version in float64 to CS_TOL and two launches bit for bit equal,
+   timed beside torch.einsum (T's permuted copy, then a GEMV); then at
+   the coil shape, f32, a DT sweep at the midpoint and the planned root
+   split, a diagnostics row and a cache build, each with the launches
+   and the route's counters read from zero and held to COIL_CHAIN_STEPS.
+   Every kernel row of phases 3-3e is timed beside its plain version, the
    one PyTorch call that computes the same function (or "none"), and its
    bound: the larger of its bytes (each input read once, each output
    written once) over 3.35 TB/s and its operations over the peak rate of
@@ -70,7 +80,10 @@ traceback and exits nonzero:
    kinds, K4 launched twice a DT sweep in every run, and
    the [DTtime], [PPfirst] and [PPsecond] medians of each run beside the
    card's name and power limit.
-5. Order-4 CP-PP at the coil-100 shape (3, 128, 128, 7200) f32, rank 10.
+5. Order-4 CP-PP at the coil-100 shape (3, 128, 128, 7200) f32, rank 10;
+   in f32 (here and in 5b) chain_step launches as often as the scopes
+   reckon (COIL_CHAIN_STEPS at the planned split), the warm-ups' apart,
+   and no f32 chain step is left to the einsum.
 5b. The same shape, f32 and bf16 V, under
    ``config.override(use_kernels_triple=True)``: every PP cache build
    takes its three chain roots from one K6 call (two rank-outer
@@ -318,11 +331,11 @@ counted apart (scripts/_bench.warm_launches) and held to their own number
 K1-K3, a warm sparse sweep's and cache build's K7).
 
 The last three lines are a JSON line of every TPU kernel's row (K1-K7,
-S1-S5), the card's name and power limit, and
+S1-S5) and the chain step's (CS), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --phases 3c,3d`` (or ``--phases 3`` for K1-K3,
-``--phases 3b`` for K4, K4' and K6) runs phases 1, 2 and the named
+``--phases 3b`` for K4, K4' and K6, ``--phases 3e`` for CS) runs phases 1, 2 and the named
 kernel phases alone and ends with their rows as one JSON line and the
 card's name and power limit, without the ok line: run from the root of
 two checkouts in turns, it times two trees' kernels on one card.
@@ -344,8 +357,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "pairwise_perturbation_tpu_torch/ops/kernels/csrc/"
 PALLAS = "pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py:"
 COO_REPLACES = "pairwise_perturbation_tpu/ops/kernels/coo_pallas.py:145"
-# Every function of the repo that reaches pl.pallas_call: table id ->
-# (JSON name, CUDA sources it launches, the pl.pallas_call it replaces).
+# Every function of the repo that reaches pl.pallas_call, and the chain
+# step (CS), which replaces none: table id -> (JSON name, CUDA sources it
+# launches, the pl.pallas_call it replaces).
 TABLE = {
     "K1": ("mttkrp3_mode0", "mttkrp3.cu", PALLAS + "145"),
     "K2": ("mttkrp3_mode1", "mttkrp3.cu", PALLAS + "240"),
@@ -365,6 +379,8 @@ TABLE = {
     "S4": ("column_sum", "column_sum.cu", "scripts/bench_midvariants.py:56"),
     "S5": ("mid_contract_rank_major_block_widths", "mid_contract.cu",
            "scripts/bench_midvariants.py:90"),
+    "CS": ("chain_step", "chain_step.cu",
+           "none: pairwise_perturbation_tpu/ops/contract.py:131, an einsum"),
 }
 # Per table id: max_abs_err, and at the row's reported shape ms,
 # plain_ms, library_ms, bound_ms, bound_by (filled by phases 3-3d).
@@ -1220,6 +1236,148 @@ def compare_firstlevel():
         torch.cuda.empty_cache()
 
 
+# (label, mode shape of T, R, contracted axis, layout) of the chain step
+# (CS) at the cells' own steps. coil: after the first level over mode 0,
+# T (1, 3, 128 7200 10); over mode 1, (3, 128, 72000), in parts; the leaf
+# steps (384, 128, 10) and (128, 7200, 10) (one column a thread, parts);
+# the cache build's two rank-major steps. strong6-cp.pp: the 7.5 GB step
+# after the first level over mode 0, (1, 50, 50^4 6); a rank's block
+# steps (13, 50, 50^3 6), (32500, 50, 6) and (50, 50, 6); a rank-major
+# step on the block.
+CS_CHECKS = [("coil, after mode 0", (3, 128, 7200), 10, 0, "rank_minor"),
+             ("coil, after mode 1", (3, 128, 7200), 10, 1, "rank_minor"),
+             ("coil leaf", (3, 128, 128), 10, 2, "rank_minor"),
+             ("coil leaf", (128, 7200), 10, 1, "rank_minor"),
+             ("coil cache chain", (3, 128, 128), 10, 1, "rank_major"),
+             ("coil cache chain", (3, 128, 7200), 10, 1, "rank_major"),
+             ("strong6, after mode 0", (50, 50, 50, 50, 50), 6, 0,
+              "rank_minor"),
+             ("strong6 block", (13, 50, 50, 50, 50), 6, 1, "rank_minor"),
+             ("strong6 block leaf", (13, 50, 50, 50), 6, 3, "rank_minor"),
+             ("strong6 leaf", (50, 50), 6, 1, "rank_minor"),
+             ("strong6 block cache chain", (13, 50, 50, 50, 50), 6, 2,
+              "rank_major")]
+# f32 sums in a fixed order of at most 7200 products of uniform [0, 1)
+# operands (no cancellation), cut into parts, against float64.
+CS_TOL = 1e-5
+# chain_step launches of one call at the coil shape, f32, reckoned from
+# the planners' order (priority (3, 1, 2, 0); tests/test_torch_step_route.py
+# counts them at a shape planned alike): a DT sweep 6 at the midpoint root
+# split and 7 at the planner's split 2 (the CLI's and the benchmark's), a
+# diagnostics row 10, a cache build 2 (its rank-major steps over a middle
+# mode; K6's roots leave the same steps).
+COIL_CHAIN_STEPS = {"dt_midpoint": 6, "dt_planned": 7, "diagnostics": 10,
+                    "cache_build": 2}
+# chain_step's launches on the main path, by phase (3e, 5).
+CS_PATH_LAUNCHES = {}
+
+
+def chain_step_library(T, pos, layout):
+    """The einsum the chain runs where the kernel does not take the step:
+    contract_mode_kr's (rank-minor) or _contract_mode_kr_rm's (rank-major)
+    spec, which copies T before its batched GEMV."""
+    import torch
+    from pairwise_perturbation_tpu_torch.ops import contract
+    n = T.ndim - 1
+    modes = contract._MODES[:n]
+    kept = modes[:pos] + modes[pos + 1:]
+    spec = (f"{modes}Z,{modes[pos]}Z->{kept}Z" if layout == "rank_minor"
+            else f"Z{modes},{modes[pos]}Z->Z{kept}")
+    return lambda W: torch.einsum(spec, T, W)
+
+
+def compare_chain_step():
+    """Phase 3e: the chain step (CS) at the cells' step shapes against its
+    plain version in float64 (CS_TOL), two launches bit for bit equal,
+    timed beside the plain version, torch.einsum and the bytes bound; then
+    the main path at the coil shape: a DT sweep at both root splits, a
+    diagnostics row and a cache build, each with chain_step's launches and
+    the route's counters read from zero and held to COIL_CHAIN_STEPS."""
+    import torch
+    from pairwise_perturbation_tpu_torch import native
+    from pairwise_perturbation_tpu_torch.models import cp
+    from pairwise_perturbation_tpu_torch.ops import contract
+    from pairwise_perturbation_tpu_torch.ops.kernels import chain_step as cs
+    from pairwise_perturbation_tpu_torch.utils import tracing
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    by_shape = RESULTS["CS"].setdefault("ms_by_shape", {})
+    for i, (name, modes, R, pos, layout) in enumerate(CS_CHECKS):
+        shape = modes + (R,) if layout == "rank_minor" else (R,) + modes
+        T = torch.rand(shape, generator=gen, device="cuda")
+        W = torch.rand((modes[pos], R), generator=gen, device="cuda")
+        rows, C, N, _ = cs.view(shape, pos, layout)
+        p = cs.plan_for(T, R, pos, layout)
+        label = (f"chain_step {layout} {name} {shape} axis {pos}: (rows, C, "
+                 f"N) ({rows}, {C}, {N}), plan vec {p.vec} parts {p.parts}")
+        got = cs.chain_step(T, W, pos, layout)
+        again = cs.chain_step(T, W, pos, layout)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two launches differ")
+        want = cs.chain_step_plain(T.double(), W.double(), pos, layout)
+        abs_err = float((got.double() - want).abs().max())
+        rel = abs_err / float(want.abs().max())
+        del again, want
+        if not (got.shape == _cs_out_shape(shape, pos, layout)
+                and rel <= CS_TOL):
+            raise AssertionError(f"{label}: shape {tuple(got.shape)}, "
+                                 f"relative error {rel:.3e} > {CS_TOL}")
+        del got
+        library = chain_step_library(T, pos, layout)
+        fields = timed_row(
+            "CS", label + " (float64 plain; bitwise repeat ok)", abs_err, rel,
+            lambda: cs.chain_step(T, W, pos, layout),
+            lambda: cs.chain_step_plain(T, W, pos, layout),
+            lambda: library(W),
+            tensor_bytes(T, W) + 4 * rows * N, 2 * T.numel(),
+            library_name="torch.einsum: copy, then GEMV", report=i == 0)
+        by_shape[f"{layout} ({rows}, {C}, {N})"] = {
+            k: fields[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+        del T, W, library
+        torch.cuda.empty_cache()
+    V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
+    Ws = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
+    split = native.plan_tree_split_traffic(COIL_SHAPE, 10)[0]
+    vn = contract.norm_sq(V)
+    runs = [("DT sweep, midpoint split", "dt_midpoint",
+             lambda: cp.dt_sweep(V, Ws, 0.0)),
+            (f"DT sweep, planned split {split}", "dt_planned",
+             lambda: cp.dt_sweep(V, Ws, 0.0, root_split=split)),
+            ("diagnostics row", "diagnostics",
+             lambda: cp.cp_diagnostics(vn, V, Ws)),
+            ("cache build", "cache_build", lambda: cp.pp_build_caches(V, Ws))]
+    total = 0
+    for label, key, fn in runs:
+        fn()                                   # first call, uncounted
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        tracing.reset()
+        fn()
+        torch.cuda.synchronize()
+        n = cs.LAUNCHES["chain_step"]
+        st = tracing.stats()
+        kernel = st.get("contract.step_kernel", (0,))[0]
+        einsum = st.get("contract.step_einsum", (0,))[0]
+        want = COIL_CHAIN_STEPS[key]
+        print(f"coil {COIL_SHAPE} f32 R=10 {label}: chain_step launched "
+              f"{n} times (reckoned {want}), route counters kernel "
+              f"{kernel} einsum {einsum}")
+        if (n, kernel, einsum) != (want, want, 0):
+            raise AssertionError(f"{label}: chain_step launches {n}, "
+                                 f"counters {kernel}/{einsum}, against "
+                                 f"{want}")
+        total += n
+    CS_PATH_LAUNCHES["3e"] = total
+    del V, Ws
+    torch.cuda.empty_cache()
+
+
+def _cs_out_shape(shape, pos, layout):
+    axis = pos if layout == "rank_minor" else pos + 1
+    return shape[:axis] + shape[axis + 1:]
+
+
 def run_scripts():
     """Phase 7: the ported benchmark scripts at the coil-100 shape, rank
     10, in this process. Each must return 0, and every launch of its run
@@ -1492,6 +1650,24 @@ def run_coil_order4(dtype="float32", triple=False, beside=None,
                 "last_contract.last_contract"]) != (2 * launches, launches):
             raise AssertionError("K6's inner launches differ from two "
                                  "rank-outer launches and one K5 a call")
+    if dtype == "float32" and not partial:
+        # chain_step (CS) on the main path: the planned split's 7 steps a
+        # DT sweep, 10 a diagnostics row, 2 a cache build; the warm-ups'
+        # DT sweep and cache build 7 + 2 (its warm PP sweep makes none)
+        steps = COIL_CHAIN_STEPS
+        held_apart("CS", counts["chain_step.chain_step"],
+                   warm.get("chain_step.chain_step", 0),
+                   steps["dt_planned"] * stats["cp.dt_sweep"][0]
+                   + steps["diagnostics"] * stats["cp.diagnostics"][0]
+                   + steps["cache_build"] * stats.get(
+                       "cp.pp_cache_build", (0,))[0],
+                   steps["dt_planned"] + steps["cache_build"],
+                   "steps reckoned from the scopes")
+        if stats.get("contract.step_einsum", (0,))[0]:
+            raise AssertionError("a float32 chain step was left to the "
+                                 "einsum")
+        CS_PATH_LAUNCHES["5"] = CS_PATH_LAUNCHES.get("5", 0) + counts[
+            "chain_step.chain_step"]
     names = CP_PHASES
     if partial:
         names = ("cp.dt_sweep", "cp.pp_cache_build",
@@ -5012,7 +5188,10 @@ KERNEL_PHASES = {
     "3c": ("sparse COO MTTKRP kernel (K7) vs plain", compare_coo),
     "3d": ("last_contract (K5), rank-outer (S2), column_sum (S4), block "
            "widths (S5), K4' at coil in f32 (S1) and bf16 (S3)",
-           compare_firstlevel)}
+           compare_firstlevel),
+    "3e": ("the chain step (CS) at the cells' step shapes vs plain vs "
+           "einsum, bound; its launches on the coil main path",
+           compare_chain_step)}
 
 
 def run_kernel_phases(names):
@@ -5174,6 +5353,9 @@ def main(argv=None) -> int:
     for kid, n in run_phase16(smi).items():
         launches[kid] += n
         by_phase.setdefault(kid, {})["16"] = n
+    # the chain step's launches on the main path (phases 3e and 5)
+    launches["CS"] = sum(CS_PATH_LAUNCHES.values())
+    by_phase["CS"] = dict(CS_PATH_LAUNCHES)
     # K4' has no caller in the package; the scripts launch it as S1, S3
     # and S5.
     launches["K4'"] = launches["S1"] + launches["S3"] + launches["S5"]

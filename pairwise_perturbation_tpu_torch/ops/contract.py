@@ -42,6 +42,15 @@ roots) goes to the hand-written ``mid_contract`` kernel, which reads V once
 in place, wherever :func:`_kernel_first` admits it; the counters
 ``contract.first_kernel`` and ``contract.first_einsum`` (utils/tracing)
 count which of the two served each. A CPU V keeps the einsum.
+
+Every later step of a chain on a card meets the same copy: the einsum of
+:func:`contract_mode_kr` on a rank-minor intermediate (and of a rank-major
+cache chain's step over a middle mode) copies the intermediate into
+(rank, kept, contracted) order before its batched GEMV. So each such step
+on CUDA float32 operands goes to the hand-written ``chain_step`` kernel,
+which reads the intermediate once in place, wherever :func:`_kernel_step`
+admits it; ``contract.step_kernel`` and ``contract.step_einsum`` count
+which served each. CPU tensors keep the einsum.
 """
 
 from __future__ import annotations
@@ -53,7 +62,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from pairwise_perturbation_tpu_torch import config
-from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
+from pairwise_perturbation_tpu_torch.ops.kernels import (chain_step,
+                                                         mid_contract)
 from pairwise_perturbation_tpu_torch.parallel import collectives
 from pairwise_perturbation_tpu_torch.utils import tracing
 
@@ -146,9 +156,14 @@ def contract_mode_kr(T, rem_modes: Tuple[int, ...], has_rank: bool, factor,
     trailing rank axis when ``has_rank``. Contracting mode ``m`` with
     W_m[s_m, R] removes that axis, Khatri-Rao-style (diagonal in the rank
     axis once it exists) — the reference's chain step V["acd*"] * W["d*"]
-    (als_CP.cxx:383-384).
+    (als_CP.cxx:383-384). With ``has_rank`` the step comes from the
+    chain_step kernel where :func:`_kernel_step` takes it.
     """
     pos = rem_modes.index(mode)
+    if has_rank:
+        out = _kernel_step(T, factor, pos)
+        if out is not None:
+            return out, rem_modes[:pos] + rem_modes[pos + 1:]
     letters = _MODES[:len(rem_modes)]
     t_spec = letters + (_RANK if has_rank else "")
     out_spec = letters[:pos] + letters[pos + 1:] + _RANK
@@ -184,6 +199,28 @@ def _kernel_first(V, factor, mode: int, layout: str = "rank_minor",
     tracing.count("contract.first_kernel")
     return mid_contract.mid_contract(V.contiguous(), factor.contiguous(),
                                      mode, layout)
+
+
+def _step_on_card(T, factor) -> bool:
+    """Whether the chain_step kernel takes the intermediate T and the
+    factor: both float32 on a CUDA device. The CPU tests patch it to admit
+    the CPU, where the kernel module runs its plain version."""
+    return T.is_cuda and T.dtype == torch.float32 \
+        and factor.dtype == torch.float32
+
+
+def _kernel_step(T, factor, pos: int, layout: str = "rank_minor"):
+    """One chain step of the rank-carrying T over mode axis ``pos`` from
+    the chain_step kernel in T's ``layout``, or None where the einsum is
+    to serve it. The kernel takes it on a card (:func:`_step_on_card`)
+    from a contiguous T whose launch ``chain_step.route_admits``. Counts
+    the call as ``contract.step_kernel`` or ``contract.step_einsum``."""
+    if _step_on_card(T, factor) and T.is_contiguous() and \
+            chain_step.route_admits(T, factor.shape[1], pos, layout):
+        tracing.count("contract.step_kernel")
+        return chain_step.chain_step(T, factor.contiguous(), pos, layout)
+    tracing.count("contract.step_einsum")
+    return None
 
 
 def first_step(V, factor, mode: int):
@@ -349,8 +386,16 @@ def _first_contraction_rm(V, factor, mode: int, layouts=None):
 
 def _contract_mode_kr_rm(T, rem_modes: Tuple[int, ...], factor, mode: int):
     """One Khatri-Rao chain step on a rank-major intermediate
-    (R, rem_modes...) -> (R, rem_modes without mode)."""
+    (R, rem_modes...) -> (R, rem_modes without mode). Over a middle mode,
+    where the einsum would copy T, from the chain_step kernel where
+    :func:`_kernel_step` takes it; over the first or the last mode the
+    einsum's batched GEMM reads T in place, and counts in neither
+    counter."""
     pos = rem_modes.index(mode)
+    if 0 < pos < len(rem_modes) - 1:
+        out = _kernel_step(T, factor, pos, "rank_major")
+        if out is not None:
+            return out, rem_modes[:pos] + rem_modes[pos + 1:]
     letters = _MODES[:len(rem_modes)]
     out_spec = _RANK + letters[:pos] + letters[pos + 1:]
     out = _einsum(f"{_RANK}{letters},{letters[pos]}{_RANK}->{out_spec}",

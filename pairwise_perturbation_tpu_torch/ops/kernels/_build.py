@@ -13,6 +13,7 @@ raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -127,6 +128,9 @@ def load() -> ctypes.CDLL:
     lib.pp_last_contract_mma.restype = i32
     lib.pp_column_sum.argtypes = [p, p, i64, i64, i64, p]
     lib.pp_column_sum.restype = i32
+    lib.pp_chain_step.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32,
+                                  i32, i32, i32, p]
+    lib.pp_chain_step.restype = i32
     lib.pp_coo_mttkrp.argtypes = [ctypes.POINTER(i64), ctypes.POINTER(p), p,
                                   p]
     lib.pp_coo_mttkrp.restype = i32
@@ -136,6 +140,14 @@ def load() -> ctypes.CDLL:
     lib.pp_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (the kernels' launch plans
+    size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def current_stream(device) -> int:

@@ -234,11 +234,6 @@ def last_contract_eligible(shape, dtype, r: int) -> bool:
     return _last_tile(N, B) > 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def last_contract_plain(V, W):
     """Plain PyTorch version (one einsum over the (N, B) view of V); what
     the kernel is held to. bf16 V: V and W rounded to bf16, contracted in
@@ -253,7 +248,7 @@ def last_contract_plain(V, W):
 def plan_for(V, R: int) -> Plan:
     """:func:`plan` for a CUDA tensor V and rank R."""
     return plan(V.numel() // V.shape[-1], V.shape[-1], R,
-                _sm_count(V.device.index), V.data_ptr() % 16,
+                _build.sm_count(V.device.index), V.data_ptr() % 16,
                 V.dtype == torch.bfloat16)
 
 

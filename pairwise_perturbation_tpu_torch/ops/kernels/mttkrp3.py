@@ -183,11 +183,6 @@ def mttkrp3_mode_plain(V, factors: Sequence, mode: int):
     return torch.einsum(_PLAIN_SPECS[mode], V, *others)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(V, factors: Sequence, mode: int):
     if mode not in (0, 1, 2):
         raise ValueError(f"mode must be 0, 1 or 2, got {mode}")
@@ -220,7 +215,7 @@ class _Launch:
     def __init__(self, V, R: int, mode: int, vec: bool):
         I, J, K = V.shape
         self.lib, self.R, self.n_out = _build.load(), R, V.shape[mode]
-        p = self.plan = plan(V.shape, R, mode, _sm_count(V.device.index),
+        p = self.plan = plan(V.shape, R, mode, _build.sm_count(V.device.index),
                              vec)
         if mode == 2:
             n_parts, self.args = p.n_slabs, (

@@ -22,7 +22,7 @@ import torch
 
 from pairwise_perturbation_tpu_torch import config
 from pairwise_perturbation_tpu_torch.ops.kernels import (
-    column_sum, coo_mttkrp, last_contract, mid_contract, mttkrp3,
+    chain_step, column_sum, coo_mttkrp, last_contract, mid_contract, mttkrp3,
     triple_roots)
 
 COIL_SHAPE = (3, 128, 128, 7200)
@@ -30,7 +30,8 @@ WARMUP = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 _MODULES = {"mttkrp3": mttkrp3, "mid_contract": mid_contract,
             "last_contract": last_contract, "column_sum": column_sum,
-            "triple_roots": triple_roots, "coo_mttkrp": coo_mttkrp}
+            "triple_roots": triple_roots, "coo_mttkrp": coo_mttkrp,
+            "chain_step": chain_step}
 
 
 class DeviceError(RuntimeError):

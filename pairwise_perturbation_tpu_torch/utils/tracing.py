@@ -31,8 +31,10 @@ host engine; ``wait.sync``: an explicit device sync) and their PP phases
 (``cp.pp_phase``, ``tucker.pp_phase``); ops/contract.py counts each
 first-level contraction of V over a non-minor mode by what served it
 (``contract.first_kernel``: the mid_contract kernel;
-``contract.first_einsum``: torch.einsum); parallel/collectives.py counts
-its all_reduces, their bytes and its broadcasts
+``contract.first_einsum``: torch.einsum) and each later chain step of a
+rank-carrying intermediate (``contract.step_kernel``: the chain_step
+kernel; ``contract.step_einsum``: torch.einsum); parallel/collectives.py
+counts its all_reduces, their bytes and its broadcasts
 (``mesh.all_reduce_count``, ``mesh.all_reduce_bytes``,
 ``mesh.broadcast_count``). :func:`stats` and :func:`report`
 list spans and counters; :func:`reset` clears both.

@@ -39,7 +39,8 @@ NEW_METRICS = ("host_waits_per_sweep", "pp_phases_per_fit",
                "hosvd_share_pct", "eigh_share_pct")
 COUNTERS = ("wait.solve", "wait.pull", "wait.sync", "cp.pp_phase",
             "tucker.pp_phase", "contract.first_kernel",
-            "contract.first_einsum")
+            "contract.first_einsum", "contract.step_kernel",
+            "contract.step_einsum")
 SWEEPS = ("cp.dt_sweep", "cp.sweep", "cp.pp_sweep", "tucker.dt_sweep",
           "tucker.pp_sweep")
 SPANS = SWEEPS + ("cp.fit", "tucker.fit", "warmup", "cp.restart_check",
