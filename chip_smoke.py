@@ -69,17 +69,15 @@ traceback and exits nonzero:
 4. The main path through the CLI: ``test_als -model CP -pp 1`` on a
    200^3 rank-10 tensor; checks the CSV and that every kernel ran.
 4b. The CLI at 512^3 rank 10, f32 and ``-dtype bfloat16``: short
-   untimed warm-up runs, then each dtype with the kernels' defaults and
-   under ``config.override(use_kernels_first=True)``: on a card either
-   way the DT tree's top-level nodes (1, 2) and (0, 0) go through K4
-   (two launches a DT sweep), each cache build's roots over modes 0 and
-   1 through mid_contract's rank-outer layout, as many launches as the
-   first-level route counts, and K4' never.
+   untimed warm-up runs, then one run of each dtype: the DT tree's
+   top-level nodes (1, 2) and (0, 0) go through K4 (two launches a DT
+   sweep), each cache build's roots over modes 0 and 1 through
+   mid_contract's rank-outer layout, as many launches as the first-level
+   route counts, and K4' never.
 4c. ``pp_bench -model CP`` at 512^3 rank 10, f32, maxiter 3, through the
-   CLI, with use_kernels_first off, on, on, off: the CSV's header and row
-   kinds, K4 launched twice a DT sweep in every run, and
-   the [DTtime], [PPfirst] and [PPsecond] medians of each run beside the
-   card's name and power limit.
+   CLI, twice: the CSV's header and row kinds, K4 launched twice a DT
+   sweep in each run, and the [DTtime], [PPfirst] and [PPsecond] medians
+   of both runs beside the card's name and power limit.
 5. Order-4 CP-PP at the coil-100 shape (3, 128, 128, 7200) f32, rank 10;
    in f32 (here and in 5b) chain_step launches as often as the scopes
    reckon (COIL_CHAIN_STEPS at the planned split), the warm-ups' apart,
@@ -116,14 +114,13 @@ traceback and exits nonzero:
 
 8. ``run`` (the second-gen optimizers), f32, rank 10. At 512^3 through
    the CLI: -pp 4 (Simple), whose K1, K2 and K3 launch once a step (in
-   dtime) and once, once and twice a diagnostics row; -pp 1 (MSDT) with
-   use_kernels_first off and on: K4 serves every step whose hold-out is
-   mode 0 or 1, either way. At the coil-100 shape through ``cli.run_cpd``
-   (the body of ``run``; the CLI makes cubic tensors only): -pp 0-3 a
-   few sweeps each, -pp 1 -device_loop 1 (a rotation, 3 sweeps, a step),
-   and -pp 1 under use_kernels_first; in each run K4 launches as often
-   as the first-level route counts, and no first contraction is left to
-   the einsum.
+   dtime) and once, once and twice a diagnostics row; -pp 1 (MSDT): K4
+   serves every step whose hold-out is mode 0 or 1. At the coil-100
+   shape through ``cli.run_cpd`` (the body of ``run``; the CLI makes
+   cubic tensors only): -pp 0-3 a few sweeps each and -pp 1 -device_loop
+   1 (a rotation, 3 sweeps, a step); in each run K4 launches as often as
+   the first-level route counts, and no first contraction is left to the
+   einsum.
    Every CSV checked; the step medians (tracing scopes
    ``<Optimizer>.step``) printed beside the card's name and power limit.
 
@@ -230,9 +227,9 @@ traceback and exits nonzero:
    through cli.main in a cluster, each CSV against the unsharded CLI's
    (DENSE_CLI_TOL); K1-K3 on each rank's (100, 200, 200) block in every
    diagnostics row, counted, and each held to its plain version there.
-   12d. ``pp_bench -model CP -mesh 2`` at 512^3 under use_kernels_first in
-   the same cluster: K4 on each rank's (256, 512, 512) block twice a DT
-   sweep, held to its plain version there.
+   12d. ``pp_bench -model CP -mesh 2`` at 512^3 in the same cluster: K4
+   on each rank's (256, 512, 512) block twice a DT sweep, held to its
+   plain version there.
    12e. A world of one on NCCL (``--nproc_per_node 1``, ``-mesh 1``):
    ``test_als -tensor o1`` read block by block from a seeded coil-100
    binary writes the unsharded CLI's CSV bit for bit but for [dtime] and
@@ -242,7 +239,7 @@ traceback and exits nonzero:
 13. ``run -mesh 2``: the second-gen optimizers on a block-sharded V, two
    ranks sharing the card over gloo, one cluster start-up, then a world
    of one.
-   13a. DT, MSDT (use_kernels_first), DT-LR and MSDT-LR through
+   13a. DT, MSDT, DT-LR and MSDT-LR through
    cli.run_cpd at the coil shape, V sharded over mode 3 (3600 a rank,
    each rank memory-maps its block of a .npy), f64 and f32: f64 factors
    within RUN_MESH_FACTOR_TOL
@@ -304,7 +301,7 @@ traceback and exits nonzero:
    claim on the speed-up.
    ``--phases 15`` runs phases 1, 2 and 15 alone.
 
-16. dtime's warm-ups, the device engines under -mesh, -layouts 1.
+16. dtime's warm-ups, the device engines under -mesh.
    16a. test_als at 200^3 f32 (-pp 1, -device_loop 0, 1 and 2) and CP-PP
    at the coil shape with use_kernels_triple, each in a fresh process,
    with the engines' warm-ups (models/cp.warm_run) and with each made a
@@ -317,10 +314,6 @@ traceback and exits nonzero:
    world of one on NCCL bit for bit, then at the coil shape with K6 (f32,
    K6 and K5 once an in-loop build and once in the warm-ups) beside
    Tucker's device engines (f32); mesh.all_reduce calls and seconds.
-   16c. -layouts 1: als_cp_dt and the fused machine at the coil shape
-   and test_als -pp 0 and -pp 1 -device_loop 2 at 512^3, f32, layouts off
-   then on: DT sweep medians, the copy kernels' device ms in one DT sweep
-   (torch.profiler), peak memory, the last diffV held to the off run's.
    ``--phases 16`` runs phases 1, 2 and 16 alone.
 
 Every engine runs its warm-ups before its loop (models/cp.warm_run, out
@@ -1467,37 +1460,34 @@ def run_cli_main_path():
     return launches
 
 
-def cli_512(dtype, first, maxiter, out, *extra):
+def cli_512(dtype, maxiter, out, *extra):
     """cli.main for test_als -model CP -pp 1 at 512^3 rank 10, V stored in
-    ``dtype``, under use_kernels_first = ``first``; returns its code."""
-    from pairwise_perturbation_tpu_torch import cli, config
-    with config.override(use_kernels_first=first):
-        return cli.main(["test_als", "-model", "CP", "-tensor", "r",
-                         "-pp", "1", "-dim", "3", "-size", "512",
-                         "-rank", "10", "-maxiter", str(maxiter),
-                         "-pp_res_tol", "0.1", "-dtype", dtype, "-quiet",
-                         "-filename", out, *extra])
+    ``dtype``; returns its code."""
+    from pairwise_perturbation_tpu_torch import cli
+    return cli.main(["test_als", "-model", "CP", "-tensor", "r", "-pp", "1",
+                     "-dim", "3", "-size", "512", "-rank", "10",
+                     "-maxiter", str(maxiter), "-pp_res_tol", "0.1",
+                     "-dtype", dtype, "-quiet", "-filename", out, *extra])
 
 
-def run_cli_512(dtype, first, beside=None):
+def run_cli_512(dtype):
     """The 512^3 CLI run of 20 sweeps, timed by phase. Returns (phase
     stats, K4 rank-minor launches, K4' rank-major launches). On a card the
-    first contractions of V over modes 0 and 1 take mid_contract under
-    use_kernels_first or not: each DT sweep's nodes (1, 2) and (0, 0) are
-    two rank-minor launches, each cache build's roots over modes 0 and 1
-    two rank-outer ones, the warm-ups' DT sweep and build as many, and
-    nothing launches the rank-major layout."""
+    first contractions of V over modes 0 and 1 take mid_contract: each DT
+    sweep's nodes (1, 2) and (0, 0) are two rank-minor launches, each
+    cache build's roots over modes 0 and 1 two rank-outer ones, the
+    warm-ups' DT sweep and build as many, and nothing launches the
+    rank-major layout."""
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
-    label = f"CLI 512^3 {dtype} use_kernels_first={first}"
+    label = f"CLI 512^3 {dtype}"
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, f"cp_pp_512_{dtype}.csv")
         tracing.reset()
         mid_contract.reset_launch_counts()
         with _bench.warm_launches() as warm:
-            rc = cli_512(dtype, first, 20, out, "-resprint", "1",
-                         "-profile", "1")
+            rc = cli_512(dtype, 20, out, "-resprint", "1", "-profile", "1")
         minor = mid_contract.LAUNCHES["rank_minor"]
         major = mid_contract.LAUNCHES["rank_major"]
         outer = mid_contract.LAUNCHES["rank_outer"]
@@ -1519,7 +1509,7 @@ def run_cli_512(dtype, first, beside=None):
     if major or minor + outer != first_level_route(stats, label):
         raise AssertionError(f"{label}: mid_contract launches off the "
                              "first-level route's count")
-    print_phase_times(stats, beside)
+    print_phase_times(stats)
     return stats, minor, major
 
 
@@ -1528,21 +1518,18 @@ PP_BENCH_ARGS = ["pp_bench", "-model", "CP", "-tensor", "r", "-dim", "3",
 BENCH_KINDS = ("DTtime", "PPfirst", "PPsecond")
 
 
-def run_pp_bench(first):
+def run_pp_bench():
     """``pp_bench -model CP`` at 512^3 rank 10, f32, maxiter 3, through the
-    CLI under use_kernels_first = ``first``; checks the CSV (the
-    reference's header, 3 [DTtime] rows then 3 [PPfirst]/[PPsecond]
-    pairs, finite positive times) and K4's launches: on a card two a DT
-    sweep (nodes (1, 2) and (0, 0); the untimed one and the 3 timed),
-    use_kernels_first on or off. Returns ({row kind: median s}, K4
-    launches)."""
-    from pairwise_perturbation_tpu_torch import cli, config
+    CLI; checks the CSV (the reference's header, 3 [DTtime] rows then 3
+    [PPfirst]/[PPsecond] pairs, finite positive times) and K4's launches:
+    on a card two a DT sweep (nodes (1, 2) and (0, 0); the untimed one and
+    the 3 timed). Returns ({row kind: median s}, K4 launches)."""
+    from pairwise_perturbation_tpu_torch import cli
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "pp_bench_512.csv")
         mid_contract.reset_launch_counts()
-        with config.override(use_kernels_first=first):
-            rc = cli.main(PP_BENCH_ARGS + ["-quiet", "-filename", out])
+        rc = cli.main(PP_BENCH_ARGS + ["-quiet", "-filename", out])
         launches = mid_contract.LAUNCHES["rank_minor"]
         with open(out) as fh:
             rows = list(csv.reader(fh))
@@ -1556,13 +1543,11 @@ def run_pp_bench(first):
     if not all(math.isfinite(t) and t > 0 for t in times):
         raise AssertionError(f"pp_bench times {times}")
     if launches != 8:
-        raise AssertionError(f"pp_bench use_kernels_first={first}: K4 "
-                             f"launched {launches} times, expected 8 (two "
-                             "a DT sweep)")
+        raise AssertionError(f"pp_bench: K4 launched {launches} times, "
+                             "expected 8 (two a DT sweep)")
     med = {k: statistics.median(t for kind, t in zip(kinds, times)
                                 if kind == f"[{k}]") for k in BENCH_KINDS}
-    print(f"pp_bench 512^3 f32 use_kernels_first={first}: K4 launches "
-          f"{launches}; medians " + ", ".join(
+    print(f"pp_bench 512^3 f32: K4 launches {launches}; medians " + ", ".join(
               f"[{k}] {1e3 * v:.3f} ms" for k, v in med.items()))
     return med, launches
 
@@ -1752,23 +1737,20 @@ def msdt_holdout_medians(name, order):
     return med
 
 
-def run_cli_run(pp, first, maxiter, *extra):
-    """``run -pp pp`` through the CLI at 512^3 rank 10, f32, under
-    use_kernels_first = ``first``, -profile 1; checks the CSV. Returns
-    (phase stats, every kernel's launches)."""
-    from pairwise_perturbation_tpu_torch import cli, config
+def run_cli_run(pp, maxiter, *extra):
+    """``run -pp pp`` through the CLI at 512^3 rank 10, f32, -profile 1;
+    checks the CSV. Returns (phase stats, every kernel's launches)."""
+    from pairwise_perturbation_tpu_torch import cli
     from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
-    label = f"run -pp {pp} 512^3 f32 use_kernels_first={first}"
+    label = f"run -pp {pp} 512^3 f32"
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "run_512.csv")
         tracing.reset()
         _bench.reset_launch_counts()
-        with config.override(use_kernels_first=first):
-            rc = cli.main(RUN_512 + ["-pp", str(pp), "-maxiter",
-                                     str(maxiter), "-resprint", "2",
-                                     "-profile", "1", "-quiet", "-filename",
-                                     out, *extra])
+        rc = cli.main(RUN_512 + ["-pp", str(pp), "-maxiter", str(maxiter),
+                                 "-resprint", "2", "-profile", "1", "-quiet",
+                                 "-filename", out, *extra])
         counts = _bench.launch_counts()
         with open(out) as fh:
             rows = list(csv.reader(fh))
@@ -1781,12 +1763,11 @@ def run_cli_run(pp, first, maxiter, *extra):
 
 def run_512_optimizers():
     """Phase 8 at 512^3: Simple (K1-K3 once a step, in dtime, and once,
-    once and twice a diagnostics row), then MSDT with use_kernels_first
-    off and on (on a card K4 once a step whose hold-out is mode 0 or 1,
-    either way).
+    once and twice a diagnostics row), then MSDT (on a card K4 once a
+    step whose hold-out is mode 0 or 1).
     Returns ({kernel id: launches}, {label: (scope, median s)})."""
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
-    stats, counts = run_cli_run(4, False, 8)
+    stats, counts = run_cli_run(4, 8)
     _, steps, med = step_scope(stats)
     rows = stats["cp.diagnostics"][0]
     k = [counts[f"mttkrp3.{m}"] for m in range(3)]
@@ -1797,21 +1778,18 @@ def run_512_optimizers():
                              "step and 1/1/2 a diagnostics row")
     launches = {f"K{m + 1}": n for m, n in enumerate(k)}
     medians = {"Simple 512^3": ("CPSimpleOptimizer.step", med)}
-    launches["K4"] = 0
-    for first in (False, True):
-        stats, counts = run_cli_run(1, first, 6)
-        name, steps, med = step_scope(stats)
-        n = counts["mid_contract.rank_minor"]
-        want = sum(1 for h in msdt_holdouts(3, steps) if h in (0, 1))
-        print(f"MSDT use_kernels_first={first}: {steps} steps, K4 launches "
-              f"{n} (expected {want}), step median {1e3 * med:.3f} ms")
-        msdt_holdout_medians(name, 3)
-        if n != want or n == 0 or \
-                n != first_level_route(stats, f"MSDT first={first}"):
-            raise AssertionError("K4 launches differ from the MSDT steps "
-                                 "whose hold-out is mode 0 or 1")
-        launches["K4"] += n
-        medians[f"MSDT 512^3 first={first}"] = (name, med)
+    stats, counts = run_cli_run(1, 6)
+    name, steps, med = step_scope(stats)
+    n = counts["mid_contract.rank_minor"]
+    want = sum(1 for h in msdt_holdouts(3, steps) if h in (0, 1))
+    print(f"MSDT: {steps} steps, K4 launches {n} (expected {want}), step "
+          f"median {1e3 * med:.3f} ms")
+    msdt_holdout_medians(name, 3)
+    if n != want or n == 0 or n != first_level_route(stats, "MSDT"):
+        raise AssertionError("K4 launches differ from the MSDT steps "
+                             "whose hold-out is mode 0 or 1")
+    launches["K4"] = n
+    medians["MSDT 512^3"] = (name, med)
     if mid_contract.LAUNCHES["rank_major"]:
         raise AssertionError("K4' launched on the run path")
     return launches, medians
@@ -1820,28 +1798,26 @@ def run_512_optimizers():
 def run_coil_optimizers():
     """Phase 8 at the coil shape, f32, rank 10, through ``cli.run_cpd``
     (the body of ``run``; the CLI makes cubic tensors only): DT, MSDT,
-    DT-LR and MSDT-LR a few sweeps each, MSDT with -device_loop 1 (a
-    rotation a step), and MSDT under use_kernels_first. On a card K4
-    serves every first contraction of V over a non-minor mode in each
-    run (chain tops, the LR refreshes, the diagnostics rows' MTTKRPs),
-    as many as the first-level route counts. Returns (K4 launches,
-    {label: (scope, median s)})."""
+    DT-LR and MSDT-LR a few sweeps each, and MSDT with -device_loop 1 (a
+    rotation a step). On a card K4 serves every first contraction of V
+    over a non-minor mode in each run (chain tops, the LR refreshes, the
+    diagnostics rows' MTTKRPs), as many as the first-level route counts.
+    Returns (K4 launches, {label: (scope, median s)})."""
     import torch
-    from pairwise_perturbation_tpu_torch import cli, config
+    from pairwise_perturbation_tpu_torch import cli
     from pairwise_perturbation_tpu_torch.models import cp
     from pairwise_perturbation_tpu_torch.scripts import _bench
     from pairwise_perturbation_tpu_torch.utils import tracing
     from pairwise_perturbation_tpu_torch.utils.metrics import PlotFile
     gen = torch.Generator(device="cuda").manual_seed(0)
     V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
-    runs = [(0, False, False, 3), (1, False, False, 3), (2, False, False, 3),
-            (3, False, False, 3), (1, False, True, 6), (1, True, False, 6)]
+    runs = [(0, False, 3), (1, False, 3), (2, False, 3), (3, False, 3),
+            (1, True, 6)]
     k4 = 0
     medians = {}
-    for pp, first, macro, maxiter in runs:
+    for pp, macro, maxiter in runs:
         label = (f"coil {cli.RUN_OPTIMIZERS[pp]}"
-                 + (" -device_loop 1" if macro else "")
-                 + (" use_kernels_first" if first else ""))
+                 + (" -device_loop 1" if macro else ""))
         Ws = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
         tracing.reset()
         _bench.reset_launch_counts()
@@ -1851,9 +1827,8 @@ def run_coil_optimizers():
             out = os.path.join(tmp, "run_coil.csv")
             plot = PlotFile(out, echo=False)
             try:
-                with config.override(use_kernels_first=first):
-                    cli.run_cpd(V, Ws, pp, tol=0.0, maxiter=maxiter,
-                                resprint=1, macro=macro, plot=plot)
+                cli.run_cpd(V, Ws, pp, tol=0.0, maxiter=maxiter,
+                            resprint=1, macro=macro, plot=plot)
                 torch.cuda.synchronize()
             finally:
                 plot.close()
@@ -3643,8 +3618,8 @@ def run_dense_cli(b, tmp, smi):
         raise AssertionError(f"12d pp_bench -mesh 2 CSV: {rows}")
     med = {kd: statistics.median(float(r[1]) for r in rows[1:]
                                  if r[0] == f"[{kd}]") for kd in BENCH_KINDS}
-    print(f"12d pp_bench 512^3 f32 -mesh 2 use_kernels_first ({smi}), rank "
-          "0's rows: medians " + ", ".join(
+    print(f"12d pp_bench 512^3 f32 -mesh 2 ({smi}), rank 0's rows: "
+          "medians " + ", ".join(
               f"[{kd}] {1e3 * v:.3f} ms" for kd, v in med.items()))
     for r, res in enumerate(b):
         k4 = json.loads(str(res["cli_launches"]))[2]["mid_contract.rank_minor"]
@@ -3696,8 +3671,8 @@ def run_phase12(smi):
         run_dense_tucker(a, Vt, smi)
         del a
         phase("12c-d. test_als -model CP -pp 1 -mesh 2 at 200^3 (f64, f32) "
-              "and pp_bench -model CP -mesh 2 at 512^3 (use_kernels_first) "
-              "through cli.main in one cluster")
+              "and pp_bench -model CP -mesh 2 at 512^3 through cli.main in "
+              "one cluster")
         argv = [DENSE_CLI + ["-dtype", d, "-mesh", "2", "-quiet",
                              "-filename",
                              os.path.join(tmp, f"cli200_{d}_mesh.csv")]
@@ -3705,8 +3680,7 @@ def run_phase12(smi):
         argv.append(PP_BENCH_ARGS + ["-mesh", "2", "-quiet", "-filename",
                                      os.path.join(tmp, "bench512_mesh.csv")])
         b_in = os.path.join(tmp, "b.npz")
-        np.savez(b_in, cli_argv=json.dumps(argv), cli_config=json.dumps(
-            [{}, {}, dict(use_kernels_first=True)]))
+        np.savez(b_in, cli_argv=json.dumps(argv))
         run_mesh_cluster(MESH_RANKS, WORKER + [
             "--inputs", b_in, "--outdir", os.path.join(tmp, "b"),
             "--tasks", "cli"], "cluster B (dense CLI)")
@@ -3746,13 +3720,12 @@ def run_phase12(smi):
 
 # 13a: the chain optimizers through cli.run_cpd on each rank's block of
 # the coil tensor (phase 5's seeded uniform tensor, V sharded over mode 3,
-# 3600 a rank), f64 and f32; MSDT under use_kernels_first. On a card K4
-# serves every float32 first contraction of V over a non-minor mode, as
-# the first-level route counts it, and none in float64.
+# 3600 a rank), f64 and f32. On a card K4 serves every float32 first
+# contraction of V over a non-minor mode, as the first-level route counts
+# it, and none in float64.
 RUN_MESH_SPECS = [
     dict(tag="dt", pp=0, maxiter=3, resprint=2),
-    dict(tag="msdt", pp=1, maxiter=3, resprint=2,
-         config=dict(use_kernels_first=True)),
+    dict(tag="msdt", pp=1, maxiter=3, resprint=2),
     dict(tag="dtlr", pp=2, maxiter=4, resprint=2),
     dict(tag="msdtlr", pp=3, maxiter=4, resprint=2)]
 # float64 factors against one process's: round-off of the blocks' sums in
@@ -3933,9 +3906,9 @@ def run_phase13(smi):
                          device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         phase("13a-b. run -mesh 2, two ranks over gloo on one card: DT, "
-              "MSDT (use_kernels_first), DT-LR and MSDT-LR at the coil "
-              "shape through cli.run_cpd, f64 and f32; the CLI's Simple at "
-              "512^3 and -device_loop 1 at 200^3")
+              "MSDT, DT-LR and MSDT-LR at the coil shape through "
+              "cli.run_cpd, f64 and f32; the CLI's Simple at 512^3 and "
+              "-device_loop 1 at 200^3")
         inputs = os.path.join(tmp, "in.npz")
         d = dict(dd_mesh=np.asarray([MESH_RANKS]),
                  dr_vfile=os.path.join(tmp, "coil.npy"),
@@ -4688,7 +4661,7 @@ def run_phase15(smi):
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: dtime's warm-ups (C12), the device engines under -mesh, -layouts
+# Phase 16: dtime's warm-ups (C12), the device engines under -mesh
 # ---------------------------------------------------------------------------
 
 # 16a: each run in a fresh process, with the engines' warm-ups
@@ -4764,13 +4737,6 @@ DL_MESH_COIL_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
 DL_MESH_TK_CFG = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1)
 DL_ENGINES = {"dcl1": "als_cp_pp_device", "dcl2": "als_cp_pp_fused",
               "dtl1": "als_tucker_pp_device", "dtl2": "als_tucker_pp_fused"}
-# 16c: layouts off, then on; each run's last diffV within this of the off
-# run's (float32; the copies change the order of no sum, but a contraction
-# over a copy may round in another order).
-LAYOUTS_DIFFV = 1e-3
-LAYOUTS_512 = ["test_als", "-model", "CP", "-tensor", "r", "-dim", "3",
-               "-size", "512", "-rank", "10", "-maxiter", "12",
-               "-resprint", "1", "-pp_res_tol", "0.1"]
 
 
 def c12_steps(rows):
@@ -5042,122 +5008,8 @@ def run_dl_mesh(tmp, smi):
     return launches
 
 
-def layouts_run(label, fn, smi):
-    """One -layouts run: ``fn()`` -> (rows [iter, pp, diffV], DT sweep
-    samples s) under the scopes, with the card's peak memory."""
-    import torch
-    from pairwise_perturbation_tpu_torch.utils import tracing
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tracing.reset()
-    tracing.enable()
-    try:
-        rows, scope = fn()
-    finally:
-        tracing.enable(False)
-    samples = tracing.samples(scope)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    med = statistics.median(samples[1:] or samples)
-    print(f"16c {label} ({smi}): {len(rows)} rows, last diffV "
-          f"{rows[-1][2]!r}; {scope} median {1e3 * med:.3f} ms "
-          f"({len(samples)} calls); peak memory {peak:.2f} GiB")
-    return rows, med, peak
-
-
-def layouts_copy_ms(label, V, Ws, split, layouts, smi):
-    """Device ms of one DT sweep and of its copy kernels (torch.profiler,
-    device events only)."""
-    from pairwise_perturbation_tpu_torch import phase_profile
-    from pairwise_perturbation_tpu_torch.models import cp
-    busy, per = phase_profile.profile(lambda: cp.dt_sweep(
-        V, Ws, 0.0, root_split=split, layouts=layouts), "cuda", 5)
-    copy = sum(v for k, v in per.items() if "copy" in k.lower())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
-    print(f"16c {label} DT sweep ({smi}): device {busy:.3f} ms, copy "
-          f"kernels {copy:.3f} ms ({100 * copy / busy:.1f}%); top kernels "
-          + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top))
-    return busy, copy
-
-
-def run_layouts(tmp, smi):
-    """16c: test_als -pp 0 and -pp 1 -device_loop 2 at the coil shape and
-    at 512^3, f32, -layouts 0 then 1: DT sweep medians, the copy kernels'
-    device ms, peak memory; each layouts-on run held to its off run by
-    the last diffV."""
-    import torch
-    from pairwise_perturbation_tpu_torch import native
-    from pairwise_perturbation_tpu_torch.models import cp
-    from pairwise_perturbation_tpu_torch.ops import contract
-    failures = []
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    V = torch.rand(COIL_SHAPE, generator=gen, device="cuda")
-    split = native.plan_tree_split_traffic(COIL_SHAPE, 10)[0]
-    W0 = cp.init_factors(COIL_SHAPE, 10, seed=0, device="cuda")
-    modes = contract.chain_root_modes_dt(COIL_SHAPE, split)
-    print(f"16c coil: tree split {split}, DT chain roots {modes}, PP chain "
-          f"roots {contract.chain_root_modes_pp(COIL_SHAPE)}; a copy of V "
-          f"is {V.numel() * 4 / 2**30:.2f} GiB")
-    layouts_copy_ms("coil layouts off", V, W0, split, None, smi)
-    copies = contract.prepare_layouts(V, modes)
-    layouts_copy_ms("coil layouts on", V, W0, split, copies, smi)
-    del copies     # the runs below make their own and report the peak
-    for engine, scope in (("als_cp_dt", "cp.sweep"),
-                          ("als_cp_pp_fused", "cp.fused_dt_step")):
-        got = {}
-        for on in (False, True):
-            cfg = cp.CPConfig(tol=0.0, pp_res_tol=0.1, maxiter=12,
-                              resprint=1, tree_split=split,
-                              precompute_layouts=on)
-
-            def fn():
-                res = getattr(cp, engine)(V, [W.clone() for W in W0], cfg)
-                return ([[h["iter"], h["pp"], h["diffV"]]
-                         for h in res.history], scope)
-            got[on] = layouts_run(f"coil {engine} layouts {int(on)}", fn,
-                                  smi)
-        a, b = got[True][0][-1][2], got[False][0][-1][2]
-        print(f"16c coil {engine}: DT median {1e3 * got[False][1]:.3f} -> "
-              f"{1e3 * got[True][1]:.3f} ms, peak {got[False][2]:.2f} -> "
-              f"{got[True][2]:.2f} GiB, last diffV {abs(a - b) / b:.3e} "
-              f"apart (tol {LAYOUTS_DIFFV})")
-        if not abs(a - b) <= LAYOUTS_DIFFV * b:
-            failures.append(f"16c coil {engine}: diffV {a} against {b}")
-    del V
-    torch.cuda.empty_cache()
-    for extra, scope in ((["-pp", "0"], "cp.sweep"),
-                         (["-pp", "1", "-device_loop", "2"],
-                          "cp.fused_dt_step")):
-        got = {}
-        for on in ("0", "1"):
-            def fn():
-                rows = cli_csv(LAYOUTS_512 + extra + ["-layouts", on,
-                                                      "-profile", "1"],
-                               os.path.join(tmp, "layouts.csv"))
-                return ([[float(r[1]), float(r[4]), float(r[5])]
-                         for r in rows[1:]], scope)
-            got[on] = layouts_run(f"512^3 {' '.join(extra)} -layouts {on}",
-                                  fn, smi)
-        a, b = got["1"][0][-1][2], got["0"][0][-1][2]
-        print(f"16c 512^3 {' '.join(extra)}: DT median "
-              f"{1e3 * got['0'][1]:.3f} -> {1e3 * got['1'][1]:.3f} ms, peak "
-              f"{got['0'][2]:.2f} -> {got['1'][2]:.2f} GiB, last diffV "
-              f"{abs(a - b) / b:.3e} apart (tol {LAYOUTS_DIFFV})")
-        if not abs(a - b) <= LAYOUTS_DIFFV * b:
-            failures.append(f"16c 512^3 {extra}: diffV {a} against {b}")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    V = torch.rand((512, 512, 512), generator=gen, device="cuda")
-    W5 = cp.init_factors(V.shape, 10, seed=0, device="cuda")
-    layouts_copy_ms("512^3 layouts off", V, W5, None, None, smi)
-    copies = contract.prepare_layouts(V, contract.chain_root_modes_dt(V.shape))
-    layouts_copy_ms("512^3 layouts on", V, W5, None, copies, smi)
-    del V, copies
-    torch.cuda.empty_cache()
-    if failures:
-        raise AssertionError("; ".join(failures))
-
-
 def run_phase16(smi):
-    """Phase 16 (16a-16c); returns {kernel id: launches}."""
+    """Phase 16 (16a-16b); returns {kernel id: launches}."""
     t_phase = time.perf_counter()
     phase("16a. C12: the first DT step of a fresh process against the "
           "later DT steps, warm-ups on and off, f32")
@@ -5166,17 +5018,13 @@ def run_phase16(smi):
           "on one card: CP -device_loop 1 and 2 at 200^3 (f64, f32)")
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_dl_mesh(tmp, smi)
-    phase("16c. -layouts 1: mode-minor copies of V, coil and 512^3 f32, "
-          "off then on")
-    with tempfile.TemporaryDirectory() as tmp:
-        run_layouts(tmp, smi)
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
 
 
 # Rows of the table on the port's paths that this slice drives (the CLI
-# main path, its 512^3 run with use_kernels_first, and the benchmark
-# scripts); K6 serves the coil PP path and K7 the sparse path.
+# main path, its 512^3 runs, and the benchmark scripts); K6 serves the
+# coil PP path and K7 the sparse path.
 OFF_SLICE_PATH = ("K6", "K7")
 
 
@@ -5221,8 +5069,8 @@ def main(argv=None) -> int:
                          "dense engines on a block-sharded V, 13 for run "
                          "-mesh, 14 for test_als -device_loop 1, 15 "
                          "for -device_loop 2, Tucker's device engines and "
-                         "bench_pp_e2e, 16 for dtime's warm-ups, the device "
-                         "engines under -mesh and -layouts 1)"
+                         "bench_pp_e2e, 16 for dtime's warm-ups and the "
+                         "device engines under -mesh)"
                          " and print their rows as one JSON line, without "
                          "the ok line: for timing two trees' kernels on one "
                          "card, run from the root of each in turns")
@@ -5263,37 +5111,32 @@ def main(argv=None) -> int:
     phase("4. CLI test_als -model CP -pp 1, 200^3 rank 10")
     for m, n in run_cli_main_path().items():
         launches[f"K{m + 1}"] = n
-    phase("4b. CLI at 512^3 rank 10, f32 and bf16, use_kernels_first off "
-          "then on")
+    phase("4b. CLI at 512^3 rank 10, f32 and bf16")
     # warm-up: the first calls at this shape and dtype, untimed, so that
-    # neither side of the off/on pairs below carries them
+    # the timed runs below do not carry them
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         for d in ("float32", "bfloat16"):
-            for first in (False, True):
-                if cli_512(d, first, 3, os.path.join(tmp, "warm.csv")) != 0:
-                    raise AssertionError("512^3 warm-up run failed")
-    print(f"warm-up runs (4 x 3 sweeps): {time.perf_counter() - t0:.3f} s")
+            if cli_512(d, 3, os.path.join(tmp, "warm.csv")) != 0:
+                raise AssertionError("512^3 warm-up run failed")
+    print(f"warm-up runs (2 x 3 sweeps): {time.perf_counter() - t0:.3f} s")
     launches["K4"] = major_512 = 0
     for d in ("float32", "bfloat16"):
-        off = run_cli_512(d, first=False)[0]
-        _, minor, major = run_cli_512(d, first=True, beside=off)
+        _, minor, major = run_cli_512(d)
         launches["K4"] += minor
         major_512 += major
     if major_512 != 0:
         raise AssertionError("K4' (rank-major) launched on the 512^3 path, "
                              "which has no caller of it")
-    phase("4c. pp_bench -model CP at 512^3 rank 10, f32, use_kernels_first "
-          "off, on, on, off")
-    bench = {False: [], True: []}
-    for first in (False, True, True, False):
-        med, n = run_pp_bench(first)
-        bench[first].append(med)
+    phase("4c. pp_bench -model CP at 512^3 rank 10, f32, twice")
+    bench = []
+    for _ in range(2):
+        med, n = run_pp_bench()
+        bench.append(med)
         launches["K4"] += n
-    print(f"pp_bench medians, ms (off: runs 1, 4; on: runs 2, 3), {smi}: "
-          + "; ".join(f"[{k}] off " + ", ".join(
-              f"{1e3 * m[k]:.3f}" for m in bench[False]) + " on " + ", ".join(
-              f"{1e3 * m[k]:.3f}" for m in bench[True]) for k in BENCH_KINDS))
+    print(f"pp_bench medians, ms (runs 1, 2), {smi}: " + "; ".join(
+        f"[{k}] " + ", ".join(f"{1e3 * m[k]:.3f}" for m in bench)
+        for k in BENCH_KINDS))
     phase("5. order-4 CP-PP at the coil-100 shape")
     off = {d: run_coil_order4(d)[0] for d in ("float32", "bfloat16")}
     phase("5b. coil-100 shape under use_kernels_triple, f32 and bf16")
@@ -5318,9 +5161,8 @@ def main(argv=None) -> int:
     run_sparse_repeat(off)
     phase("7. the ported benchmark scripts at the coil-100 shape, rank 10")
     launches.update(run_scripts())
-    phase("8. run -pp 4 (Simple) and -pp 1 (MSDT, use_kernels_first off and "
-          "on) at 512^3; run -pp 0-3, -device_loop 1 and MSDT with "
-          "use_kernels_first at the coil-100 shape; f32, rank 10")
+    phase("8. run -pp 4 (Simple) and -pp 1 (MSDT) at 512^3; run -pp 0-3 "
+          "and -device_loop 1 at the coil-100 shape; f32, rank 10")
     run_launches, medians = run_512_optimizers()
     k4, coil_medians = run_coil_optimizers()
     run_launches["K4"] += k4

@@ -60,10 +60,11 @@ for time-lapse; its checkpoints are written back in the natural order, so
 core) to PATH.npz; ``-resume PATH`` starts dense CP test_als from a
 checkpoint's factors, the only path where the JAX package reads it.
 ``-profile 1 -trace_dir DIR`` also writes a torch.profiler trace of the
-command to DIR (utils/tracing.device_trace). ``-layouts 1`` makes
-mode-minor copies of V for dense CP ``test_als -pp 0`` and ``-pp 1
--device_loop 1`` or ``2`` (``CPConfig.precompute_layouts``). A flag
-that the JAX package ignores on a path is refused there, saying so.
+command to DIR (utils/tracing.device_trace). ``-layouts 1`` is accepted
+where the JAX package reads it (dense CP ``test_als -pp 0`` and ``-pp 1
+-device_loop 1`` or ``2``) and builds nothing: on a card the mid_contract
+kernel reads V in place. A flag that the JAX package ignores on a path is
+refused there, saying so.
 
 ``-mesh N`` (or ``AxB``) runs ``test_als`` and ``pp_bench`` over a mesh
 of ranks (parallel/mesh.py), one process per rank, started by torchrun;
@@ -127,9 +128,9 @@ def _device_loop_refusal(args, cmd):
 
 def _layouts_refusal(args, cmd):
     """Why ``-layouts 1`` is refused, or None: the JAX package reads it
-    (CPConfig.precompute_layouts) only in dense CP test_als with -pp 0
-    (DT-ALS) and with -pp 1 -device_loop 1 or 2 (the device engines), and
-    ignores it everywhere else."""
+    only in dense CP test_als with -pp 0 (DT-ALS) and with -pp 1
+    -device_loop 1 or 2 (the device engines), and ignores it everywhere
+    else."""
     if not args.layouts:
         return None
     if cmd == "test_als" and args.model == "CP" and not args.issparse:
@@ -598,8 +599,7 @@ def cmd_test_als(args) -> int:
                       maxiter=args.maxiter, timelimit=args.timelimit,
                       resprint=args.resprint,
                       update_percentage=args.update_percentage_pp,
-                      tree_split=split, mesh_layout=layout,
-                      precompute_layouts=bool(args.layouts))
+                      tree_split=split, mesh_layout=layout)
     res = _solved(solve, _plot(args, PlotFile.CP_HEADER), X,
                   _sharded_factors(Ws, layout), cfg, **kw)
     _save_checkpoint(args, _unsharded(res, layout), "CP")

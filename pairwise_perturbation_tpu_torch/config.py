@@ -27,15 +27,9 @@ class NumericConfig:
     # Route order-3 f32 MTTKRPs on CUDA tensors to the hand-written kernel
     # (ops/kernels/mttkrp3.py); the counterpart of ``use_pallas``.
     use_kernels: bool = True
-    # Route single-mode, non-minor first-level contractions
-    # (contract.first_contraction) that the JAX package's
-    # ``mid_contract_eligible`` admits to the mid_contract kernel module
-    # (ops/kernels/mid_contract.py), on any device; the counterpart of
-    # ``use_pallas_first``, off by default as there. On a card the kernel
-    # takes every non-minor first-level contraction of V it admits
-    # without waiting for this (contract._kernel_first); what the flag
-    # changes is the CPU's route, where the module runs its plain version.
-    use_kernels_first: bool = False
+    # No flag routes the first contraction of V (the JAX package's
+    # ``use_pallas_first``): on a card the mid_contract kernel takes every
+    # non-minor one it admits (contract._kernel_first), the CPU the einsum.
     # Compute the PP cache build's three chain roots of an eligible order-4
     # V in one read (ops/kernels/triple_roots.py); the counterpart of
     # ``use_pallas_triple``, off by default as there.

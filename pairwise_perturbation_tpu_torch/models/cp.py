@@ -93,9 +93,9 @@ class CPConfig:
     # ShardedLayout of a -mesh run (parallel/mesh.plan_layout): V and the
     # factors are this rank's blocks; None = unsharded.
     mesh_layout: object = None
-    # Mode-minor copies of V (contract.prepare_layouts) for the DT tree's
-    # and the PP caches' chain roots, made once before the loop; read by
-    # als_cp_dt and the device engines, as in the JAX package (-layouts 1).
+    # The JAX package's mode-minor copies of V (-layouts 1). Nothing reads
+    # it: on a card the mid_contract kernel reads V in place. Kept because
+    # the benchmark harness (benchmark/engine.py) still passes it.
     precompute_layouts: bool = False
 
 
@@ -115,20 +115,18 @@ class CPResult:
 
 
 def dt_sweep(V, Ws, lam, rcond=None, *, solver: str = "svd",
-             normalize: bool = True, root_split: int = None, layout=None,
-             layouts=None):
+             normalize: bool = True, root_split: int = None, layout=None):
     """One full DT-ALS sweep: per-mode MTTKRP from the binary dimension tree,
     S assembly, gradient, solve. Returns (Ws_new, grads).
 
     Mirrors the per-iteration body of alsCP_DT (als_CP.cxx:215-303),
     including cache freshness: tree nodes are built on first use and reused
     for later modes even after earlier factors updated. ``layout``: V and
-    Ws are this rank's blocks; the grads are row blocks. ``layouts``:
-    mode-minor copies of V for the tree's first contractions.
+    Ws are this rank's blocks; the grads are row blocks.
     """
     order = V.ndim
     sweep = dimtree.BinaryTreeSweep(V, Ws, root_split=root_split,
-                                    layout=layout, layouts=layouts)
+                                    layout=layout)
     grads = [None] * order
     for i in range(order):
         M = sweep.mttkrp(i)
@@ -160,15 +158,14 @@ def simple_sweep(V, Ws, lam, rcond=None, *, solver: str = "svd",
     return Ws, grads
 
 
-def pp_build_caches(V, Ws, layout=None, layouts=None):
+def pp_build_caches(V, Ws, layout=None):
     """Build PP pair + single caches (als_CP.cxx:667-695); under
     ``layout`` through parallel/mesh.constrained_pp_caches (JAX
     cp.py:537-591), each cache summed over the sharded modes it
-    contracted. ``layouts``: mode-minor copies of V for the chain roots
-    (K6 then serves none of them)."""
+    contracted."""
     if layout is not None:
-        return pmesh.constrained_pp_caches(V, Ws, layout, layouts)
-    return contract.build_pp_caches(V, Ws, layouts=layouts)
+        return pmesh.constrained_pp_caches(V, Ws, layout)
+    return contract.build_pp_caches(V, Ws)
 
 
 def pp_sweep(single, pair, Ws, W_init, dWs, lam, ratio_step, rcond=None,
@@ -367,18 +364,6 @@ def _paused_call(fn, *args, **kwargs):
     return out
 
 
-def _root_modes(V, cfg: CPConfig, pp: bool):
-    """The modes whose mode-minor copies ``-layouts 1`` makes: the DT
-    tree's chain roots, and with ``pp`` the PP caches' too (JAX
-    cp.py:445-452, 916-921), planned on the padded global shape under
-    -mesh."""
-    shape = contract.plan_shape(V, cfg.mesh_layout)
-    modes = set(contract.chain_root_modes_dt(shape, cfg.tree_split))
-    if pp:
-        modes |= set(contract.chain_root_modes_pp(shape))
-    return sorted(modes)
-
-
 def _diag_and_log(V_norm_sq, V, Ws, lam, clock, plot, it, tol, pp_flag,
                   history, layout=None):
     """Run EXACT diagnostics with excluded time, log a CSV row, return
@@ -412,37 +397,24 @@ def als_cp(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None) -> CPResult:
 
 def als_cp_dt(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
               clock: Optional[SweepClock] = None) -> CPResult:
-    """DT-ALS. Reference: alsCP_DT (als_CP.cxx:127-320). With
-    ``cfg.precompute_layouts`` the tree's chain roots read mode-minor
-    copies of V, made before the loop in excluded time."""
-    layouts = {}
-
+    """DT-ALS. Reference: alsCP_DT (als_CP.cxx:127-320)."""
     def sweep_fn(V, Ws, lam, rcond, solver):
         return dt_sweep(V, Ws, lam, rcond, solver=solver,
-                        root_split=cfg.tree_split, layout=cfg.mesh_layout,
-                        layouts=layouts.get("V"))
-
-    def setup():
-        if cfg.precompute_layouts:
-            layouts["V"] = contract.prepare_layouts(
-                V, _root_modes(V, cfg, pp=False))
-    return _als_generic(V, Ws, cfg, plot, sweep_fn=sweep_fn, clock=clock,
-                        setup=setup)
+                        root_split=cfg.tree_split, layout=cfg.mesh_layout)
+    return _als_generic(V, Ws, cfg, plot, sweep_fn=sweep_fn, clock=clock)
 
 
 @tracing.span("cp.fit")
-def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn, clock=None,
-                 setup=None) -> CPResult:
-    """The loop of :func:`als_cp` and :func:`als_cp_dt`: ``setup()`` and
-    one warm sweep (:func:`warm_run`, JAX cp.py:460-461) in excluded
-    time, then sweeps with a logged row every ``resprint``. The whole
-    solve is the span ``cp.fit``."""
+def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn,
+                 clock=None) -> CPResult:
+    """The loop of :func:`als_cp` and :func:`als_cp_dt`: one warm sweep
+    (:func:`warm_run`, JAX cp.py:460-461) in excluded time, then sweeps
+    with a logged row every ``resprint``. The whole solve is the span
+    ``cp.fit``."""
     Ws = list(Ws)
     V_norm_sq = contract.norm_sq(V, cfg.mesh_layout)
     clock = clock or SweepClock()
     with clock.exclude():
-        if setup is not None:
-            setup()
         warm_run(sweep_fn, V, Ws, cfg.lam, cfg.rcond, solver=cfg.solver)
     history: list = []
     gn, diffV = float("inf"), float("inf")
@@ -876,7 +848,7 @@ def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
                     log_mark=-1, *, solver: str = "svd",
                     max_sweeps: int = 256, resprint: int = 0,
                     root_split: int = None, n_slots: int = 0, layout=None,
-                    layouts=None, V_norm_sq=None):
+                    V_norm_sq=None):
     """DT sweeps with their loop on the device until every mode is quiet
     (||dW||/||W|| < tol_init, alsCP_DT_sub:594-605), the gradnorm
     estimate falls below gn_tol, or ``it_budget`` sweeps ran (JAX
@@ -891,8 +863,8 @@ def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
 
     ``layout`` (-mesh): V and Ws are this rank's blocks; the flag is
     computed from all-reduced values, so every rank issues the same
-    sweeps, and the ring holds this rank's blocks. ``layouts``: mode-minor
-    copies of V. ``V_norm_sq``: ||V||^2 if known (else computed)."""
+    sweeps, and the ring holds this rank's blocks. ``V_norm_sq``: ||V||^2
+    if known (else computed)."""
     if V_norm_sq is None:
         V_norm_sq = contract.norm_sq(V, layout)
     st, snaps, labels = _loop_state(
@@ -902,8 +874,7 @@ def dt_phase_device(V, Ws, lam, tol_init, gn_tol, it_budget: int, it0=0,
     def sweep(j):
         on = st["on"]
         Ws2, grads = dt_sweep(V, st["Ws"], lam, solver=solver,
-                              root_split=root_split, layout=layout,
-                              layouts=layouts)
+                              root_split=root_split, layout=layout)
         dWs2 = [a - b for a, b in zip(Ws2, st["W_prev"])]
         quiet2 = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2, layout))
                            < tol_init)
@@ -923,7 +894,7 @@ def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
                     it_budget: int, it0=0, log_mark=-1, gn_guard=10.0, *,
                     solver: str = "svd", max_sweeps: int = 15,
                     resprint: int = 0, n_slots: int = 0, layout=None,
-                    layouts=None, V_norm_sq=None):
+                    V_norm_sq=None):
     """Build the PP caches (:func:`pp_build_caches`: K6, with K5 as its
     O3, under ``use_kernels_triple``), then PP sweeps with their loop on
     the device until the restart tolerance trips (any ||dW||/||W|| >
@@ -934,13 +905,13 @@ def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
     gn_guard x the phase's running minimum, or whose largest ratio passes
     max(5 tol_init, 0.5), is reverted (factors, dWs, gn, diffV) and ends
     the phase. Logging as :func:`dt_phase_device`; ``hist`` holds
-    :func:`_pp_sweep_norm_stats`' estimates; ``layout``, ``layouts`` and
-    ``V_norm_sq`` as there (the build is the constrained one). Returns
+    :func:`_pp_sweep_norm_stats`' estimates; ``layout`` and ``V_norm_sq``
+    as there (the build is the constrained one). Returns
     (n_sweeps, Ws, dWs, gn, hist, snaps, labels, count)."""
     if V_norm_sq is None:
         V_norm_sq = contract.norm_sq(V, layout)
     single, pair = tracing.timed("cp.pp_cache_build", pp_build_caches, V,
-                                 list(Ws), layout, layouts)
+                                 list(Ws), layout)
     W_init = list(Ws)
     bound = max(_in_dtype(5.0 * tol_init, V.dtype), 0.5)
     st, snaps, labels = _loop_state(Ws, max_sweeps, n_slots)
@@ -977,14 +948,14 @@ def pp_phase_device(V, Ws, lam, ratio_step, tol_init, gn_tol,
 
 
 def _warm_phases(V, V_norm_sq, Ws, lam, ratio_step, *, solver, root_split,
-                 layout, layouts):
+                 layout):
     """Each function the phase loops' sweeps call, once, on the initial
     factors; the results are discarded."""
     Ws2, grads = dt_sweep(V, Ws, lam, solver=solver, root_split=root_split,
-                          layout=layout, layouts=layouts)
+                          layout=layout)
     factor_norm_ratios(Ws2, Ws2, layout)
     _sweep_norm_stats(V_norm_sq, Ws2, grads, lam, layout)
-    single, pair = pp_build_caches(V, Ws, layout, layouts)
+    single, pair = pp_build_caches(V, Ws, layout)
     Ws3, dWs3, grads = pp_sweep(single, pair, Ws, Ws,
                                 [torch.zeros_like(W) for W in Ws], lam,
                                 ratio_step, solver=solver, layout=layout)
@@ -1005,8 +976,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     the estimates. lam and the tolerances are rounded to V's dtype, as
     the JAX engine's scalars are; no ``rcond`` is passed on, as there.
 
-    Before the first phase the engine makes the mode-minor copies of
-    ``cfg.precompute_layouts`` and runs each function the phases call
+    Before the first phase the engine runs each function the phases call
     once on the initial factors (:func:`warm_run`), then restarts the
     clock (JAX cp.py:916-940: zero-budget phases compile there). Under
     ``cfg.mesh_layout`` V and Ws are this rank's blocks, every flag the
@@ -1024,11 +994,8 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     gn_tol = _in_dtype(cfg.tol, V.dtype)
     gn_guard = _in_dtype(cfg.gn_guard, Ws[0].dtype)
     V_norm_sq = contract.norm_sq(V, layout)
-    layouts = contract.prepare_layouts(V, _root_modes(V, cfg, pp=True)) \
-        if cfg.precompute_layouts else None
     warm_run(_warm_phases, V, V_norm_sq, Ws, lam, cfg.ratio_step,
-             solver=cfg.solver, root_split=cfg.tree_split, layout=layout,
-             layouts=layouts)
+             solver=cfg.solver, root_split=cfg.tree_split, layout=layout)
     clock.reset()
     history: list = []
     it = 0
@@ -1037,7 +1004,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     n_slots = (cfg.maxiter // max(cfg.resprint, 1)) + 3
     mark = cfg.maxiter
     common = dict(solver=cfg.solver, resprint=cfg.resprint, n_slots=n_slots,
-                  layout=layout, layouts=layouts, V_norm_sq=V_norm_sq)
+                  layout=layout, V_norm_sq=V_norm_sq)
 
     def now():
         return pmesh.agreed_dtime(clock, mesh, V.device)
@@ -1198,8 +1165,7 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
                    gn_guard=0.0, rcond=None, *, solver: str = "svd",
                    chunk: int = FUSED_CHUNK, resprint: int = 10,
                    pp_cap: int = 15, root_split: int = None,
-                   n_slots: int = 0, V_norm_sq=None, layout=None,
-                   layouts=None):
+                   n_slots: int = 0, V_norm_sq=None, layout=None):
     """Advance the fused machine by up to ``chunk`` body steps, or to the
     stop (JAX cp.py:1064-1222); returns the carry, updated in place.
 
@@ -1216,10 +1182,9 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
     The run stops at gn < gn_tol or it > maxiter. ``layout`` (-mesh): V
     and the carry's factors are this rank's blocks, the caches the
     constrained ones, and the register is written from all-reduced
-    values, so every rank issues the same steps. ``layouts``: mode-minor
-    copies of V. Scopes ``cp.fused_dt_step``, ``cp.fused_build_step`` and
-    ``cp.fused_pp_step`` time the body steps; DEVICE_LOOP_COUNTS counts
-    them and the pulls."""
+    values, so every rank issues the same steps. Scopes
+    ``cp.fused_dt_step``, ``cp.fused_build_step`` and ``cp.fused_pp_step``
+    time the body steps; DEVICE_LOOP_COUNTS counts them and the pulls."""
     c = carry
     if V_norm_sq is None:
         V_norm_sq = contract.norm_sq(V, layout)
@@ -1228,8 +1193,7 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
 
     def dt_step():
         Ws2, grads = dt_sweep(V, c["Ws"], lam, rcond, solver=solver,
-                              root_split=root_split, layout=layout,
-                              layouts=layouts)
+                              root_split=root_split, layout=layout)
         dWs2 = [a - b for a, b in zip(Ws2, c["W_prev"])]
         quiet = torch.all(torch.abs(factor_norm_ratios(Ws2, dWs2, layout))
                           < tol_init)
@@ -1242,8 +1206,7 @@ def pp_fused_chunk(V, carry, lam, ratio_step, tol_init, gn_tol, maxiter: int,
         _fused_register(c, torch.where(quiet & ~stop2, 1, 0), stop2)
 
     def build_step():
-        c["single"], c["pair"] = pp_build_caches(V, c["Ws"], layout,
-                                                 layouts)
+        c["single"], c["pair"] = pp_build_caches(V, c["Ws"], layout)
         c.update(phase=2, age=0, dWs=[torch.zeros_like(W) for W in c["Ws"]],
                  W_init=list(c["Ws"]), gn_floor=c["gn"])
 
@@ -1317,9 +1280,9 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
     lam, ratio_step, the tolerances, gn_guard and ``cfg.rcond`` (passed
     on, unlike the phase engine) are rounded to the factors' dtype, as
     the JAX engine's scalars are. Before the first chunk, in excluded
-    time: the mode-minor copies of ``cfg.precompute_layouts``, the carry,
-    a warm DT step, cache build and PP step on a carry thrown away, and a
-    warm :func:`cp_diagnostics` (:func:`warm_run`; JAX cp.py:1277-1293).
+    time: the carry, a warm DT step, cache build and PP step on a carry
+    thrown away, and a warm :func:`cp_diagnostics` (:func:`warm_run`; JAX
+    cp.py:1277-1293).
     ``cfg.mesh_layout`` as in :func:`als_cp_pp_device`."""
     Ws = list(Ws)
     clock = clock or SweepClock()
@@ -1349,14 +1312,11 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
         return pmesh.agreed_dtime(clock, mesh, V.device)
 
     with clock.exclude():
-        layouts = contract.prepare_layouts(V, _root_modes(V, cfg, pp=True)) \
-            if cfg.precompute_layouts else None
         chunk_args = (lam, ratio_step, tol_init, gn_tol, cfg.maxiter,
                       gn_guard, rcond)
         chunk_kw = dict(solver=cfg.solver, chunk=chunk, resprint=cfg.resprint,
                         pp_cap=cfg.pp_cache_sweeps, root_split=cfg.tree_split,
-                        n_slots=n_slots, V_norm_sq=V_norm_sq, layout=layout,
-                        layouts=layouts)
+                        n_slots=n_slots, V_norm_sq=V_norm_sq, layout=layout)
         carry = pp_fused_init(V, Ws, max_hist, n_slots)
         warm_run(_warm_fused, V, Ws, chunk_args, chunk_kw)
         warm_run(exact, Ws)

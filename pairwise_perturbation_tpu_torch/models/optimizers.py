@@ -39,7 +39,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pairwise_perturbation_tpu_torch import config
 from pairwise_perturbation_tpu_torch.models import cp, sparse_cp
 from pairwise_perturbation_tpu_torch.ops import contract, dimtree, solve
 from pairwise_perturbation_tpu_torch.ops import sparse
@@ -68,9 +67,8 @@ def chain_top(V, W_left, *, left_index: int, layout=None):
     """First-level contraction V x W[left_index], axes in indexes order +
     rank (mttkrp_map_init, cp_msdt_optimizer.cxx:111-144), through
     :meth:`dimtree.ChainTreeSweep.top` (the mid_contract kernel for a
-    non-minor hold-out on a card, and under ``config.use_kernels_first``
-    for one the JAX package's route admits); for a COO V,
-    one fused-index ``index_add_`` over the nonzeros. ``layout``: of this
+    non-minor hold-out on a card); for a COO V, one fused-index
+    ``index_add_`` over the nonzeros. ``layout``: of this
     rank's block, a partial sum where the hold-out's mode is sharded."""
     order = V.ndim
     if isinstance(V, sparse.SparseTensor):
@@ -142,9 +140,9 @@ def lr_update_cache(V, cache, U, s, VT, *, left_index: int, layout=None):
     first-level contraction (update_cached_tensor,
     cp_dt_lr_optimizer.cxx:128-158 / cp_msdt_lr_optimizer.cxx:112-157),
     O(s^N * update_rank) in place of O(s^N * R). For a dense V the x_left
-    contraction is :func:`contract.first_step` (the mid_contract kernel
-    for a non-minor hold-out on a card); for a COO V, one fused-index
-    ``index_add_`` over the nonzeros.
+    contraction is :func:`contract.first_contraction` (the mid_contract
+    kernel for a non-minor hold-out on a card); for a COO V, one
+    fused-index ``index_add_`` over the nonzeros.
     ``layout`` runs nothing: U holds this rank's rows of the hold-out's
     mode, so V x_left (U s) is a partial sum exactly where the cached top
     is one, and the refreshed top stays this rank's partial."""
@@ -152,7 +150,7 @@ def lr_update_cache(V, cache, U, s, VT, *, left_index: int, layout=None):
         T = _sparse_top(V, U * s, left_index)
     else:
         order = V.ndim
-        T, rem = contract.first_step(V, U * s, left_index)
+        T, rem = contract.first_contraction(V, U * s, left_index)
         perm = [rem.index(m) for m in rotation_indexes(left_index, order)]
         T = T.permute(perm + [len(rem)])
     return cache + torch.tensordot(T, VT, dims=([T.ndim - 1], [0]))
@@ -541,18 +539,16 @@ def _warm_card(W: Sequence):
     """What the first step of a run pays once per process, on R x R and
     (n, R) operands in the factors' dtype and device: the eigh, Cholesky
     and SVD solvers (cuSOLVER's handle and workspace), a matmul (cuBLAS's),
-    and the kernels' library when a ``use_kernels*`` flag can reach it on
-    a card (ops/kernels/_build.load). Nothing is drawn at random, and
-    nothing of the run's state changes."""
+    and, on a card, the kernels' library (ops/kernels/_build.load), which
+    the routes of ops/contract take there with no flag. Nothing is drawn
+    at random, and nothing of the run's state changes."""
     R = W[0].shape[1]
     dtype = torch.float32 if W[0].dtype == torch.bfloat16 else W[0].dtype
     A = W[0].T @ W[0] + torch.eye(R, dtype=dtype, device=W[0].device)
     torch.linalg.eigh(A)
     torch.linalg.cholesky_ex(A)
     torch.linalg.svd(A)
-    c = config.get()
-    if W[0].device.type == "cuda" and (c.use_kernels or c.use_kernels_first
-                                       or c.use_kernels_triple):
+    if W[0].device.type == "cuda":
         from pairwise_perturbation_tpu_torch.ops.kernels import _build
         _build.load()
 

@@ -36,12 +36,14 @@ unsharded run's. ``layout=None`` is the unsharded function, unchanged.
 
 The first contraction of V over a mode that is not its last is where a
 chain's time goes on a card: ``torch.einsum`` copies V into the permuted
-order before its GEMM. So on a CUDA V every such contraction (the first
-step of :func:`partial_mttkrp`, :func:`first_contraction`, the PP cache
-roots) goes to the hand-written ``mid_contract`` kernel, which reads V once
-in place, wherever :func:`_kernel_first` admits it; the counters
-``contract.first_kernel`` and ``contract.first_einsum`` (utils/tracing)
-count which of the two served each. A CPU V keeps the einsum.
+order before its GEMM. So the first step of every chain on V
+(:func:`first_contraction`, rank-minor, for :func:`partial_mttkrp` and the
+tree tops; :func:`_first_contraction_rm`, rank-major, for the PP cache
+roots) is one decision, :func:`_kernel_first`: the hand-written
+``mid_contract`` kernel, which reads V once in place, where a card admits
+the call, and the einsum on V everywhere else, the CPU included. The
+counters ``contract.first_kernel`` and ``contract.first_einsum``
+(utils/tracing) count which of the two served each.
 
 Every later step of a chain on a card meets the same copy: the einsum of
 :func:`contract_mode_kr` on a rank-minor intermediate (and of a rank-major
@@ -180,25 +182,18 @@ def _on_card(V, factor) -> bool:
         and factor.dtype == torch.float32
 
 
-def _kernel_first(V, factor, mode: int, layout: str = "rank_minor",
-                  jax_route: bool = False):
+def _kernel_first(V, factor, mode: int, layout: str = "rank_minor"):
     """V x_mode W over a non-minor ``mode`` from the mid_contract kernel in
     ``layout`` (its rank-last view), or None where the einsum is to serve
     it. The kernel takes it on a card (:func:`_on_card`) from a contiguous
-    V whose launch ``mid_contract.route_admits``; with ``jax_route``
-    (``use_kernels_first``) also where the JAX package's
-    ``mid_contract_eligible`` admits it, on any device. Counts the call as
+    V whose launch ``mid_contract.route_admits``. Counts the call as
     ``contract.first_kernel`` or ``contract.first_einsum``."""
-    R = factor.shape[1]
-    card = _on_card(V, factor) and V.is_contiguous() \
-        and mid_contract.route_admits(V, R, mode, layout)
-    if not card and not (jax_route and mid_contract.mid_contract_eligible(
-            V.shape, mode, V.dtype, R)):
+    if not (_on_card(V, factor) and V.is_contiguous() and
+            mid_contract.route_admits(V, factor.shape[1], mode, layout)):
         tracing.count("contract.first_einsum")
         return None
     tracing.count("contract.first_kernel")
-    return mid_contract.mid_contract(V.contiguous(), factor.contiguous(),
-                                     mode, layout)
+    return mid_contract.mid_contract(V, factor.contiguous(), mode, layout)
 
 
 def _step_on_card(T, factor) -> bool:
@@ -223,10 +218,12 @@ def _kernel_step(T, factor, pos: int, layout: str = "rank_minor"):
     return None
 
 
-def first_step(V, factor, mode: int):
-    """The first step of a chain on V: what
-    ``contract_mode_kr(V, all modes, False, factor, mode)`` computes, from
-    the mid_contract kernel where :func:`_kernel_first` takes it."""
+def first_contraction(V, factor, mode: int):
+    """V x_m W_m, the first step of a chain on V (Khatri-Rao first level):
+    what ``contract_mode_kr(V, all modes, False, factor, mode)`` computes,
+    output axes the remaining modes ascending + rank, from the mid_contract
+    kernel where :func:`_kernel_first` takes it (JAX contract.py:266-288
+    routes the same step)."""
     rem = tuple(m for m in range(V.ndim) if m != mode)
     if mode < V.ndim - 1:
         T = _kernel_first(V, factor, mode)
@@ -241,29 +238,15 @@ def partial_mttkrp(V, factors: Sequence, contract_modes: Sequence[int]):
     Returns a tensor whose axes are the remaining modes (ascending original
     order) followed by the rank axis. With all-but-one mode contracted this
     is the exact MTTKRP; with all-but-two it is a PP pair cache. The first
-    step is :func:`first_step`.
+    step is :func:`first_contraction`.
     """
     modes = tuple(contract_modes)
     if not modes:
         return V
-    T, rem = first_step(V, factors[modes[0]], modes[0])
+    T, rem = first_contraction(V, factors[modes[0]], modes[0])
     for m in modes[1:]:
         T, rem = contract_mode_kr(T, rem, True, factors[m], m)
     return T
-
-
-def fused_partial_mttkrp(V, factors: Sequence,
-                         contract_modes: Sequence[int]):
-    """Partial MTTKRP of a single-consumer chain. Returns (tensor,
-    remaining_modes). The JAX package writes this as one einsum so XLA can
-    fuse it; eager PyTorch has nothing to fuse, so it is the chain of
-    :func:`partial_mttkrp` in the given order, its first step on a card
-    from the mid_contract kernel. For bf16 V only the first step rounds
-    its factor, as the JAX version splits that step out
-    (contract.py:161-182)."""
-    cset = set(contract_modes)
-    rem = tuple(m for m in range(V.ndim) if m not in cset)
-    return partial_mttkrp(V, factors, contract_modes), rem
 
 
 def contraction_priority(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -285,100 +268,19 @@ def order_by_priority(modes, priority: Sequence[int]) -> Tuple[int, ...]:
     return tuple(sorted(modes, key=lambda m: rank_of[m]))
 
 
-def prepare_layouts(V, modes: Sequence[int]):
-    """Mode-minor copies of V for the given modes (JAX contract.py:239-253):
-    ``layouts[m]`` is V with mode m moved last, made contiguous, for every
-    listed mode but the minor one. A first-level contraction of mode m
-    then reads its copy as one GEMM over contiguous rows, where the einsum
-    on V itself makes torch.einsum copy V into that order on every call.
-    Each copy costs |V| of device memory. On a block-sharded V (-mesh)
-    they are copies of this rank's block."""
-    return {m: V.movedim(m, -1).contiguous() for m in modes
-            if m != V.ndim - 1}
-
-
-def chain_root_modes_pp(shape) -> Tuple[int, ...]:
-    """The modes some PP cache chain contracts first (JAX
-    contract.py:291-304): :func:`prepare_layouts`' candidates of the cache
-    builds, for chains planned on ``shape``."""
-    order = len(shape)
-    pr = contraction_priority(shape)
-    roots = set()
-    for i in range(order):
-        for j in range(i + 1, order):
-            key = order_by_priority(
-                (m for m in range(order) if m not in (i, j)), pr)
-            if key:
-                roots.add(key[0])
-        roots.add(order_by_priority((m for m in range(order) if m != i),
-                                    pr)[0])
-    return tuple(sorted(roots))
-
-
-def chain_root_modes_dt(shape, root_split: int = None) -> Tuple[int, ...]:
-    """The modes contracted first by the binary tree's two top-level nodes
-    (JAX contract.py:307-319); ``root_split`` as in
-    ops/dimtree.binary_parent_map (None = midpoint)."""
-    order = len(shape)
-    pr = contraction_priority(shape)
-    mid = (order - 1) // 2 if root_split is None else root_split
-    roots = set()
-    for lo, hi in ((0, mid), (mid + 1, order - 1)):
-        comp = [m for m in range(order) if not lo <= m <= hi]
-        if comp:
-            roots.add(order_by_priority(comp, pr)[0])
-    return tuple(sorted(roots))
-
-
-def first_contraction(V, factor, mode: int, use_kernels: bool = None,
-                      layouts=None):
-    """V x_m W_m (Khatri-Rao first level). Output axes: remaining modes
-    ascending + rank (same convention as :func:`contract_mode_kr`).
-
-    On the CPU this routes as the JAX package does (contract.py:266-288):
-    with ``use_kernels`` (``None`` reads ``config.get().use_kernels_first``,
-    as the JAX package's ``use_pallas=None`` reads ``use_pallas_first``) a
-    non-minor mode that ``mid_contract_eligible`` admits goes to the
-    kernel module (rank-minor output), which runs its plain version; else
-    a mode with a copy in ``layouts`` (:func:`prepare_layouts`) contracts
-    the copy's minor axis; everything else, the minor mode included, is
-    the einsum on V. On a card a non-minor mode goes to the kernel
-    wherever :func:`_kernel_first` admits it, with ``use_kernels`` or
-    without, and before ``layouts``: XLA on the TPU folds the
-    transposition into its dot, eager einsum on the H100 copies V."""
-    order = V.ndim
-    rem = tuple(m for m in range(order) if m != mode)
-    if mode < order - 1:
-        if use_kernels is None:
-            use_kernels = config.get().use_kernels_first
-        T = _kernel_first(V, factor, mode, jax_route=use_kernels)
-        if T is not None:
-            return T, rem
-        if layouts and mode in layouts:
-            letters = _MODES[:order]
-            return _einsum(f"{letters},{letters[-1]}{_RANK}->"
-                           f"{letters[:-1]}{_RANK}", layouts[mode],
-                           factor), rem
-    return contract_mode_kr(V, tuple(range(order)), False, factor, mode)
-
-
-def _first_contraction_rm(V, factor, mode: int, layouts=None):
+def _first_contraction_rm(V, factor, mode: int):
     """First-level contraction producing a RANK-MAJOR intermediate
-    (R, remaining modes ascending), the convention of the PP cache
-    chains; from the mode-minor copy in ``layouts`` where there is one
-    (JAX contract.py:322-339). On a card a non-minor mode comes first from
-    the mid_contract kernel's rank-outer layout (:func:`_kernel_first`),
-    which is this tensor physically."""
+    (R, remaining modes ascending), the convention of the PP cache chains
+    (JAX contract.py:322-339): over a non-minor mode from the mid_contract
+    kernel's rank-outer layout (:func:`_kernel_first`), which is this
+    tensor physically, where it takes the call; else the einsum on V."""
     order = V.ndim
     rem = tuple(m for m in range(order) if m != mode)
-    letters = _MODES[:order]
     if mode < order - 1:
         T = _kernel_first(V, factor, mode, "rank_outer")
         if T is not None:
             return T.movedim(-1, 0), rem
-    if layouts and mode in layouts:
-        return _einsum(f"{letters},{letters[-1]}{_RANK}->{_RANK}"
-                       f"{letters[:-1]}", layouts[mode], factor), rem
+    letters = _MODES[:order]
     out = letters[:mode] + letters[mode + 1:]
     spec = f"{letters},{letters[mode]}{_RANK}->{_RANK}{out}"
     return _einsum(spec, V, factor), rem
@@ -403,8 +305,7 @@ def _contract_mode_kr_rm(T, rem_modes: Tuple[int, ...], factor, mode: int):
     return out, rem_modes[:pos] + rem_modes[pos + 1:]
 
 
-def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
-                    shape=None, layouts=None):
+def build_pp_caches(V, factors: Sequence, shape=None):
     """Build all PP caches: pair tensors T_{ij}[R, s_i, s_j] (rank-major)
     for i<j and single matrices M_i[s_i, R].
 
@@ -413,25 +314,13 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
     prefix reuse (als_CP.cxx:385-389): cache keys are the *contracted* mode
     tuples; a chain sharing a prefix reuses the prefix intermediate.
     Chains follow :func:`contraction_priority` and run rank-major, as in
-    the JAX package (contract.py:357-442). ``layouts``
-    (:func:`prepare_layouts`) serves each chain root from its mode-minor
-    copy where there is one.
+    the JAX package (contract.py:357-442), each root from
+    :func:`_first_contraction_rm`.
 
     With ``config.get().use_kernels_triple``, an order-4 V whose axis 0
     is the smallest mode roots every chain at axis 1, 2 or 3; when
     ``triple_roots_eligible`` admits it, the three roots come from one
-    pass over V (contract.py:392-405), unless ``layouts`` is given
-    (contract.py:395-396).
-
-    On a card every other chain root over a non-minor mode comes from the
-    mid_contract kernel (:func:`_first_contraction_rm`).
-
-    ``use_kernels_first`` is the JAX package's experimental
-    ``use_pallas`` branch (contract.py:411-415), off unless given: each
-    chain root not seeded above goes through :func:`first_contraction`
-    with the kernels on (rank-last) and is moved to rank-major.
-    ``config.use_kernels_first`` does not reach here, as
-    ``use_pallas_first`` does not there.
+    pass over V (contract.py:392-405).
 
     ``shape``: the shape the chains are planned on (default V's; a
     sharded V's block passes the padded global shape, and
@@ -441,7 +330,7 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
     priority = contraction_priority(V.shape if shape is None else shape)
     memo: Dict[Tuple[int, ...], Tuple] = {}
     if config.get().use_kernels_triple and order == 4 and \
-            priority[-1] == 0 and layouts is None:
+            priority[-1] == 0:
         from pairwise_perturbation_tpu_torch.ops.kernels import triple_roots
         if triple_roots.triple_roots_eligible(V.shape, V.dtype,
                                               factors[0].shape[1]):
@@ -461,13 +350,8 @@ def build_pp_caches(V, factors: Sequence, use_kernels_first: bool = False,
             k = key[:n]
             if k in memo:
                 continue
-            if n == 1 and use_kernels_first:
-                T, rem = first_contraction(V, factors[k[0]], k[0],
-                                           use_kernels=True, layouts=layouts)
-                memo[k] = (T.movedim(-1, 0), rem)
-            elif n == 1:
-                memo[k] = _first_contraction_rm(V, factors[k[0]], k[0],
-                                                layouts)
+            if n == 1:
+                memo[k] = _first_contraction_rm(V, factors[k[0]], k[0])
             else:
                 T, rem = memo[k[:-1]]
                 memo[k] = _contract_mode_kr_rm(T, rem, factors[k[-1]], k[-1])

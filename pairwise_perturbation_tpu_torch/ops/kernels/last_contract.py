@@ -7,9 +7,10 @@ Replaces ``pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py``:
 ``last_contract`` with its Pallas kernel ``_last_kernel`` (K5), and
 ``last_contract_eligible`` with ``_last_tile``, copied verbatim so that
 the port's routing rule reads like the JAX one. As in the JAX package,
-the minor mode of ``contract.first_contraction`` stays on the einsum; the
-kernel's callers are ``triple_roots`` (K6), for the chain root O3 of the
-PP cache build, and ``scripts/bench_firstpair.py``.
+the minor mode of ``contract.first_contraction`` (the first step of every
+chain on V) stays on the einsum; the kernel's callers are
+``triple_roots`` (K6), for the chain root O3 of the PP cache build, and
+the port's ``scripts/bench_firstpair.py``.
 
 The kernel (``csrc/last_contract.cu``) views V as the (N, B) matrix
 around its last mode and computes the tall-skinny product with W in one

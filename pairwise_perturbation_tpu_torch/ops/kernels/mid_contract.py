@@ -6,12 +6,11 @@ kernel and its plain PyTorch version.
 Replaces ``pairwise_perturbation_tpu/ops/kernels/mttkrp_pallas.py``:
 ``mid_contract`` with its Pallas kernels ``_mid_kernel_t`` (rank-minor
 output, K4) and ``_mid_kernel`` (rank-major output, K4'), and
-``mid_contract_eligible``, copied verbatim so that ``use_kernels_first``
-routes the calls the JAX package's ``use_pallas_first`` routes; also the
-benchmark-only Pallas kernels that compute the same sum:
-``_mid_kernel_zp`` (rank-outer output, launched by
-``scripts/bench_rankpos.py``, S2) and ``_mm_kernel`` of
-``scripts/bench_midvariants.py`` (K4' swept over its lane tile, S5).
+``mid_contract_eligible``, copied verbatim as the pinned copy of the JAX
+package's rule (the tests hold the two equal); also the benchmark-only
+Pallas kernels that compute the same sum: ``_mid_kernel_zp`` (rank-outer
+output, launched by ``scripts/bench_rankpos.py``, S2) and ``_mm_kernel``
+of ``scripts/bench_midvariants.py`` (K4' swept over its lane tile, S5).
 
 The kernel (``csrc/mid_contract.cu``) is bound by memory bandwidth on the
 H100: it reads V once, coalesced, with the sums in registers; the
@@ -19,8 +18,8 @@ source's header says how. It takes any shape the wrapper's checks admit:
 the TPU tiling conditions of the eligibility test only decide the JAX
 package's route. On a card, ops/contract.py sends every first-level
 contraction of V over a non-minor mode here when :func:`route_admits`
-admits it, whatever ``use_kernels_first`` says, and so routes more calls
-than the JAX package: on the TPU, XLA folds the transposition of V into
+admits it, with no flag, and so routes more calls than the JAX package:
+on the TPU, XLA folds the transposition of V into
 its dot, while eager ``torch.einsum`` on the H100 first copies V into the
 permuted order and then runs a GEMM, three passes over V where the kernel
 makes one.

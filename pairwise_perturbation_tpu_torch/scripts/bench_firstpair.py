@@ -1,6 +1,6 @@
 """Time the first-level contractions of an order-4 tensor against torch's
-einsum at the coil-100 shape, then the PP cache build and the DT sweep
-with and without the kernels, and the order-3 sweep.
+einsum at the coil-100 shape, then the PP cache build, the DT sweep and
+the order-3 sweep with and without the kernels.
 
 The port's counterpart of ``scripts/bench_firstpair.py``, in its order
 and naming ("XLA" read as "torch"):
@@ -9,13 +9,11 @@ and naming ("XLA" read as "torch"):
 - ``mid_contract`` at modes 1 and 2 (K4, rank-minor), ``last_contract``
   at mode 3 (K5) and ``torch.matmul`` of the (N, B) view, the library
   call that computes K5's function; the max errors against the einsums;
-- ``contract.build_pp_caches`` plain and with ``use_kernels_first=True``
-  (chain roots through ``first_contraction``'s kernel route), and
-  ``cp.dt_sweep`` under ``config.use_kernels_first`` off and on; on a
-  card both sides of each pair take the mid_contract kernel for every
-  non-minor root (``contract._kernel_first``), the plain build in its
-  rank-outer layout, so there the pairs time two layouts of one kernel
-  and the einsum rows above are the einsum's time;
+- ``contract.build_pp_caches`` and ``cp.dt_sweep``, whose non-minor
+  chain roots take the mid_contract kernel on a card
+  (``contract._kernel_first``; the cache build in its rank-outer layout)
+  and the einsum on the CPU, so the einsum rows above are the einsum's
+  time;
 - one order-3 ALS sweep (MTTKRP, Gram, ``svd_solve`` per mode, then
   ``normalize_factors``) at ``--order3-size``^3 with ``config.use_kernels``
   off and on (K1-K3).
@@ -84,23 +82,9 @@ def run(argv=None):
     bench.check("mode3 max err", lambda: last_contract(V, Ws[3]), torch3,
                 TOL, kernel="K5")
 
-    def caches(first):
-        single, pair = contract.build_pp_caches(V, Ws,
-                                                use_kernels_first=first)
-        return {**{("single", i): t for i, t in single.items()},
-                **{("pair",) + k: t for k, t in pair.items()}}
-
-    bench.time("build_pp_caches torch", lambda: caches(False))
-    bench.time("build_pp_caches kernels", lambda: caches(True), kernel="K4")
-    bench.check("build_pp_caches max err", lambda: caches(True),
-                lambda: caches(False), TOL, kernel="K4")
-
-    def dt_sweep(first):
-        with config.override(use_kernels_first=first):
-            return cp.dt_sweep(V, Ws, 0.0, solver="svd")
-
-    bench.time("dt_sweep (torch)", lambda: dt_sweep(False))
-    bench.time("dt_sweep (kernel roots)", lambda: dt_sweep(True),
+    bench.time("build_pp_caches", lambda: contract.build_pp_caches(V, Ws),
+               kernel="K4")
+    bench.time("dt_sweep", lambda: cp.dt_sweep(V, Ws, 0.0, solver="svd"),
                kernel="K4")
 
     S = args.order3_size

@@ -88,10 +88,10 @@ def build_parser(prog: str = "pairwise_perturbation_tpu_torch"
                         "native traffic planner (native/planner.cpp); "
                         "0: reference midpoint split")
     p.add_argument("-layouts", type=int, default=0,
-                   help="1: mode-minor copies of V for the first-level "
-                        "contractions (contract.prepare_layouts; |V| of "
-                        "device memory each); dense CP test_als -pp 0, and "
-                        "-pp 1 with -device_loop 1 or 2")
+                   help="the JAX package's mode-minor copies of V; accepted "
+                        "where it reads them (dense CP test_als -pp 0, and "
+                        "-pp 1 with -device_loop 1 or 2) and builds "
+                        "nothing: on a card V is read in place")
     p.add_argument("-quiet", action="store_true")
     p.add_argument("-profile", type=int, default=0,
                    help="1: per-phase host timer scopes (synchronized; adds "

@@ -1,9 +1,9 @@
 """The card's route for the first contraction of V over a non-minor mode
 (ops/contract._kernel_first): on a CUDA V the hand-written mid_contract
-kernel takes every such contraction its launch admits, at every site (the
-first step of every chain on V, ``first_contraction``'s fallthrough, the
-PP cache roots, the LR refresh), where ``torch.einsum`` would copy V into
-the permuted order first.
+kernel takes every such contraction its launch admits, at every site
+(``first_contraction``, the first step of every chain on V; the PP cache
+roots; the LR refresh), where ``torch.einsum`` would copy V into the
+permuted order first.
 
 On the CPU the route is closed, so every path computes what it computed
 before, bit for bit. With its device test (``contract._on_card``)
@@ -135,7 +135,7 @@ def test_cpu_paths_unchanged_bit_for_bit():
     the einsum steps they were, bit for bit."""
     V, Ws = _inputs(torch.float32)
     for mode in range(4):
-        T, rem = tc.first_step(V, Ws[mode], mode)
+        T, rem = tc.first_contraction(V, Ws[mode], mode)
         T0, rem0 = tc.contract_mode_kr(V, (0, 1, 2, 3), False, Ws[mode],
                                        mode)
         assert rem == rem0 and torch.equal(T, T0)
@@ -167,7 +167,7 @@ def test_route_keeps_the_einsum(case, monkeypatch):
     monkeypatch.setattr(mc, "mid_contract",
                         lambda *a, **k: calls.append(a))
     tracing.reset()
-    T, rem = tc.first_step(V, Ws[mode], mode)
+    T, rem = tc.first_contraction(V, Ws[mode], mode)
     T0, _ = tc.contract_mode_kr(V, tuple(range(4)), False, Ws[mode], mode)
     assert not calls and torch.equal(T, T0)
     s = tracing.stats()
@@ -191,25 +191,6 @@ def test_route_admits_modes_and_grid():
     assert mc.route_admits(V, R, 1, "rank_outer")
     assert not mc.route_admits(torch.empty((3, 0, 5)), R, 1)
     assert not mc.route_admits(V, 0, 1)
-
-
-def test_first_contraction_precedence(monkeypatch):
-    """On the card's route the kernel comes before ``layouts``; with the
-    route closed the layouts' copy serves, counted as an einsum call, and
-    use_kernels_first keeps the JAX package's route on the CPU."""
-    V, Ws = _inputs()
-    copies = tc.prepare_layouts(V, (1,))
-    tracing.reset()
-    T0, _ = tc.first_contraction(V, Ws[1], 1, layouts=copies)
-    assert tracing.stats()["contract.first_einsum"][0] == 1
-    _open_route(monkeypatch)
-    used = []
-    monkeypatch.setattr(tc, "_einsum", lambda spec, *ops: used.append(spec)
-                        or torch.einsum(spec, *ops))
-    tracing.reset()
-    T, _ = tc.first_contraction(V, Ws[1], 1, layouts=copies)
-    assert not used and tracing.stats()["contract.first_kernel"][0] == 1
-    assert _rel(T, T0) <= F64
 
 
 def test_bf16_route_matches_einsum_chain(monkeypatch):

@@ -1,9 +1,8 @@
 """The port's last first-level kernels against the JAX package's Pallas
 kernels on the same numpy inputs: ops/kernels/last_contract.py (K5),
 mid_contract.py's rank-outer layout (S2) and block widths (S5),
-column_sum.py (S4), and the explicit kernel switches of
-ops/contract.py (``first_contraction(use_kernels=)``,
-``build_pp_caches(use_kernels_first=)``).
+column_sum.py (S4), and the PP cache build's chain roots through
+ops/contract.py's kernel route (``contract._kernel_first``).
 
 On the CPU each wrapper takes its plain version, which is held to the
 Pallas kernel in interpret mode. The benchmark-only kernels of
@@ -23,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-from pairwise_perturbation_tpu_torch import config
 from pairwise_perturbation_tpu_torch.ops import contract as tc
 from pairwise_perturbation_tpu_torch.ops.kernels import column_sum as cs
 from pairwise_perturbation_tpu_torch.ops.kernels import last_contract as lc
@@ -441,48 +439,24 @@ def _first_problem(R=4):
     return V, Ws
 
 
-def test_first_contraction_use_kernels_argument(monkeypatch):
-    """``use_kernels=True`` routes an eligible mode to the kernel module
-    whatever the config says, ``False`` never, ``None`` reads
-    ``config.use_kernels_first``; held to the JAX interpret-mode route at
-    rel 2e-5."""
-    import jax.numpy as jnp
-    from pairwise_perturbation_tpu.ops import contract as jc
-    V, Ws = _first_problem()
-    tV, tW = torch.from_numpy(V), torch.from_numpy(Ws[0])
-    calls = _spy(monkeypatch, mc, "mid_contract")
-    got, rem = tc.first_contraction(tV, tW, 0, use_kernels=True)
-    assert len(calls) == 1
-    with config.override(use_kernels_first=True):
-        tc.first_contraction(tV, tW, 0, use_kernels=False)
-        assert len(calls) == 1
-        tc.first_contraction(tV, tW, 0)
-    assert len(calls) == 2
-    tc.first_contraction(tV, tW, 0)
-    assert len(calls) == 2
-    want, jrem = jc.first_contraction(jnp.asarray(V), None,
-                                      jnp.asarray(Ws[0]), 0,
-                                      use_pallas=True, interpret=True)
-    assert rem == jrem == (1, 2)
-    assert _rel(got, want) <= 2e-5
-
-
 def test_build_pp_caches_use_kernels_first(monkeypatch):
-    """``use_kernels_first=True`` sends each chain root through
-    ``first_contraction``'s kernel route (only root 0 is eligible here);
-    ``config.use_kernels_first`` alone does not reach the roots. Every
-    cache equals the JAX ``use_pallas=True, interpret=True`` build to 3e-5
-    (the JAX triple test's tolerance)."""
+    """With the kernel route open (``contract._on_card`` patched to admit
+    the CPU) each non-minor chain root goes to the kernel module's plain
+    version, in the rank-outer layout: roots 1 and 0 here, the minor
+    root 2 on the einsum; with the route closed none does. Every cache
+    equals the JAX ``use_pallas=True, interpret=True`` build to 3e-5 (the
+    JAX triple test's tolerance)."""
     import jax.numpy as jnp
     from pairwise_perturbation_tpu.ops import contract as jc
     V, Ws = _first_problem()
     tV, tW = torch.from_numpy(V), [torch.from_numpy(W) for W in Ws]
     calls = _spy(monkeypatch, mc, "mid_contract")
-    with config.override(use_kernels_first=True):
-        tc.build_pp_caches(tV, tW)
+    tc.build_pp_caches(tV, tW)
     assert calls == []
-    ts_, tp = tc.build_pp_caches(tV, tW, use_kernels_first=True)
-    assert [a[2] for a in calls] == [0]
+    monkeypatch.setattr(tc, "_on_card", lambda V, factor: True)
+    ts_, tp = tc.build_pp_caches(tV, tW)
+    assert [(a[2], a[3]) for a in calls] == [(1, "rank_outer"),
+                                             (0, "rank_outer")]
     js_, jp = jc.build_pp_caches(jnp.asarray(V), [jnp.asarray(W) for W in Ws],
                                  use_pallas=True, interpret=True)
     assert sorted(tp) == sorted(jp)
@@ -665,22 +639,27 @@ def test_cuda_column_sum_ragged_and_unaligned():
 
 
 @pytest.mark.cuda
-def test_cuda_contract_switches_launch_k4():
-    """On a card: ``first_contraction(use_kernels=True)`` and
-    ``build_pp_caches(use_kernels_first=True)`` launch K4 for the eligible
-    root and agree with the einsum route to rel 1e-4."""
+def test_cuda_contract_switches_launch_k4(monkeypatch):
+    """On a card, with no flag: ``first_contraction`` launches K4 for a
+    non-minor mode and ``build_pp_caches`` launches it, rank-outer, for
+    its two non-minor roots; both agree with the einsum route (the device
+    test closed) to rel 1e-4."""
     _cuda_or_skip()
     V, Ws = _first_problem()
     tV = torch.from_numpy(V).cuda()
     tW = [torch.from_numpy(W).cuda() for W in Ws]
-    n0 = mc.LAUNCHES["rank_minor"]
-    got, _ = tc.first_contraction(tV, tW[0], 0, use_kernels=True)
-    want, _ = tc.first_contraction(tV, tW[0], 0, use_kernels=False)
-    assert mc.LAUNCHES["rank_minor"] == n0 + 1
-    assert _held(got, want) <= 1e-4
-    ks, kp = tc.build_pp_caches(tV, tW, use_kernels_first=True)
+    before = dict(mc.LAUNCHES)
+    got, _ = tc.first_contraction(tV, tW[0], 0)
+    ks, kp = tc.build_pp_caches(tV, tW)
+    torch.cuda.synchronize()
+    assert {k: mc.LAUNCHES[k] - before[k] for k in mc.LAYOUTS} == \
+        {"rank_minor": 1, "rank_major": 0, "rank_outer": 2}
+    monkeypatch.setattr(tc, "_on_card", lambda V, factor: False)
+    want, _ = tc.first_contraction(tV, tW[0], 0)
     ps, pp = tc.build_pp_caches(tV, tW)
-    assert mc.LAUNCHES["rank_minor"] == n0 + 2
+    assert {k: mc.LAUNCHES[k] - before[k] for k in mc.LAYOUTS} == \
+        {"rank_minor": 1, "rank_major": 0, "rank_outer": 2}
+    assert _held(got, want) <= 1e-4
     for k in pp:
         assert _held(kp[k], pp[k]) <= 1e-4
     for k in ps:

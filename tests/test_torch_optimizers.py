@@ -26,9 +26,10 @@ from pairwise_perturbation_tpu.models import optimizers as jopt
 from pairwise_perturbation_tpu.ops import dimtree as jdt
 from pairwise_perturbation_tpu.ops import solve as jsolve
 from pairwise_perturbation_tpu.ops import sparse as jsp
-from pairwise_perturbation_tpu_torch import cli, config
+from pairwise_perturbation_tpu_torch import cli
 from pairwise_perturbation_tpu_torch.models import cp as tcp
 from pairwise_perturbation_tpu_torch.models import optimizers as topt
+from pairwise_perturbation_tpu_torch.ops import contract as tc
 from pairwise_perturbation_tpu_torch.ops import dimtree as tdt
 from pairwise_perturbation_tpu_torch.ops import solve as tsolve
 from pairwise_perturbation_tpu_torch.ops import sparse
@@ -89,11 +90,12 @@ def test_chain_tree_sweep_mttkrp_matches_jax(shape):
 
 
 def test_chain_top_takes_mid_contract_under_use_kernels_first(monkeypatch):
-    """Hold-out 1 of a (2, 8, 32768) f32 tensor is one that
-    mid_contract_eligible admits (B 8, M 32768): under use_kernels_first
-    the chain top goes through the kernel module, on the CPU its plain
-    version, and equals the einsum route (the same sums, rel 1e-6);
-    without it, and for the minor hold-out, the module is not called."""
+    """Hold-out 1 of a (2, 8, 32768) f32 tensor is one the kernel route
+    admits: with the route open (``contract._on_card`` patched to admit
+    the CPU) the chain top goes through the kernel module, on the CPU its
+    plain version, and equals the einsum route (the same sums, rel 1e-6);
+    with the route closed, and for the minor hold-out, the module is not
+    called."""
     calls = []
     plain = mid_contract.mid_contract_plain
 
@@ -105,13 +107,12 @@ def test_chain_top_takes_mid_contract_under_use_kernels_first(monkeypatch):
     gen = torch.Generator().manual_seed(0)
     V = torch.rand((2, 8, 32768), generator=gen)
     W = torch.rand((8, 4), generator=gen)
-    assert mid_contract.mid_contract_eligible(V.shape, 1, V.dtype, 4)
+    assert mid_contract.route_admits(V, 4, 1)
     want = topt.chain_top(V, W, left_index=1)
     assert calls == []
-    with config.override(use_kernels_first=True):
-        got = topt.chain_top(V, W, left_index=1)
-        topt.chain_top(V, torch.rand((32768, 4), generator=gen),
-                       left_index=2)
+    monkeypatch.setattr(tc, "_on_card", lambda V, factor: True)
+    got = topt.chain_top(V, W, left_index=1)
+    topt.chain_top(V, torch.rand((32768, 4), generator=gen), left_index=2)
     assert calls == [1]
     assert got.shape == want.shape == (32768, 2, 4)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
@@ -381,22 +382,23 @@ def test_cli_run_f32_profile(tmp_path, capsys):
 
 
 @pytest.mark.cuda
-def test_cuda_chain_top_launches_k4():
-    """On a card: the chain top of an eligible hold-out launches K4 once
-    under use_kernels_first, none without it, and agrees with the einsum
-    to rel 1e-4 (f32 sums in another order)."""
+def test_cuda_chain_top_launches_k4(monkeypatch):
+    """On a card, with no flag: the chain top of a non-minor hold-out
+    launches K4 once, none with the route closed (``contract._on_card``
+    patched), and agrees with that einsum route to rel 1e-4 (f32 sums in
+    another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(3)
     V = torch.rand((3, 128, 16, 2048), generator=gen, device="cuda")
     W = torch.rand((128, 10), generator=gen, device="cuda")
-    assert mid_contract.mid_contract_eligible(V.shape, 1, V.dtype, 10)
     n0 = mid_contract.LAUNCHES["rank_minor"]
+    monkeypatch.setattr(tc, "_on_card", lambda V, factor: False)
     want = topt.chain_top(V, W, left_index=1)
     torch.cuda.synchronize()
     assert mid_contract.LAUNCHES["rank_minor"] == n0
-    with config.override(use_kernels_first=True):
-        got = topt.chain_top(V, W, left_index=1)
+    monkeypatch.undo()
+    got = topt.chain_top(V, W, left_index=1)
     torch.cuda.synchronize()
     assert mid_contract.LAUNCHES["rank_minor"] == n0 + 1
     assert got.shape == want.shape == (16, 2048, 3, 10)

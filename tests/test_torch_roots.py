@@ -53,6 +53,10 @@ def _layout(rank_minor):
     return "rank_minor" if rank_minor else "rank_major"
 
 
+def _open_route(monkeypatch):
+    monkeypatch.setattr(tc, "_on_card", lambda V, factor: True)
+
+
 def _spy(monkeypatch, module, name):
     calls = []
     orig = getattr(module, name)
@@ -315,9 +319,10 @@ def test_non_cpu_tensors_without_cuda_raise():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_first_contraction_kernel_route(monkeypatch, dtype):
-    """use_kernels_first routes an eligible non-minor mode to the kernel
-    module. f32 is held to the JAX interpret-mode route (2e-5); bf16 to the
-    JAX einsum route (1e-6); the minor mode never routes."""
+    """The kernel route, open to the CPU (``contract._on_card`` patched),
+    sends a non-minor mode to the kernel module. f32 is held to the JAX
+    interpret-mode route (2e-5); bf16 to the JAX einsum route (1e-6); the
+    minor mode never routes."""
     import jax.numpy as jnp
     from pairwise_perturbation_tpu.ops import contract as jc
     shape, R = (2, 16, 16, 2048), 5
@@ -327,9 +332,9 @@ def test_first_contraction_kernel_route(monkeypatch, dtype):
     jV = jnp.asarray(V, _jdt(dtype))
     tV = torch.tensor(V, dtype=dtype)
     calls = _spy(monkeypatch, mc, "mid_contract")
-    with config.override(use_kernels_first=True):
-        got, rem = tc.first_contraction(tV, torch.from_numpy(Ws[1]), 1)
-        tc.first_contraction(tV, torch.from_numpy(Ws[3]), 3)
+    _open_route(monkeypatch)
+    got, rem = tc.first_contraction(tV, torch.from_numpy(Ws[1]), 1)
+    tc.first_contraction(tV, torch.from_numpy(Ws[3]), 3)
     assert [a[2] for a in calls] == [1]
     if dtype == torch.float32:
         want, jrem = jc.first_contraction(jV, None, jnp.asarray(Ws[1]), 1,
@@ -373,11 +378,12 @@ def test_build_pp_caches_triple_route(monkeypatch, dtype):
 
 def test_dimtree_top_child_goes_through_first_contraction(monkeypatch):
     """The repair of the port's dimension tree: at tree_split 0 on an
-    order-3 tensor the top-level child (1, 2) is one mode (0) away from V
-    and is built by contract.first_contraction (JAX dimtree.py:104-121),
-    which with use_kernels_first reaches the mid_contract module (mode 0
-    of (8, 128, 256) is eligible). The leaves equal the JAX tree's to f32
-    round-off (rel 1e-5)."""
+    order-3 tensor each top-level child starts its chain on V with
+    contract.first_contraction (JAX dimtree.py:104-121): (0, 0) with the
+    minor mode 2, then (1, 2), one mode (0) away from V, which with the
+    kernel route open (``contract._on_card`` patched) reaches the
+    mid_contract module. The leaves equal the JAX tree's to f32 round-off
+    (rel 1e-5)."""
     import jax.numpy as jnp
     from pairwise_perturbation_tpu.ops import dimtree as jd
     shape, R = (8, 128, 256), 4
@@ -388,12 +394,11 @@ def test_dimtree_top_child_goes_through_first_contraction(monkeypatch):
     kernel = _spy(monkeypatch, mc, "mid_contract")
     jt = jd.BinaryTreeSweep(jnp.asarray(V), [jnp.asarray(W) for W in Ws],
                             root_split=0)
-    with config.override(use_kernels_first=True):
-        tt = td.BinaryTreeSweep(torch.from_numpy(V),
-                                [torch.from_numpy(W) for W in Ws],
-                                root_split=0)
-        leaves = [tt.mttkrp(i) for i in range(3)]
-    assert [a[2] for a in first] == [0]
+    _open_route(monkeypatch)
+    tt = td.BinaryTreeSweep(torch.from_numpy(V),
+                            [torch.from_numpy(W) for W in Ws], root_split=0)
+    leaves = [tt.mttkrp(i) for i in range(3)]
+    assert [a[2] for a in first] == [2, 0]
     assert [a[2] for a in kernel] == [0]
     for i in range(3):
         assert _rel(leaves[i], jt.mttkrp(i)) <= 1e-5
@@ -436,20 +441,23 @@ def _assert_same_history(rj, rt, tol):
 
 @pytest.mark.parametrize("case", ["first_512_class", "triple_coil_class"])
 def test_whole_slice_f32_with_kernel_toggles(monkeypatch, case):
-    """10 sweeps of als_cp_pp in f32 with a toggle on against the JAX
-    package with both off, from the same numpy tensor and factors: the
-    same DT <-> PP history, gradnorm and diffV within 1e-3 of the run's
-    scale, and the kernel module reached on every DT sweep or cache
-    build."""
+    """10 sweeps of als_cp_pp in f32 through a kernel module (the first
+    contraction's route open to the CPU, or use_kernels_triple on) against
+    the JAX package with its kernels off, from the same numpy tensor and
+    factors: the same DT <-> PP history, gradnorm and diffV within 1e-3
+    of the run's scale, and the kernel module reached as the route
+    reckons: once a DT sweep (the top child (1, 2)) and twice a cache
+    build (roots 1 and 0), or once a cache build."""
     from pairwise_perturbation_tpu.models import cp as jcp
     from pairwise_perturbation_tpu_torch.models import cp as tcp
     from pairwise_perturbation_tpu_torch.utils import interop
     if case == "first_512_class":
-        shape, R, toggle, mod, name = ((8, 128, 256), 4, "use_kernels_first",
-                                       mc, "mid_contract")
+        shape, R, toggle, mod, name = (8, 128, 256), 4, {}, mc, "mid_contract"
+        _open_route(monkeypatch)
     else:
-        shape, R, toggle, mod, name = (TRIPLE_SHAPE, 3, "use_kernels_triple",
-                                       tr, "triple_roots")
+        shape, R, toggle, mod, name = (TRIPLE_SHAPE, 3,
+                                       {"use_kernels_triple": True}, tr,
+                                       "triple_roots")
     V = _low_rank(shape, R, seed=4)
     Ws = _jax_init(shape, R)
     kw = dict(tol=0.0, pp_res_tol=0.1, maxiter=10, resprint=1, tree_split=0)
@@ -457,11 +465,11 @@ def test_whole_slice_f32_with_kernel_toggles(monkeypatch, case):
     calls = _spy(monkeypatch, mod, name)
     builds = _spy(monkeypatch, tcp, "pp_build_caches")
     sweeps = _spy(monkeypatch, tcp, "dt_sweep")
-    with config.override(**{toggle: True}):
+    with config.override(**toggle):
         rt = tcp.als_cp_pp(*interop.from_numpy(V, Ws, device="cpu"),
                            tcp.CPConfig(**kw))
     _assert_same_history(rj, rt, 1e-3)
-    expected = len(sweeps) if toggle == "use_kernels_first" else len(builds)
+    expected = len(builds) if toggle else len(sweeps) + 2 * len(builds)
     assert len(calls) == expected > 0
 
 

@@ -23,9 +23,7 @@ ROWS = {
          "mid_contract mode 1", "mid_contract mode 2",
          "last_contract mode 3", "torch.matmul mode 3 (library call for K5)",
          "mode1 max err", "mode2 max err", "mode3 max err",
-         "build_pp_caches torch", "build_pp_caches kernels",
-         "build_pp_caches max err", "dt_sweep (torch)",
-         "dt_sweep (kernel roots)", "order3 sweep torch",
+         "build_pp_caches", "dt_sweep", "order3 sweep torch",
          "order3 sweep kernels", "order3 MTTKRP max err"],
         ["--order3-size", "12"]),
     "bench_rankpos": (

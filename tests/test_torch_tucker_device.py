@@ -25,6 +25,7 @@ from pairwise_perturbation_tpu.models import tucker as jtk
 from pairwise_perturbation_tpu_torch import cli, config
 from pairwise_perturbation_tpu_torch.models import cp as tcp
 from pairwise_perturbation_tpu_torch.models import tucker as ttk
+from pairwise_perturbation_tpu_torch.ops import contract
 from pairwise_perturbation_tpu_torch.ops.kernels import (
     column_sum, coo_mttkrp, last_contract, mid_contract, mttkrp3,
     triple_roots)
@@ -232,7 +233,8 @@ def test_tucker_fused_chunk_decays_tol_init_as_jax():
 @pytest.mark.parametrize("name", ENGINES)
 def test_engines_launch_no_kernel(monkeypatch, name):
     """Tucker reaches no kernel wrapper, in either engine, with every
-    kernel switch on (the JAX package reaches no pl.pallas_call here)."""
+    kernel switch on and the first contraction's kernel route open to the
+    CPU (the JAX package reaches no pl.pallas_call here)."""
     calls = []
     for mod, fn in ((mttkrp3, "mttkrp3_mode"), (mid_contract, "mid_contract"),
                     (last_contract, "last_contract"),
@@ -241,8 +243,8 @@ def test_engines_launch_no_kernel(monkeypatch, name):
         monkeypatch.setattr(mod, fn, lambda *a, _fn=fn, **k: calls.append(
             _fn))
     V = _problem().astype(np.float32)
-    with config.override(use_kernels=True, use_kernels_first=True,
-                         use_kernels_triple=True):
+    monkeypatch.setattr(contract, "_on_card", lambda V, factor: True)
+    with config.override(use_kernels=True, use_kernels_triple=True):
         res = getattr(ttk, name)(_t(V), RANKS, ttk.TuckerConfig(
             **dict(CFG, maxiter=12)))
     assert {h["pp"] for h in res.history} == {0, 1}
