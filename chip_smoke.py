@@ -58,8 +58,9 @@ traceback and exits nonzero:
    version in float64 to CS_TOL and two launches bit for bit equal,
    timed beside torch.einsum (T's permuted copy, then a GEMV); then at
    the coil shape, f32, a DT sweep at the midpoint and the planned root
-   split, a diagnostics row and a cache build, each with the launches
-   and the route's counters read from zero and held to COIL_CHAIN_STEPS.
+   split, a diagnostics row at the planned split and a cache build, each
+   with the launches and the route's counters read from zero and held to
+   COIL_CHAIN_STEPS.
    Every kernel row of phases 3-3e is timed beside its plain version, the
    one PyTorch call that computes the same function (or "none"), and its
    bound: the larger of its bytes (each input read once, each output
@@ -114,7 +115,7 @@ traceback and exits nonzero:
 
 8. ``run`` (the second-gen optimizers), f32, rank 10. At 512^3 through
    the CLI: -pp 4 (Simple), whose K1, K2 and K3 launch once a step (in
-   dtime) and once, once and twice a diagnostics row; -pp 1 (MSDT): K4
+   dtime) and once each a diagnostics row; -pp 1 (MSDT): K4
    serves every step whose hold-out is mode 0 or 1. At the coil-100
    shape through ``cli.run_cpd`` (the body of ``run``; the CLI makes
    cubic tensors only): -pp 0-3 a few sweeps each and -pp 1 -device_loop
@@ -250,7 +251,7 @@ traceback and exits nonzero:
    in f64) and held to its plain version at rank 0's block, modes 0-2.
    13b. The CLI in the same cluster: ``run -pp 4 -mesh 2`` at 512^3 f32
    (K1-K3 on each rank's (256, 512, 512) block, once a Simple step and
-   1/1/2 a diagnostics row, each held to its plain version there) and
+   1/1/1 a diagnostics row, each held to its plain version there) and
    ``run -pp 1 -device_loop 1 -mesh 2`` at 200^3 f64, each CSV against
    the unsharded CLI's.
    13c. A world of one on NCCL (``--nproc_per_node 1``, ``run -pp 3
@@ -264,7 +265,7 @@ traceback and exits nonzero:
    engine, f32.
    14a. The 200^3 CLI, -device_loop 0 then 1: the same (iter, pp) rows,
    final factors (-checkpoint) within DEVICE_LOOP_FACTOR_TOL, K1-K3
-   1/1/2 a logged row in both (the device engine's from the ring's
+   1/1/1 a logged row in both (the device engine's from the ring's
    snapshots); scope medians, sweeps issued and masked, ms an issued
    sweep and host pulls a phase.
    14b. The coil shape under use_kernels_triple, cp.als_cp_pp against
@@ -284,7 +285,7 @@ traceback and exits nonzero:
    flags agree, factors bit for bit, else the fit.
    15a. test_als -model CP -pp 1 at 200^3 rank 10, -device_loop 0, 1 and
    2 from the same factors: rows, final factors (-checkpoint), K1-K3
-   1/1/2 a logged row (and the fused engine's final exact call),
+   1/1/1 a logged row (and the fused engine's final exact call),
    [dtime], body steps by kind, pulls a sweep, -profile scope medians.
    15b. The coil shape under use_kernels_triple, cp.als_cp_pp against
    cp.als_cp_pp_fused: K6 and K5 once a cache build; rows and factors,
@@ -310,7 +311,7 @@ traceback and exits nonzero:
    warm-up's seconds by function and _build.load()'s.
    16b. the CP device engines (-device_loop 1, 2) on 2 ranks over gloo on
    the card at 200^3 (f64 by rows and factors, f32 by the fit; K1-K3 on
-   each rank's block in the exact rows, 1/1/2 a row and a warm-up's), a
+   each rank's block in the exact rows, 1/1/1 a row and a warm-up's), a
    world of one on NCCL bit for bit, then at the coil shape with K6 (f32,
    K6 and K5 once an in-loop build and once in the warm-ups) beside
    Tucker's device engines (f32); mesh.all_reduce calls and seconds.
@@ -1257,9 +1258,10 @@ CS_TOL = 1e-5
 # the planners' order (priority (3, 1, 2, 0); tests/test_torch_step_route.py
 # counts them at a shape planned alike): a DT sweep 6 at the midpoint root
 # split and 7 at the planner's split 2 (the CLI's and the benchmark's), a
-# diagnostics row 10, a cache build 2 (its rank-major steps over a middle
-# mode; K6's roots leave the same steps).
-COIL_CHAIN_STEPS = {"dt_midpoint": 6, "dt_planned": 7, "diagnostics": 10,
+# diagnostics row at split 2 the same 7 (its four MTTKRPs from the DT
+# sweep's tree), a cache build 2 (its rank-major steps over a middle mode;
+# K6's roots leave the same steps).
+COIL_CHAIN_STEPS = {"dt_midpoint": 6, "dt_planned": 7, "diagnostics": 7,
                     "cache_build": 2}
 # chain_step's launches on the main path, by phase (3e, 5).
 CS_PATH_LAUNCHES = {}
@@ -1284,8 +1286,9 @@ def compare_chain_step():
     plain version in float64 (CS_TOL), two launches bit for bit equal,
     timed beside the plain version, torch.einsum and the bytes bound; then
     the main path at the coil shape: a DT sweep at both root splits, a
-    diagnostics row and a cache build, each with chain_step's launches and
-    the route's counters read from zero and held to COIL_CHAIN_STEPS."""
+    diagnostics row at the planned one and a cache build, each with
+    chain_step's launches and the route's counters read from zero and
+    held to COIL_CHAIN_STEPS."""
     import torch
     from pairwise_perturbation_tpu_torch import native
     from pairwise_perturbation_tpu_torch.models import cp
@@ -1337,8 +1340,8 @@ def compare_chain_step():
              lambda: cp.dt_sweep(V, Ws, 0.0)),
             (f"DT sweep, planned split {split}", "dt_planned",
              lambda: cp.dt_sweep(V, Ws, 0.0, root_split=split)),
-            ("diagnostics row", "diagnostics",
-             lambda: cp.cp_diagnostics(vn, V, Ws)),
+            (f"diagnostics row, planned split {split}", "diagnostics",
+             lambda: cp.cp_diagnostics(vn, V, Ws, root_split=split)),
             ("cache build", "cache_build", lambda: cp.pp_build_caches(V, Ws))]
     total = 0
     for label, key, fn in runs:
@@ -1637,8 +1640,9 @@ def run_coil_order4(dtype="float32", triple=False, beside=None,
                                  "rank-outer launches and one K5 a call")
     if dtype == "float32" and not partial:
         # chain_step (CS) on the main path: the planned split's 7 steps a
-        # DT sweep, 10 a diagnostics row, 2 a cache build; the warm-ups'
-        # DT sweep and cache build 7 + 2 (its warm PP sweep makes none)
+        # DT sweep and 7 a diagnostics row (the same tree), 2 a cache
+        # build; the warm-ups' DT sweep and cache build 7 + 2 (its warm PP
+        # sweep makes none)
         steps = COIL_CHAIN_STEPS
         held_apart("CS", counts["chain_step.chain_step"],
                    warm.get("chain_step.chain_step", 0),
@@ -1762,8 +1766,8 @@ def run_cli_run(pp, maxiter, *extra):
 
 
 def run_512_optimizers():
-    """Phase 8 at 512^3: Simple (K1-K3 once a step, in dtime, and once,
-    once and twice a diagnostics row), then MSDT (on a card K4 once a
+    """Phase 8 at 512^3: Simple (K1-K3 once a step, in dtime, and once
+    each a diagnostics row), then MSDT (on a card K4 once a
     step whose hold-out is mode 0 or 1).
     Returns ({kernel id: launches}, {label: (scope, median s)})."""
     from pairwise_perturbation_tpu_torch.ops.kernels import mid_contract
@@ -1773,9 +1777,9 @@ def run_512_optimizers():
     k = [counts[f"mttkrp3.{m}"] for m in range(3)]
     print(f"Simple: {steps} steps, {rows} diagnostics rows; K1-K3 "
           f"launches {k}, step median {1e3 * med:.3f} ms")
-    if k != [steps + rows, steps + rows, steps + 2 * rows]:
+    if k != [steps + rows] * 3:
         raise AssertionError("K1-K3 launches differ from one each a Simple "
-                             "step and 1/1/2 a diagnostics row")
+                             "step and 1/1/1 a diagnostics row")
     launches = {f"K{m + 1}": n for m, n in enumerate(k)}
     medians = {"Simple 512^3": ("CPSimpleOptimizer.step", med)}
     stats, counts = run_cli_run(1, 6)
@@ -3593,8 +3597,7 @@ def run_dense_cli(b, tmp, smi):
         for r, res in enumerate(b):
             n = json.loads(str(res["cli_launches"]))[k]
             got = [n[f"mttkrp3.{m}"] for m in range(3)]
-            want = [n_rows, n_rows, 2 * n_rows] if d == "float32" \
-                else [0, 0, 0]
+            want = [n_rows] * 3 if d == "float32" else [0, 0, 0]
             print(f"12c rank {r} {d}: K1-K3 launches {got} on its block "
                   f"(100, 200, 200), expected {want} ({n_rows} rows)")
             if got != want:
@@ -3735,7 +3738,7 @@ RUN_MESH_SPECS = [
 RUN_MESH_FACTOR_TOL = 1e-9
 RUN_MESH_F32_DIFFV = 1e-4
 # 13b: the CLI in the same cluster: Simple at 512^3 f32 (K1-K3 on each
-# rank's (256, 512, 512) block, a step and 1/1/2 a diagnostics row) and
+# rank's (256, 512, 512) block, a step and 1/1/1 a diagnostics row) and
 # MSDT -device_loop 1 at 200^3 f64 (a rotation a step); 13c: a world of
 # one on NCCL, MSDT-LR at 200^3 f32.
 RUN_MESH_CLI = [
@@ -3871,7 +3874,7 @@ def run_mesh_cli(a, tmp, smi):
             n = json.loads(str(res["cli_launches"]))[k]
             got = [n[f"mttkrp3.{m}"] for m in range(3)]
             steps = got[0] - rows
-            want = [steps + rows, steps + rows, steps + 2 * rows]
+            want = [steps + rows] * 3
             print(f"13b rank {r}: K1-K3 launches {got} on its block (256, "
                   f"512, 512): {steps} Simple steps and {rows} rows "
                   f"(expected {want})")
@@ -4071,7 +4074,7 @@ def device_loop_report(label, eng, stats, counts, smi):
 def device_loop_cli(tmp, smi):
     """14a: the 200^3 CLI, f32, -device_loop 0 then 1 (each after a
     3-sweep warm-up): the same (iter, pp) rows, final factors (its
-    -checkpoint) within DEVICE_LOOP_FACTOR_TOL, K1-K3 1/1/2 a logged row
+    -checkpoint) within DEVICE_LOOP_FACTOR_TOL, K1-K3 1/1/1 a logged row
     in both. Returns K1-K3's launches."""
     import numpy as np
     from pairwise_perturbation_tpu_torch import cli
@@ -4105,11 +4108,11 @@ def device_loop_cli(tmp, smi):
     n_rows = len(r0) - 1
     for loop, launches in (("0", l0), ("1", l1)):
         got = [launches[m] for m in range(3)]
-        # the phase engine warms the exact row statistics once (1/1/2)
+        # the phase engine warms the exact row statistics once (1/1/1)
         w = int(loop == "1")
-        want = [n_rows + w, n_rows + w, 2 * (n_rows + w)]
+        want = [n_rows + w] * 3
         print(f"14a -device_loop {loop}: K1-K3 launches {got} (expected "
-              f"{want}: 1/1/2 a logged row" + (", and the warm-up's)"
+              f"{want}: 1/1/1 a logged row" + (", and the warm-up's)"
                                                   if w else ")"))
         if got != want:
             raise AssertionError(f"14a -device_loop {loop}: K1-K3 {got}")
@@ -4321,7 +4324,7 @@ def fused_cp_cli(tmp, smi):
     """15a: the 200^3 CLI, f32, -device_loop 0, 1 and 2 from the same
     factors (each after a 3-sweep warm-up): the rows beside the fused
     run's, final factors bit for bit where no row parts (else the last
-    diffV within DEVICE_LOOP_COIL_DIFFV of the host engine's), K1-K3 1/1/2
+    diffV within DEVICE_LOOP_COIL_DIFFV of the host engine's), K1-K3 1/1/1
     a logged row plus the final call; each engine again in reverse order
     (its [dtime], its rows unchanged); then -profile runs for ms a body
     step. Returns K1-K3's launches of the first runs."""
@@ -4365,9 +4368,9 @@ def fused_cp_cli(tmp, smi):
         # the final exact call of the fused machine, and one warm-up of
         # the exact statistics in each device engine
         n = len(rows[loop]) - 1 + (loop == "2") + (loop != "0")
-        want = [n, n, 2 * n]
+        want = [n] * 3
         print(f"15a -device_loop {loop}: K1-K3 launches {launches[loop]} "
-              f"(expected {want}: 1/1/2 a logged row"
+              f"(expected {want}: 1/1/1 a logged row"
               + (", the final exact call" if loop == "2" else "")
               + (" and the warm-up's)" if loop != "0" else ")"))
         if launches[loop] != want:
@@ -4930,12 +4933,12 @@ def run_dl_mesh(tmp, smi):
             n = json.loads(str(res[f"{tag}_launches/float32"]))
             k = [n[f"mttkrp3.{m}"] for m in range(3)]
             rows = len(res[f"{tag}_hist/float32"])
-            # 1/1/2 a logged row, the warm-up's, and the fused machine's
+            # 1/1/1 a logged row, the warm-up's, and the fused machine's
             # final exact call
             w = rows + 1 + (tag == "dcl2")
             print(f"16b rank {r} {DL_ENGINES[tag]} f32: K1-K3 {k} on its "
-                  f"block (100, 200, 200), expected {[w, w, 2 * w]}")
-            if k != [w, w, 2 * w]:
+                  f"block (100, 200, 200), expected {[w] * 3}")
+            if k != [w] * 3:
                 failures.append(f"16b rank {r} {tag}: K1-K3 {k}")
             for m in range(3):
                 launches[f"K{m + 1}"] += k[m]

@@ -278,23 +278,44 @@ def ratios_and_gradnorm(Ws, dWs, grads, layout=None):
     return torch.cat([r, gn[None].to(r.dtype)])
 
 
-def cp_diagnostics(V_norm_sq, V, Ws, lam=None, layout=None):
+def cp_diagnostics(V_norm_sq, V, Ws, lam=None, layout=None, root_split=None):
     """(gradnorm, diffV), both EXACT at the current iterate: gradnorm from
-    fresh per-mode MTTKRPs (contract.cp_gradnorm) and diffV via the norm
-    identity with a fresh exact MTTKRP. Exact recomputation keeps the
+    fresh per-mode MTTKRPs (contract.gradnorm_from) and diffV via the
+    norm identity with the last mode's. Exact recomputation keeps the
     logged gradnorm on one scale across the DT and PP phases.
+
+    All N MTTKRPs are taken at the same factors, so they come from one
+    binary dimension tree (dimtree.BinaryTreeSweep at root split
+    ``root_split``: the engine's ``tree_split``, so that a row builds the
+    tree of its exact sweeps; None the midpoint): two first-level reads
+    of V for all N, and its leaf N-1 is diffV's MTTKRP. An order-3
+    float32 V on contract.mttkrp's fused route (K1-K3, one read of V a
+    mode) keeps a kernel a mode, its mode-2 result serving diffV. The
+    counter ``cp.diag_v_reads`` adds the first-level reads of V that
+    ops/contract.py counted while the row ran (``contract.V_READS``): 2
+    on the tree, N on the fused route.
 
     bf16-stored V is upcast to the factor dtype first (JAX cp.py:295-296):
     the mixed-precision rule would otherwise round the factors to bf16 as
     well, and the norm identity's cancellation then clamps diffV to 0.
-    Order 3 then reaches the f32 MTTKRP kernels; under ``layout`` on
-    this rank's block, each MTTKRP summed over the other sharded modes
-    (parallel/mesh.sharded_mttkrp's reduction)."""
+    Under ``layout`` V and Ws are this rank's blocks and each MTTKRP is
+    summed over the other sharded modes (the tree's leaves, as in a DT
+    sweep)."""
     if V.dtype == torch.bfloat16:
         V = V.to(Ws[0].dtype)
-    gn = contract.cp_gradnorm(V, list(Ws), regul=lam, layout=layout)
-    M_last = contract.mttkrp(V, Ws, len(Ws) - 1, layout=layout)
-    diffV = contract.cp_residual_norm(V_norm_sq, M_last, Ws, layout)
+    Ws = list(Ws)
+    reads = tracing.counted(contract.V_READS)
+    if contract.takes_mttkrp3(V):
+        Ms = [contract.mttkrp(V, Ws, i, layout=layout)
+              for i in range(V.ndim)]
+    else:
+        tree = dimtree.BinaryTreeSweep(V, Ws, root_split=root_split,
+                                       layout=layout)
+        Ms = [tree.mttkrp(i) for i in range(V.ndim)]
+    tracing.count("cp.diag_v_reads",
+                  tracing.counted(contract.V_READS) - reads)
+    gn = contract.gradnorm_from(Ms, Ws, regul=lam, layout=layout)
+    diffV = contract.cp_residual_norm(V_norm_sq, Ms[-1], Ws, layout)
     return gn, diffV
 
 
@@ -365,7 +386,7 @@ def _paused_call(fn, *args, **kwargs):
 
 
 def _diag_and_log(V_norm_sq, V, Ws, lam, clock, plot, it, tol, pp_flag,
-                  history, layout=None):
+                  history, layout=None, root_split=None):
     """Run EXACT diagnostics with excluded time, log a CSV row, return
     scalars. Queued sweep work is synced BEFORE the excluded window opens,
     so it counts toward dtime. Under ``layout`` the time limit reads rank
@@ -374,7 +395,7 @@ def _diag_and_log(V_norm_sq, V, Ws, lam, clock, plot, it, tol, pp_flag,
     _sync()
     with clock.exclude():
         gn, diffV = tracing.timed("cp.diagnostics", cp_diagnostics,
-                                  V_norm_sq, V, Ws, lam, layout)
+                                  V_norm_sq, V, Ws, lam, layout, root_split)
         tracing.count("wait.pull", 2)
         gn, diffV = float(gn), float(diffV)
     dtime = pmesh.agreed_dtime(clock, None if layout is None else layout.mesh,
@@ -424,7 +445,7 @@ def _als_generic(V, Ws, cfg: CPConfig, plot, sweep_fn,
         if it % cfg.resprint == 0 or it == cfg.maxiter:
             gn, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, cfg.lam, clock, plot, it, cfg.tol, 0,
-                history, cfg.mesh_layout)
+                history, cfg.mesh_layout, cfg.tree_split)
             if gn < cfg.tol:
                 converged = True
                 break
@@ -455,7 +476,7 @@ def _dt_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq):
         if it % cfg.resprint == 0 or it == cfg.maxiter:
             gn, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, cfg.lam, clock, plot, it, cfg.tol, 0,
-                state["history"], layout)
+                state["history"], layout, cfg.tree_split)
             state["last_logged"] = it
             state["gradnorm"], state["diffV"] = gn, diffV
             if gn < cfg.tol:
@@ -594,7 +615,7 @@ def _pp_sub(V, Ws, dWs, cfg: CPConfig, plot, clock, state, V_norm_sq,
         if it % cfg.resprint == 0 or it == cfg.maxiter or it == init_iter:
             gn, diffV, dtime = _diag_and_log(
                 V_norm_sq, V, Ws, cfg.lam, clock, plot, it, cfg.tol, 1,
-                state["history"], layout)
+                state["history"], layout, cfg.tree_split)
             state["last_logged"] = it
             state["gradnorm"], state["diffV"] = gn, diffV
             if gn < cfg.tol:
@@ -730,10 +751,11 @@ def _sweep_norm_stats(V_norm_sq, Ws, grads, lam, layout=None):
     return gn, torch.sqrt(torch.clamp(V_norm_sq - vhat_sq, min=0.0))
 
 
-def _exact_row_stats(V, V_norm_sq, Ws, lam, layout=None):
+def _exact_row_stats(V, V_norm_sq, Ws, lam, layout=None, root_split=None):
     """EXACT (gradnorm, diffV) of a logged row (:func:`cp_diagnostics`),
     in the factors' dtype."""
-    gn, diffV = cp_diagnostics(V_norm_sq, V, list(Ws), lam, layout)
+    gn, diffV = cp_diagnostics(V_norm_sq, V, list(Ws), lam, layout,
+                               root_split)
     return gn.to(Ws[0].dtype), diffV.to(Ws[0].dtype)
 
 
@@ -960,7 +982,7 @@ def _warm_phases(V, V_norm_sq, Ws, lam, ratio_step, *, solver, root_split,
                                 [torch.zeros_like(W) for W in Ws], lam,
                                 ratio_step, solver=solver, layout=layout)
     _pp_sweep_norm_stats(V_norm_sq, single, pair, Ws3, dWs3, grads, layout)
-    _exact_row_stats(V, V_norm_sq, Ws, lam, layout)
+    _exact_row_stats(V, V_norm_sq, Ws, lam, layout, root_split)
 
 
 def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
@@ -1021,7 +1043,7 @@ def als_cp_pp_device(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
                 for slot in range(min(sn, n_slots)):
                     g, d = tracing.timed("cp.diagnostics", _exact_row_stats,
                                          V, V_norm_sq, [s[slot] for s in snaps],
-                                         lam, layout)
+                                         lam, layout, cfg.tree_split)
                     exact[labels_h[slot]] = (float(g), float(d))
         for row_i in range(n):
             dt_row = t_start + (t_end - t_start) * (row_i + 1) / max(n, 1)
@@ -1305,7 +1327,8 @@ def als_cp_pp_fused(V, Ws, cfg: CPConfig, plot: Optional[PlotFile] = None,
 
     def exact(Ws_):
         gn_, dv_ = tracing.timed("cp.diagnostics", cp_diagnostics,
-                                 V_norm_sq, V, Ws_, lam, layout)
+                                 V_norm_sq, V, Ws_, lam, layout,
+                                 cfg.tree_split)
         return float(gn_), float(dv_)
 
     def now():

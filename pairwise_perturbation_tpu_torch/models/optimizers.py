@@ -591,8 +591,11 @@ class CPD(Decomposition):
         solvers, a matmul, the kernels' load). A COO V takes the sparse
         engine's norm and diagnostics (models/sparse_cp.py).
 
-        Under the layout of :meth:`init` the norm and the diagnostics are
-        summed over the ranks' blocks (``cp.cp_diagnostics(layout=)``),
+        A dense row's MTTKRPs come from ``cp.cp_diagnostics``'s binary
+        tree at its midpoint root split: the optimizers build chain trees
+        and plan no split. Under the layout of :meth:`init` the norm and
+        the diagnostics are summed over the ranks' blocks
+        (``cp.cp_diagnostics(layout=)``),
         the time limit reads rank 0's clock (every rank leaves at the
         same row) and the CSV's dimension column is the unsharded
         tensor's, as ``models/cp.py``'s engines write it."""

@@ -75,6 +75,9 @@ _RANK = "Z"
 _RANK2 = "Y"
 # entries of one torch.dot at most (norm_sq)
 DOT_MAX = 1 << 30
+# counter of the first-level reads of V: a chain's first contraction, a
+# fused order-3 MTTKRP, the triple roots' one pass
+V_READS = "contract.v_reads"
 
 
 def _einsum(spec, *ops):
@@ -137,8 +140,9 @@ def mttkrp(V, factors: Sequence, mode: int, layout=None):
     modes (one all_reduce).
     """
     order = V.ndim
-    if config.get().use_kernels and order == 3 and V.dtype == torch.float32:
+    if takes_mttkrp3(V):
         from pairwise_perturbation_tpu_torch.ops.kernels import mttkrp3
+        tracing.count(V_READS)
         M = mttkrp3.mttkrp3_mode(V.contiguous(),
                                  [W.contiguous() for W in factors], mode)
     else:
@@ -148,6 +152,14 @@ def mttkrp(V, factors: Sequence, mode: int, layout=None):
         M = partial_mttkrp(V, factors, order_by_priority(
             others, contraction_priority(plan_shape(V, layout))))
     return collectives.reduce_modes([M], layout, (mode,))[0]
+
+
+def takes_mttkrp3(V) -> bool:
+    """Whether :func:`mttkrp` serves V from the fused order-3 kernel
+    module (K1-K3, one read of V a mode): an order-3 float32 V under
+    ``config.get().use_kernels``."""
+    return config.get().use_kernels and V.ndim == 3 and \
+        V.dtype == torch.float32
 
 
 def contract_mode_kr(T, rem_modes: Tuple[int, ...], has_rank: bool, factor,
@@ -224,6 +236,7 @@ def first_contraction(V, factor, mode: int):
     output axes the remaining modes ascending + rank, from the mid_contract
     kernel where :func:`_kernel_first` takes it (JAX contract.py:266-288
     routes the same step)."""
+    tracing.count(V_READS)
     rem = tuple(m for m in range(V.ndim) if m != mode)
     if mode < V.ndim - 1:
         T = _kernel_first(V, factor, mode)
@@ -274,6 +287,7 @@ def _first_contraction_rm(V, factor, mode: int):
     (JAX contract.py:322-339): over a non-minor mode from the mid_contract
     kernel's rank-outer layout (:func:`_kernel_first`), which is this
     tensor physically, where it takes the call; else the einsum on V."""
+    tracing.count(V_READS)
     order = V.ndim
     rem = tuple(m for m in range(order) if m != mode)
     if mode < order - 1:
@@ -337,6 +351,7 @@ def build_pp_caches(V, factors: Sequence, shape=None):
             o1, o2, o3 = triple_roots.triple_roots(
                 V.contiguous(), *(W.contiguous() for W in factors[1:]))
             tracing.count("contract.first_kernel", 2)  # modes 1 and 2
+            tracing.count(V_READS)
             memo[(1,)] = (o1, (0, 2, 3))
             memo[(2,)] = (o2, (0, 1, 3))
             memo[(3,)] = (o3, (0, 1, 2))
@@ -437,17 +452,26 @@ def build_dense(factors: Sequence):
 
 
 def cp_gradient(V, factors: Sequence, regul=None, layout=None):
-    """Full CP gradient for all modes: grad_i = -M_i + W_i S_i.
+    """Full CP gradient for all modes: grad_i = -M_i + W_i S_i, from a
+    fresh :func:`mttkrp` per mode.
 
     Reference: ``gradient_CP`` (common.cxx:1009-1052). ``layout``: each
     grad is this rank's row block.
     """
-    grads = []
-    for i in range(len(factors)):
-        M = mttkrp(V, factors, i, layout=layout)
-        S = hadamard_gram(factors, skip_mode=i, regul=regul, layout=layout)
-        grads.append(-M + factors[i] @ S)
-    return grads
+    return gradients_from([mttkrp(V, factors, i, layout=layout)
+                           for i in range(len(factors))], factors, regul,
+                          layout)
+
+
+def gradients_from(Ms: Sequence, factors: Sequence, regul=None,
+                   layout=None):
+    """grad_i = -M_i + W_i S_i of every mode from its exact MTTKRP
+    ``Ms[i]``: the one formula of :func:`cp_gradient` and the
+    diagnostics rows (models/cp.py), which take their Ms from a
+    dimension tree."""
+    return [gradsubprob(M, hadamard_gram(factors, skip_mode=i, regul=regul,
+                                         layout=layout), factors[i])
+            for i, M in enumerate(Ms)]
 
 
 def gradsubprob(M, S, W):
@@ -455,12 +479,13 @@ def gradsubprob(M, S, W):
     return -M + W @ S
 
 
-def cp_gradnorm(V, factors: Sequence, regul=None, layout=None):
-    """EXACT CP gradient norm sqrt(sum_i ||-M_i + W_i S_i||^2) at the
-    current iterate (fresh MTTKRP per mode); diagnostics only, as in the
-    JAX package (contract.py:534-546)."""
-    grads = cp_gradient(V, factors, regul=regul, layout=layout)
-    sq = [torch.sum(g * g) for g in grads]
+def gradnorm_from(Ms: Sequence, factors: Sequence, regul=None, layout=None):
+    """EXACT CP gradient norm sqrt(sum_i ||-M_i + W_i S_i||^2) from the
+    exact MTTKRPs ``Ms`` (:func:`gradients_from`), the JAX package's
+    ``cp_gradnorm`` (contract.py:534-546) given its MTTKRPs; ``layout``:
+    the squares summed over the ranks' rows."""
+    sq = [torch.sum(g * g)
+          for g in gradients_from(Ms, factors, regul, layout)]
     return torch.sqrt(sum(collectives.row_sum(sq, range(len(sq)), layout)))
 
 

@@ -73,7 +73,8 @@ def phase_calls(shape, R: int, device) -> Dict[str, Callable[[], object]]:
         "dt_sweep": lambda: cp.dt_sweep(V, Ws, 0.0, root_split=split),
         "pp_build_caches": lambda: cp.pp_build_caches(V, Ws),
         "pp_sweep": lambda: cp.pp_sweep(single, pair, Ws, Ws, dWs, 0.0, 1.0),
-        "cp_diagnostics": lambda: cp.cp_diagnostics(V_norm_sq, V, Ws),
+        "cp_diagnostics": lambda: cp.cp_diagnostics(V_norm_sq, V, Ws,
+                                                    root_split=split),
         "svd_solve": lambda: solve.svd_solve(M, S),
     }
 

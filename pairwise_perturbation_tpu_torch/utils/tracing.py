@@ -31,9 +31,12 @@ host engine; ``wait.sync``: an explicit device sync) and their PP phases
 (``cp.pp_phase``, ``tucker.pp_phase``); ops/contract.py counts each
 first-level contraction of V over a non-minor mode by what served it
 (``contract.first_kernel``: the mid_contract kernel;
-``contract.first_einsum``: torch.einsum) and each later chain step of a
-rank-carrying intermediate (``contract.step_kernel``: the chain_step
-kernel; ``contract.step_einsum``: torch.einsum); parallel/collectives.py
+``contract.first_einsum``: torch.einsum), each first-level read of V
+whatever served it (``contract.v_reads``; models/cp.py counts a
+diagnostics row's share of them as ``cp.diag_v_reads``) and each later
+chain step of a rank-carrying intermediate (``contract.step_kernel``:
+the chain_step kernel; ``contract.step_einsum``: torch.einsum);
+parallel/collectives.py
 counts its all_reduces, their bytes and its broadcasts
 (``mesh.all_reduce_count``, ``mesh.all_reduce_bytes``,
 ``mesh.broadcast_count``). :func:`stats` and :func:`report`
@@ -100,6 +103,11 @@ def paused() -> Iterator[None]:
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``."""
     _counts[name] += n
+
+
+def counted(name: str) -> int:
+    """The counter ``name`` as it stands (0 if never counted); no sync."""
+    return _counts.get(name, 0)
 
 
 def timed(name: str, fn, *args, **kwargs):

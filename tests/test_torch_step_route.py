@@ -231,8 +231,9 @@ def _open_route(monkeypatch):
 # (priority (3, 1, 2, 0)): a DT sweep's tree nodes make 6 steps (the tree's
 # four MTTKRPs at fixed factors the same 6), the four MTTKRPs 8 (the
 # mode-3 chain's two with the first level over mode 1), a diagnostics row
-# 10, a cache build 2 (rank-major over mode 2's middle).
-SITES = {"dt_sweep": 6, "dt_tree": 6, "mttkrp": 8, "cp_diagnostics": 10,
+# 6 (its four MTTKRPs from the same midpoint tree), a cache build 2
+# (rank-major over mode 2's middle).
+SITES = {"dt_sweep": 6, "dt_tree": 6, "mttkrp": 8, "cp_diagnostics": 6,
          "build_pp_caches": 2}
 
 
@@ -315,7 +316,8 @@ def test_world_of_one_equals_one_process(site, monkeypatch):
 
 def test_engine_counts_every_step_on_the_cpu():
     """A CP-DT fit on the CPU: every chain step counted as an einsum call,
-    6 a DT sweep (the warm-up's too) and 10 a diagnostics row."""
+    6 a DT sweep (the warm-up's too) and 6 a diagnostics row (the same
+    midpoint tree)."""
     V, Ws = _inputs(dtype=torch.float32)
     tracing.reset()
     tracing.enable()
@@ -328,14 +330,15 @@ def test_engine_counts_every_step_on_the_cpu():
     sweeps = s["cp.sweep"][0] + 1
     rows = s["cp.diagnostics"][0]
     assert res.iters >= 4 and rows >= 2
-    assert _steps() == (0, 6 * sweeps + 10 * rows)
+    assert _steps() == (0, 6 * sweeps + 6 * rows)
 
 
 
 def test_pp_engine_counts_every_step_on_the_cpu():
     """A CP-PP fit on the CPU at root split 2 (the planner's at the coil
     shape, planned alike): every chain step counted as an einsum call, 7
-    a DT sweep, 10 a diagnostics row, 2 a cache build, and 7 + 2 in the
+    a DT sweep and 7 a diagnostics row (the same tree at the engine's
+    split), 2 a cache build, and 7 + 2 in the
     warm-ups (a DT sweep, and the cache build the first PP phase reuses;
     the warm PP sweep makes none)."""
     V, Ws = _inputs(dtype=torch.float32)
@@ -350,7 +353,7 @@ def test_pp_engine_counts_every_step_on_the_cpu():
     sweeps, rows = s["cp.dt_sweep"][0], s["cp.diagnostics"][0]
     builds = s["cp.pp_cache_build"][0]
     assert res.iters >= 20 and builds >= 1 and s["cp.pp_sweep"][0] >= 1
-    assert _steps() == (0, 7 * sweeps + 10 * rows + 2 * builds + 7 + 2)
+    assert _steps() == (0, 7 * sweeps + 7 * rows + 2 * builds + 7 + 2)
 
 
 def _reading(stats):

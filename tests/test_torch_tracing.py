@@ -40,7 +40,8 @@ NEW_METRICS = ("host_waits_per_sweep", "pp_phases_per_fit",
 COUNTERS = ("wait.solve", "wait.pull", "wait.sync", "cp.pp_phase",
             "tucker.pp_phase", "contract.first_kernel",
             "contract.first_einsum", "contract.step_kernel",
-            "contract.step_einsum")
+            "contract.step_einsum", "contract.v_reads",
+            "cp.diag_v_reads")
 SWEEPS = ("cp.dt_sweep", "cp.sweep", "cp.pp_sweep", "tucker.dt_sweep",
           "tucker.pp_sweep")
 SPANS = SWEEPS + ("cp.fit", "tucker.fit", "warmup", "cp.restart_check",
